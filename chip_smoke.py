@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU.
 
 Run from the repository root, with no arguments:  python3 chip_smoke.py
 
@@ -7,25 +7,44 @@ Phases (one line each; any failure raises, so the exit code is not 0):
   0. the card (nvidia-smi name and power limit), torch/CUDA versions, and
      the kernels built from ops/csrc/ (build seconds);
   1. the InstanceNorm + LeakyReLU kernel against its plain version at the
-     post-stride shapes of the planned U-Net, at the main path's largest
-     batch, with both medians at each batch of the main path;
+     post-stride shapes of the planned U-Net, at the serving path's largest
+     batch, with both medians at each batch of the serving path and at the
+     train batch;
   2. the fused conv + InstanceNorm + LeakyReLU kernel against its plain
      version at every stride-1 (Cin, Cout, spatial) of the planned U-Net,
      likewise;
   3. the full-width U-Net, kernel route against plain route, same weights,
      one window batch (f32 and bf16);
-  4. the main path: a hippocampus-scale synthetic task is planned and
+  4. the serving path: a hippocampus-scale synthetic task is planned and
      preprocessed, a seeded full-width model is saved as a port checkpoint,
      and ``nnUNet_torch_inference --device cuda`` segments its 4 cases (one
      window each) and one larger case (8 windows, overlap-added); the launch
      counters must equal what the route predicts, the larger case's f32
      probabilities must agree with the plain route's, and the plain route
-     is timed beside the kernel route.
-The line before the last is the kernels' JSON record (times per forward at
-the main path's largest batch); the last line is ``{"ok": true, "device":
+     is timed beside the kernel route;
+  5. the backward kernels (InstanceNorm + LeakyReLU backward, the fused
+     conv's data gradient) against their plain versions at every stride-1
+     and post-stride shape of the train step, at the train batch (2), in
+     f32 and bf16, with medians per train step (kernel, plain, and cuDNN's
+     data gradient as the library time);
+  6. the training path: ``nnUNet_torch_train_base_v2 --device cuda`` trains
+     the full-width U-Net for 2 epochs of 60 steps with augmentation; the
+     launch counters of all four kernels must equal what the route predicts
+     per step, the loss must be finite and fall, and
+     ``nnUNet_torch_inference --device cuda`` serves the checkpoint it wrote
+     (Dice recorded); one f32 train step from the same weights and batch,
+     kernel route against plain route (loss and every gradient, both held
+     to the plain route in f64); warm seconds per train step, the routes in
+     turns, peak device memory, and the kernel route's device time by
+     kernel (torch.profiler).
+The line before the last is the kernels' JSON record (forward kernels per
+forward at the serving path's largest batch, backward kernels per train
+step; ``launches`` summed over the serving and training runs, and per path
+under ``launches_by_path``); the last line is ``{"ok": true, "device":
 {...}}``.  Work files go to build/chip_smoke/ and are removed at the end.
 The script imports only the port, never the JAX package, and fails if any
-of jax, flax, optax, msgpack or sklearn was imported by the end of the run.
+of lifelong_nnunet_tpu, jax, flax, optax, msgpack or sklearn was imported
+by the end of the run.
 """
 
 from __future__ import annotations
@@ -48,31 +67,55 @@ sys.path.insert(0, ROOT)
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
+from lifelong_nnunet_tpu_torch.data.augment import AugmentConfig  # noqa: E402
+from lifelong_nnunet_tpu_torch.data.dataset import PreprocessedDataset  # noqa: E402
+from lifelong_nnunet_tpu_torch.data.sampler import PatchSampler  # noqa: E402
 from lifelong_nnunet_tpu_torch.device import resolve_device  # noqa: E402
+from lifelong_nnunet_tpu_torch.evaluation.metrics import subject_metrics  # noqa: E402
 from lifelong_nnunet_tpu_torch.inference.predict import (  # noqa: E402
     case_files, predict_case, predict_from_folder, preprocess_for_inference)
 from lifelong_nnunet_tpu_torch.inference.sliding_window import (  # noqa: E402
     predict_sliding_window, window_grid)
-from lifelong_nnunet_tpu_torch.models.unet import ConvNormAct, unet_from_plans  # noqa: E402
+from lifelong_nnunet_tpu_torch.models.unet import (  # noqa: E402
+    ConvNormAct, ds_scale_factors, unet_from_plans)
 from lifelong_nnunet_tpu_torch.ops.kernels import build  # noqa: E402
 from lifelong_nnunet_tpu_torch.ops.kernels.conv3d import (  # noqa: E402
-    conv3d_in_lrelu_cf, plain_conv3d_in_lrelu)
+    conv3d_dx_cf, conv3d_in_lrelu_cf, plain_conv3d_dx, plain_conv3d_in_lrelu)
 from lifelong_nnunet_tpu_torch.ops.kernels.instance_norm import (  # noqa: E402
-    instance_norm_leaky_cf, plain_instance_norm_leaky)
+    instance_norm_leaky_bwd_cf, instance_norm_leaky_cf, plain_instance_norm_leaky,
+    plain_instance_norm_leaky_bwd)
+from lifelong_nnunet_tpu_torch.ops.losses import deep_supervision_loss  # noqa: E402
+from lifelong_nnunet_tpu_torch.planning.plans import Plans, plans_path  # noqa: E402
+from lifelong_nnunet_tpu_torch.run.plan_and_preprocess import plan_and_preprocess  # noqa: E402
 from lifelong_nnunet_tpu_torch.run.run_inference import run_inference  # noqa: E402
-from lifelong_nnunet_tpu_torch.shared import (  # noqa: E402
-    Plans, plan_and_preprocess, plans_path, read_image, subject_metrics)
+from lifelong_nnunet_tpu_torch.run.run_training import (  # noqa: E402
+    output_folder, run_training)
 from lifelong_nnunet_tpu_torch.training.checkpoints import (  # noqa: E402
     base_manifest, save_checkpoint)
+from lifelong_nnunet_tpu_torch.training.optimizer import PolySGD  # noqa: E402
 from lifelong_nnunet_tpu_torch.training.restore import restore_model  # noqa: E402
+from lifelong_nnunet_tpu_torch.training.train_step import (  # noqa: E402
+    StepConfig, make_train_step)
+from lifelong_nnunet_tpu_torch.utilities.imageio import read_image  # noqa: E402
+from lifelong_nnunet_tpu_torch.utilities.synthetic import make_synthetic_task  # noqa: E402
 
 WINDOW_BATCH = 8                 # the CLI's default
+STEP_REPS = 10                   # timed train steps per route and turn
+PROFILE_STEPS = 5                # profiled kernel-route train steps
 TTA = 8                          # mirror combos over 3 axes
 SEED = 0
 SMALL_SHAPE = (60, 84, 60)       # hippocampus scale: crops to one patch
 LARGE_SHAPE = (84, 120, 84)      # crops to 80x116x80: a 2x2x2 window grid
-NO_JAX = ("jax", "jaxlib", "flax", "optax", "msgpack", "sklearn")
+TRAIN_BATCH = 2                  # the plan's batch
+TRAIN_EPOCHS, TRAIN_ITERS, VAL_ITERS = 2, 60, 4
+NO_JAX = ("lifelong_nnunet_tpu", "jax", "jaxlib", "flax", "optax", "msgpack", "sklearn")
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): bf16 tensor
+# cores and HBM3
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12           # CUDA cores, the InstanceNorm's elementwise math
+PEAK_BYTES = 3.35e12
 
 
 def _time_ms(fn, reps: int = 5) -> float:
@@ -99,6 +142,37 @@ def _compare(name, out, ref, atol, rtol):
     return err.max().item()
 
 
+def _bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    """(ms, "operations" or "bytes"): the least time the card could take for
+    ``flops`` operations at ``peak`` and ``nbytes`` of memory traffic (each
+    input read once, each output written once)."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _library_dgrad(dy, x, w):
+    """cuDNN's data gradient of the 3x3x3 SAME conv: the library call the
+    data-gradient kernel is timed against (never used by the port)."""
+    return torch.ops.aten.convolution_backward(
+        dy, x, w, None, (1, 1, 1), (1, 1, 1), (1, 1, 1), False, (0, 0, 0), 1,
+        (True, False, False))[0]
+
+
+COUNTED = {"conv3d_in_lrelu": conv3d_in_lrelu_cf,
+           "instance_norm_leaky": instance_norm_leaky_cf,
+           "conv3d_dx": conv3d_dx_cf,
+           "instance_norm_leaky_bwd": instance_norm_leaky_bwd_cf}
+
+
+def _reset_counts():
+    for wrapper in COUNTED.values():
+        wrapper.launches = 0
+
+
+def _counts() -> dict:
+    return {name: wrapper.launches for name, wrapper in COUNTED.items()}
+
+
 def _block_shapes(model, patch, device):
     """(fused, in_shape, out_shape) of every ConvNormAct in forward order,
     recorded by hooks on one batch-1 forward."""
@@ -115,23 +189,10 @@ def _block_shapes(model, patch, device):
     return seen
 
 
-def _load_synthetic():
-    """``tests/synthetic.py`` by path: a ``tests`` package installed on the
-    host would shadow the repository's ``tests`` directory."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "lnn_tests_synthetic", os.path.join(ROOT, "tests", "synthetic.py"))
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs an NVIDIA GPU: "
                          "torch.cuda.is_available() is false")
-    make_synthetic_task = _load_synthetic().make_synthetic_task
-
     # plain f32 references run in true f32 (cuDNN would use TF32 by default)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -204,11 +265,14 @@ def main() -> int:
         n_strided = len(shapes) - n_fused
 
         # ---- phase 1: IN + LeakyReLU kernel at the post-stride maps
-        sizes = sorted(set(batches))
+        # timed at the serving path's batches and the train step's
+        timed = sorted(set(batches) | {TRAIN_BATCH})
         in_err = 0.0
-        in_ms, in_plain_ms = dict.fromkeys(sizes, 0.0), dict.fromkeys(sizes, 0.0)
+        in_ms, in_plain_ms = dict.fromkeys(timed, 0.0), dict.fromkeys(timed, 0.0)
+        in_numel = 0
         for _, _, out_shape in (s for s in shapes if not s[0]):
             c = out_shape[0]
+            in_numel += batch * math.prod(out_shape)
             scale, bias = randn(c) * 0.1 + 1, randn(c) * 0.1
             for dtype, atol, rtol in ((torch.float32, 1e-4, 0.0),
                                       (torch.bfloat16, 3e-2, 1e-2)):
@@ -218,15 +282,18 @@ def main() -> int:
                 torch.cuda.synchronize()
                 in_err = max(in_err, _compare(f"IN {dtype} {(batch,) + out_shape}",
                                               out, ref, atol, rtol))
-            for b in sizes:
+            for b in timed:
                 xb = x[:b]
                 in_plain_ms[b] += _time_ms(lambda: plain_instance_norm_leaky(xb, scale, bias))
                 in_ms[b] += _time_ms(lambda: instance_norm_leaky_cf(xb, scale, bias))
+        # bf16 x read and out written once; ~10 f32 operations an element
+        in_bound = _bound(10 * in_numel, 2 * 2 * in_numel, PEAK_F32_FLOPS)
         print(f"[phase 1] instance_norm_leaky: {n_strided} post-stride shapes ok "
               f"(B={batch}: f32 atol 1e-4; bf16 atol 3e-2 + rtol 1e-2), max err "
               f"{in_err:.3e}; per forward, kernel vs plain: "
               + "; ".join(f"B={b} {in_ms[b]:.3f} vs {in_plain_ms[b]:.3f} ms"
-                          for b in sizes), flush=True)
+                          for b in timed)
+              + f"; B={batch} bound {in_bound[0]:.3f} ms ({in_bound[1]})", flush=True)
 
         # ---- phase 2: fused conv kernel at every stride-1 shape
         fused = {}
@@ -235,8 +302,12 @@ def main() -> int:
                 key = (in_shape[0], out_shape[0], in_shape[1:])
                 fused[key] = fused.get(key, 0) + 1
         conv_err = 0.0
-        conv_ms, conv_plain_ms = dict.fromkeys(sizes, 0.0), dict.fromkeys(sizes, 0.0)
+        conv_ms, conv_plain_ms = dict.fromkeys(timed, 0.0), dict.fromkeys(timed, 0.0)
+        conv_lib_ms, conv_flops, conv_bytes = 0.0, 0, 0
         for (cin, cout, sp), count in fused.items():
+            vox = batch * math.prod(sp)
+            conv_flops += count * 2 * 27 * cin * cout * vox
+            conv_bytes += count * 2 * (vox * (cin + cout) + 27 * cin * cout)
             w = randn(cout, cin, 3, 3, 3) * math.sqrt(2.0 / (27 * cin))
             scale, off = randn(cout) * 0.1 + 1, randn(cout) * 0.1
             for dtype, atol, rtol in ((torch.float32, 1e-3, 0.0),
@@ -248,7 +319,9 @@ def main() -> int:
                 conv_err = max(conv_err, _compare(
                     f"conv {dtype} B={batch} {cin}->{cout} {sp}", out, ref, atol, rtol))
             del out, ref
-            for b in sizes:
+            wb = w.to(torch.bfloat16)
+            conv_lib_ms += count * _time_ms(lambda: F.conv3d(x, wb, padding=1))
+            for b in timed:
                 xb = x[:b]
                 p_ms = _time_ms(lambda: plain_conv3d_in_lrelu(xb, w, scale, off))
                 k_ms = _time_ms(lambda: conv3d_in_lrelu_cf(xb, w, scale, off))
@@ -259,12 +332,15 @@ def main() -> int:
                       f"{'x'.join(map(str, sp)):>9} B={b:<2} bf16 x{count}: kernel "
                       f"{k_ms:8.3f} ms ({tflops / k_ms:.1f} TFLOP/s), plain "
                       f"{p_ms:8.3f} ms", flush=True)
-            del x, xb
+            del x, xb, wb
+        conv_bound = _bound(conv_flops, conv_bytes)
         print(f"[phase 2] conv3d_in_lrelu: {len(fused)} stride-1 shapes ok (B={batch}: "
               f"f32 atol 1e-3; bf16 atol 5e-2 + rtol 1e-2), max err "
               f"{conv_err:.3e}; per forward, kernel vs plain: "
               + "; ".join(f"B={b} {conv_ms[b]:.3f} vs {conv_plain_ms[b]:.3f} ms"
-                          for b in sizes), flush=True)
+                          for b in timed)
+              + f"; B={batch}: cuDNN F.conv3d alone {conv_lib_ms:.3f} ms, bound "
+              f"{conv_bound[0]:.3f} ms ({conv_bound[1]})", flush=True)
 
         # ---- phase 3: the full-width model, kernel route vs plain route
         model_p = unet_from_plans(plans, "3d_fullres", dtype=torch.bfloat16,
@@ -290,7 +366,7 @@ def main() -> int:
         assert res[torch.float32][0] <= 1e-3 and res[torch.bfloat16][1] >= 0.95, res
         del model_k, model_p, x
 
-        # ---- phase 4: the main path through the CLI entry point
+        # ---- phase 4: the serving path through the CLI entry point
         results = os.path.join(work, "results")
         os.environ.update({"nnUNet_raw_data_base": os.path.join(work, "raw"),
                            "nnUNet_preprocessed": pre, "RESULTS_FOLDER": results})
@@ -305,16 +381,15 @@ def main() -> int:
                 "-window_batch", str(WINDOW_BATCH), "--device", "cuda"]
         out_main = os.path.join(work, "seg_main")
         torch.cuda.reset_peak_memory_stats()
-        conv3d_in_lrelu_cf.launches = 0
-        instance_norm_leaky_cf.launches = 0
+        _reset_counts()
         t0 = time.perf_counter()
         run_inference(argv + ["-o", out_main])
         torch.cuda.synchronize()
         main_s = time.perf_counter() - t0
-        launches = {"conv3d_in_lrelu": conv3d_in_lrelu_cf.launches,
-                    "instance_norm_leaky": instance_norm_leaky_cf.launches}
+        launches = _counts()
         expect = {"conv3d_in_lrelu": n_fused * forwards,
-                  "instance_norm_leaky": n_strided * forwards}
+                  "instance_norm_leaky": n_strided * forwards,
+                  "conv3d_dx": 0, "instance_norm_leaky_bwd": 0}
         assert launches == expect, (launches, expect)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -383,7 +458,7 @@ def main() -> int:
                 for run in window_s[use_kernels])
 
         print(f"[phase 4] nnUNet_torch_inference on {n} cases (windows per volume "
-              f"{windows}; {forwards} forwards, batches {sizes} = windows x {TTA} "
+              f"{windows}; {forwards} forwards, batches {sorted(set(batches))} = windows x {TTA} "
               f"mirrors): {main_s / n:.3f} s/volume (first run, {main_s:.2f} s), peak "
               f"{peak_gb:.2f} GB; warm, in turns: kernel route "
               f"{statistics.median(route_s[True]) / n:.3f} s/volume vs plain route "
@@ -397,6 +472,246 @@ def main() -> int:
               f"(limit 1e-3); launches {launches} == predicted; seg agreement with "
               f"the plain route {min(agree):.5f}; Dice (random weights, recorded) "
               f"{[[round(d, 4) for d in ds] for ds in dice]}", flush=True)
+
+        # ---- phase 5: the backward kernels at the train step's shapes (B=2)
+        # every block's InstanceNorm backward runs on its conv output (the
+        # raw conv output of a fused block); every fused block but the first,
+        # whose input is the data, runs the data-gradient conv
+        in_bwd_rows, dx_convs = {}, {}
+        for i, (f, in_shape, out_shape) in enumerate(shapes):
+            in_bwd_rows[out_shape] = in_bwd_rows.get(out_shape, 0) + 1
+            if f and i > 0:
+                key = (in_shape[0], out_shape[0], in_shape[1:])
+                dx_convs[key] = dx_convs.get(key, 0) + 1
+        n_dx, n_in_bwd = sum(dx_convs.values()), sum(in_bwd_rows.values())
+        assert n_dx == n_fused - 1 and n_in_bwd == n_fused + n_strided
+        b2 = TRAIN_BATCH
+        inb_err = inb_ms = inb_plain_ms = 0.0
+        inb_numel = 0
+        for out_shape, count in in_bwd_rows.items():
+            c = out_shape[0]
+            scale, bias = randn(c) * 0.1 + 1, randn(c) * 0.1
+            inb_numel += count * b2 * math.prod(out_shape)
+            for dtype, atol, rtol in ((torch.float32, 1e-4, 1e-4),
+                                      (torch.bfloat16, 2e-2, 1e-2)):
+                x = randn(b2, *out_shape, dtype=dtype) * 2 + 0.5
+                g = randn(b2, *out_shape, dtype=dtype)
+                xf = x.float()
+                mean = xf.mean(dim=(2, 3, 4))
+                rstd = torch.rsqrt(xf.var(dim=(2, 3, 4), unbiased=False) + 1e-5)
+                args = (x, scale, bias, mean, rstd, g)
+                out = instance_norm_leaky_bwd_cf(*args)
+                ref = plain_instance_norm_leaky_bwd(*args)
+                torch.cuda.synchronize()
+                name = f"IN backward {dtype} {(b2,) + out_shape}"
+                inb_err = max(inb_err, _compare(name + " dx", out[0], ref[0], atol, rtol))
+                for o, r_, what in zip(out[1:], ref[1:], ("dscale", "dbias")):
+                    _compare(f"{name} {what}", o, r_, 1e-3, 1e-4)
+            inb_ms += count * _time_ms(lambda: instance_norm_leaky_bwd_cf(*args))
+            inb_plain_ms += count * _time_ms(lambda: plain_instance_norm_leaky_bwd(*args))
+            del x, g, xf, args, out, ref
+        # bf16 x and g read and dx written once; ~20 f32 operations an element
+        inb_bound = _bound(20 * inb_numel, 3 * 2 * inb_numel, PEAK_F32_FLOPS)
+        print(f"[phase 5] instance_norm_leaky_bwd: {len(in_bwd_rows)} shapes "
+              f"({n_in_bwd} per step) ok (B={b2}: dx f32 atol 1e-4 + rtol 1e-4, bf16 "
+              f"atol 2e-2 + rtol 1e-2; dscale/dbias atol 1e-3 + rtol 1e-4), max err "
+              f"{inb_err:.3e}; per train step, bf16: kernel {inb_ms:.3f} ms vs plain "
+              f"{inb_plain_ms:.3f} ms, bound {inb_bound[0]:.3f} ms ({inb_bound[1]})",
+              flush=True)
+
+        dx_err = dx_ms = dx_plain_ms = dx_lib_ms = 0.0
+        dx_flops = dx_bytes = 0
+        for (cin, cout, sp), count in dx_convs.items():
+            vox = b2 * math.prod(sp)
+            dx_flops += count * 2 * 27 * cin * cout * vox
+            dx_bytes += count * 2 * (vox * (cin + cout) + 27 * cin * cout)
+            w = randn(cout, cin, 3, 3, 3) * math.sqrt(2.0 / (27 * cin))
+            for dtype, atol, rtol in ((torch.float32, 1e-3, 0.0),
+                                      (torch.bfloat16, 5e-2, 1e-2)):
+                dy = randn(b2, cout, *sp, dtype=dtype)
+                out = conv3d_dx_cf(dy, w)
+                ref = plain_conv3d_dx(dy, w)
+                torch.cuda.synchronize()
+                dx_err = max(dx_err, _compare(f"conv dx {dtype} B={b2} {cin}<-{cout} {sp}",
+                                              out, ref, atol, rtol))
+            xs = torch.empty((b2, cin) + sp, dtype=dy.dtype, device=dev)
+            wb = w.to(dy.dtype)
+            k_ms = _time_ms(lambda: conv3d_dx_cf(dy, w))
+            p_ms = _time_ms(lambda: plain_conv3d_dx(dy, w))
+            l_ms = _time_ms(lambda: _library_dgrad(dy, xs, wb))
+            dx_ms, dx_plain_ms, dx_lib_ms = (dx_ms + count * k_ms, dx_plain_ms + count * p_ms,
+                                             dx_lib_ms + count * l_ms)
+            print(f"[phase 5]   conv dx {cin:>3}<-{cout:<3} {'x'.join(map(str, sp)):>9} "
+                  f"B={b2} bf16 x{count}: kernel {k_ms:7.3f} ms "
+                  f"({2 * 27 * cin * cout * vox / 1e9 / k_ms:.1f} TFLOP/s), plain "
+                  f"{p_ms:7.3f} ms, cuDNN dgrad {l_ms:7.3f} ms", flush=True)
+            del dy, out, ref, xs, wb
+        dx_bound = _bound(dx_flops, dx_bytes)
+        print(f"[phase 5] conv3d_dx: {len(dx_convs)} shapes ({n_dx} per step) ok "
+              f"(B={b2}: f32 atol 1e-3; bf16 atol 5e-2 + rtol 1e-2), max err "
+              f"{dx_err:.3e}; per train step, bf16: kernel {dx_ms:.3f} ms vs plain "
+              f"{dx_plain_ms:.3f} ms vs cuDNN dgrad {dx_lib_ms:.3f} ms, bound "
+              f"{dx_bound[0]:.3f} ms ({dx_bound[1]})", flush=True)
+
+        # ---- phase 6: the training path through its entry point
+        # the library's defaults (TF32 in cuDNN's f32 weight gradient) while
+        # training; the f32 comparison below turns TF32 off again
+        torch.backends.cudnn.allow_tf32 = True
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run_training("base_v2", ["3d_fullres", "-t", task, "-f", "0", "-num_epochs",
+                                 str(TRAIN_EPOCHS), "-num_iters", str(TRAIN_ITERS),
+                                 "-val_iters", str(VAL_ITERS), "--device", "cuda"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = _counts()
+        train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        steps, val_steps = TRAIN_EPOCHS * TRAIN_ITERS, TRAIN_EPOCHS * VAL_ITERS
+        expect = {"conv3d_in_lrelu": n_fused * (steps + val_steps),
+                  "instance_norm_leaky": n_strided * (steps + val_steps),
+                  "conv3d_dx": (n_fused - 1) * steps,
+                  "instance_norm_leaky_bwd": (n_fused + n_strided) * steps}
+        assert train_launches == expect, (train_launches, expect)
+        trained = output_folder(os.path.join(results, "nnUNet_ext"), "3d_fullres", task,
+                                "base_v2", plans.plans_name, 0, transfer_heads=True)
+        with open(os.path.join(trained, "progress.json")) as f:
+            step_losses = json.load(f)["step_losses"]
+        assert len(step_losses) == steps and all(map(math.isfinite, step_losses))
+        first10, last10 = statistics.mean(step_losses[:10]), statistics.mean(step_losses[-10:])
+        assert last10 < first10, (first10, last10)
+
+        served = os.path.join(work, "seg_trained")
+        run_inference(["3d_fullres", "base_v2", "-i", os.path.join(task_dir, "imagesTr"),
+                       "-o", served, "-trained_on", task, "--device", "cuda"])
+        trained_dice = []
+        for case, _ in case_files(os.path.join(task_dir, "imagesTr")):
+            seg = np.asarray(read_image(os.path.join(served, f"{case}.nii.gz")).data)
+            label = np.asarray(read_image(labels[case]).data)
+            assert seg.shape == label.shape
+            trained_dice.append(subject_metrics(seg, label, plans.num_classes + 1)["Dice"])
+
+        # one f32 train step from the same weights and batch: kernel route
+        # against plain route, the loss and every parameter's gradient.  f32
+        # roundoff alone moves this loss's gradients at random weights by ~1e-3
+        # of their scale on either route, so both f32 routes are held to the
+        # plain route in f64 (its InstanceNorm statistics stay f32), the
+        # kernel route to 3x the f32 plain route's own distance (or to 1,
+        # i.e. 1e-5 + 1e-3 of each gradient's scale)
+        torch.backends.cudnn.allow_tf32 = False
+        stage = os.path.join(pre, task, "nnUNetData_plans_v2.1_3d_fullres")
+        sampler = PatchSampler(PreprocessedDataset(stage), PreprocessedDataset(stage).cases,
+                               patch, b2, seed=SEED)
+        host = [sampler.next_batch() for _ in range(4)]
+        dev_batches = [{k: torch.from_numpy(b[k]).to(dev) for k in ("data", "seg")}
+                       for b in host]
+        ds_factors = tuple(ds_scale_factors(cfg.pool_op_kernel_sizes))
+        step_grads = {}
+        for route, use_kernels, dtype in (("kernel", True, torch.float32),
+                                          ("plain", False, torch.float32),
+                                          ("plain f64", False, torch.float64)):
+            m = unet_from_plans(plans, "3d_fullres", dtype=dtype, use_kernels=use_kernels,
+                                generator=torch.Generator().manual_seed(SEED)).to(dev, dtype)
+            loss = deep_supervision_loss(m(dev_batches[0]["data"]),
+                                         dev_batches[0]["seg"].long(), ds_factors)
+            loss.backward()
+            # the coarsest head has loss weight 0 and no gradient
+            step_grads[route] = (loss.item(), {
+                k: torch.zeros_like(p) if p.grad is None else p.grad.double()
+                for k, p in m.named_parameters()})
+            model_t = m
+            del loss
+        # a fused conv's bias: the InstanceNorm absorbs it, so its gradient
+        # is 0 on the kernel route and roundoff of 0 on the plain route, held
+        # to 1e-3 of its weight's gradient
+        fused_bias = {f"{n}.conv.bias" for n, mod in model_t.named_modules()
+                      if isinstance(mod, ConvNormAct) and mod.fused}
+        (lk, gk), (lp, gp), (l64, g64) = (step_grads[r] for r in ("kernel", "plain",
+                                                                    "plain f64"))
+        bias_err = max(gp[k].abs().max().item() / gp[k[:-4] + "weight"].abs().max().item()
+                       for k in fused_bias)
+        assert all(not gk[k].any() for k in fused_bias) and bias_err <= 1e-3, bias_err
+
+        def worst(g):
+            """max over parameters of |g - g64| / (1e-5 + 1e-3 max|g64|)"""
+            return max(((g[k] - g64[k]).abs().max().item()
+                        / (1e-5 + 1e-3 * g64[k].abs().max().item()), k)
+                       for k in g64 if k not in fused_bias)
+
+        (grad_err, worst_k), (plain_err, worst_p) = worst(gk), worst(gp)
+        loss_err = abs(lk - l64)
+        assert math.isfinite(lk) and loss_err <= 1e-4 and grad_err <= max(3 * plain_err, 1), (
+            lk, lp, l64, grad_err, worst_k, plain_err, worst_p)
+        del step_grads, gk, gp, g64, m, model_t
+
+        # warm seconds per train step (bf16, augmentation on), in turns:
+        # plain, kernel, kernel, plain
+        torch.backends.cudnn.allow_tf32 = True
+        step_cfg = StepConfig(ds_factors=ds_factors, batch_dice=True,
+                              num_classes=plans.num_classes + 1, augment=AugmentConfig())
+        step_s = {True: [], False: []}
+        profile = {}
+        for use_kernels in (False, True, True, False):
+            m = unet_from_plans(plans, "3d_fullres", dtype=torch.bfloat16,
+                                use_kernels=use_kernels,
+                                generator=torch.Generator().manual_seed(SEED)).to(dev)
+            opt = PolySGD(m.parameters(), max_epochs=TRAIN_EPOCHS,
+                          iters_per_epoch=TRAIN_ITERS)
+            train_step = make_train_step(
+                m, opt, step_cfg, generator=torch.Generator(device=dev).manual_seed(SEED))
+            for i in range(3):
+                train_step({}, dev_batches[i % 4])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(STEP_REPS):
+                train_step({}, dev_batches[i % 4])
+            torch.cuda.synchronize()
+            step_s[use_kernels].append((time.perf_counter() - t0) / STEP_REPS)
+            if use_kernels not in profile:
+                # device time by kernel over a few warm steps of each route
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    for i in range(PROFILE_STEPS):
+                        train_step({}, dev_batches[i % 4])
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) / PROFILE_STEPS
+                profile[use_kernels] = wall, sorted(
+                    ((e.self_device_time_total / PROFILE_STEPS / 1e3, e.key)
+                     for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and e.self_device_time_total > 0), reverse=True)
+            del m, opt, train_step
+        print(f"[phase 6] nnUNet_torch_train_base_v2 --device cuda, full width "
+              f"{plans.num_modalities}->{plans.num_classes + 1}, patch {patch}, batch {b2}, "
+              f"{TRAIN_EPOCHS} epochs x {TRAIN_ITERS} steps + {VAL_ITERS} val batches, "
+              f"augmentation on: {train_s:.2f} s in all, peak {train_peak_gb:.2f} GB; "
+              f"launches {train_launches} == predicted per step {{conv3d_in_lrelu: "
+              f"{n_fused} (+{n_fused} per val batch), instance_norm_leaky: {n_strided} "
+              f"(+{n_strided}), conv3d_dx: {n_fused - 1}, instance_norm_leaky_bwd: "
+              f"{n_fused + n_strided}}}; loss first 10 steps {first10:.4f} -> last 10 "
+              f"{last10:.4f}; served by nnUNet_torch_inference: Dice "
+              f"{[[round(d, 4) for d in ds] for ds in trained_dice]}; f32 step against "
+              f"the plain route in f64: |loss diff| kernel {loss_err:.3e} (limit 1e-4), "
+              f"plain {abs(lp - l64):.3e}; worst gradient |diff| / (1e-5 + 1e-3 max|f64|) "
+              f"kernel route {grad_err:.3f} ({worst_k}) vs plain route {plain_err:.3f} "
+              f"({worst_p}) (limit 3x the plain route's, or 1); fused conv biases 0 vs plain "
+              f"<= {bias_err:.3e} of the weight's (limit 1e-3); "
+              f"warm s/step, "
+              f"bf16, in turns: kernel route {statistics.median(step_s[True]):.4f} vs "
+              f"plain route {statistics.median(step_s[False]):.4f} (runs "
+              f"{[round(t, 4) for t in step_s[True]]} vs "
+              f"{[round(t, 4) for t in step_s[False]]})", flush=True)
+        for use_kernels in (True, False):
+            wall, kernels_ms = profile[use_kernels]
+            busy = sum(t for t, _ in kernels_ms)
+            print(f"[phase 6] {'kernel' if use_kernels else 'plain'} route, device time per "
+                  f"train step (torch.profiler, {PROFILE_STEPS} warm steps): {busy:.3f} ms of "
+                  f"{1e3 * wall:.3f} ms wall under the profiler, busy share "
+                  f"{busy / (1e3 * wall):.3f}; {len(kernels_ms)} kernels, the top: "
+                  + "; ".join(f"{name[:60]} {t:.3f} ms" for t, name in kernels_ms[:10]),
+                  flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -404,18 +719,26 @@ def main() -> int:
                      if mod is not None} & set(NO_JAX))
     assert not loaded, f"the port imported {loaded}"
     csrc = os.path.relpath(build.CSRC, ROOT)
-    kernels = [
-        {"name": "conv3d_in_lrelu", "route": "cuda",
-         "source": f"{csrc}/conv3d_in_lrelu.cu",
-         "replaces": "lifelong_nnunet_tpu/ops/pallas/conv3d.py:225",
-         "launches": launches["conv3d_in_lrelu"], "max_abs_err": conv_err,
-         "ms": conv_ms[batch], "plain_ms": conv_plain_ms[batch]},
-        {"name": "instance_norm_leaky", "route": "cuda",
-         "source": f"{csrc}/instance_norm.cu",
-         "replaces": "lifelong_nnunet_tpu/ops/pallas/instance_norm.py:82",
-         "launches": launches["instance_norm_leaky"], "max_abs_err": in_err,
-         "ms": in_ms[batch], "plain_ms": in_plain_ms[batch]},
+    pallas = "lifelong_nnunet_tpu/ops/pallas"
+    rows = [  # name, source, replaces, err, ms, plain, bound, library, per
+        ("conv3d_in_lrelu", "conv3d_in_lrelu.cu", "conv3d.py:225", conv_err,
+         conv_ms[batch], conv_plain_ms[batch], conv_bound, conv_lib_ms,
+         f"forward at B={batch}"),
+        ("instance_norm_leaky", "instance_norm.cu", "instance_norm.py:82", in_err,
+         in_ms[batch], in_plain_ms[batch], in_bound, None, f"forward at B={batch}"),
+        ("conv3d_dx", "conv3d_in_lrelu.cu", "conv3d.py:343", dx_err, dx_ms,
+         dx_plain_ms, dx_bound, dx_lib_ms, f"train step at B={TRAIN_BATCH}"),
+        ("instance_norm_leaky_bwd", "instance_norm.cu", "instance_norm.py:122", inb_err,
+         inb_ms, inb_plain_ms, inb_bound, None, f"train step at B={TRAIN_BATCH}"),
     ]
+    kernels = [
+        {"name": name, "route": "cuda", "source": f"{csrc}/{src}",
+         "replaces": f"{pallas}/{where}",
+         "launches": launches[name] + train_launches[name], "max_abs_err": err,
+         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+         "library_ms": lib_ms, "per": per,
+         "launches_by_path": {"serve": launches[name], "train": train_launches[name]}}
+        for name, src, where, err, ms, plain_ms, bound, lib_ms, per in rows]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

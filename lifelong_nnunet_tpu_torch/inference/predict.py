@@ -1,8 +1,8 @@
 """Image-in -> segmentation-out prediction: the port of
 ``lifelong_nnunet_tpu/inference/predict.py``.
 
-Per case: preprocess (crop / resample / normalize, on the host with the JAX
-package's framework-free planning code), Gaussian sliding window with
+Per case: preprocess (crop / resample / normalize, on the host with the port's
+planning code), Gaussian sliding window with
 mirror TTA on the device, undo resampling and crop on the host, argmax,
 NIfTI export.  Host preprocessing runs ahead of the device on worker
 threads and export trails behind, as in the JAX package.  Only the
@@ -19,8 +19,10 @@ import numpy as np
 import torch
 from scipy import ndimage
 
-from ..shared import (NiftiImage, crop_to_nonzero, image_suffix, normalize, read_image,
-                      resample_image, write_image)
+from ..planning.fingerprint import crop_to_nonzero
+from ..planning.preprocess import normalize, resample_image
+from ..utilities.imageio import image_suffix, read_image, write_image
+from ..utilities.nifti import NiftiImage
 from .sliding_window import predict_sliding_window
 
 

@@ -13,12 +13,16 @@ ConvNormAct routes (``use_kernels=True``):
 * 3x3x3 stride-1 conv -> the fused conv + InstanceNorm + LeakyReLU kernel
   (``ops/kernels/conv3d.py``).  Unlike the JAX package, whose TPU kernel
   only takes lane-aligned widths, every such conv takes it.  The conv bias
-  is ignored there (the InstanceNorm mean absorbs it), as on the TPU.
+  is ignored there (the InstanceNorm mean absorbs it), as on the TPU, and
+  gets a zero gradient, so the optimizer treats it as optax does.
 * any other conv (strided, anisotropic, 2D) -> ``F.conv{2,3}d`` with
   symmetric ``k//2`` padding, then the InstanceNorm + LeakyReLU kernel
   (``ops/kernels/instance_norm.py``).
 
-On the CPU both kernels' wrappers run their plain PyTorch versions.
+Both routes are differentiable: where autograd records, the kernels'
+``autograd.Function``s run their backward kernels (the data gradient of a
+fused conv only when its input needs one).  On the CPU both kernels'
+wrappers run their plain PyTorch versions.
 ``use_kernels=False`` is the plain route: the JAX package's XLA
 composition (conv with bias, :class:`InstanceNorm`, LeakyReLU), kept to
 measure the kernels against.
@@ -100,7 +104,8 @@ class ConvNormAct(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.use_kernels and self.fused:
             return conv3d_in_lrelu_cf(x, self.conv.weight, self.norm.weight,
-                                      self.norm.bias, self.negative_slope)
+                                      self.norm.bias, self.negative_slope,
+                                      bias=self.conv.bias)
         y = _conv(self.conv, x, self.dim)
         if self.use_kernels:
             return instance_norm_leaky_cf(y, self.norm.weight, self.norm.bias,

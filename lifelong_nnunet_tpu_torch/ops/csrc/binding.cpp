@@ -61,40 +61,117 @@ void instance_norm_leaky_fwd(const torch::Tensor& x, const torch::Tensor& scale,
       c10::cuda::getCurrentCUDAStream().stream()));
 }
 
+// x, g: [B, C, *spatial]; dx: same shape; scale, bias: [C] f32; mean, rstd:
+// [B, C] f32; dscale, dbias: [C] f32; partials: 2 * B * C floats.
+void instance_norm_leaky_bwd(const torch::Tensor& x, const torch::Tensor& g,
+                             const torch::Tensor& scale, const torch::Tensor& bias,
+                             const torch::Tensor& mean, const torch::Tensor& rstd,
+                             const torch::Tensor& dx, const torch::Tensor& dscale,
+                             const torch::Tensor& dbias, const torch::Tensor& partials,
+                             double alpha) {
+  check(x, x, "x");
+  TORCH_CHECK(x.dim() >= 3, "x must be [B, C, *spatial]");
+  const int B = as_int(x.size(0), "B"), C = as_int(x.size(1), "C");
+  check(g, x, "g");
+  TORCH_CHECK(g.sizes() == x.sizes() && g.scalar_type() == x.scalar_type(),
+              "g must match x");
+  check(dx, x, "dx");
+  TORCH_CHECK(dx.sizes() == x.sizes(), "dx must have x's shape");
+  check_f32(scale, x, C, "scale");
+  check_f32(bias, x, C, "bias");
+  check_f32(mean, x, int64_t(B) * C, "mean");
+  check_f32(rstd, x, int64_t(B) * C, "rstd");
+  check_f32(dscale, x, C, "dscale");
+  check_f32(dbias, x, C, "dbias");
+  check_f32(partials, x, int64_t(2) * B * C, "partials");
+  const c10::cuda::CUDAGuard guard(x.device());
+  C10_CUDA_CHECK(lnn_instance_norm_leaky_bwd(
+      x.data_ptr(), g.data_ptr(), scale.data_ptr<float>(), bias.data_ptr<float>(),
+      mean.data_ptr<float>(), rstd.data_ptr<float>(), dx.data_ptr(),
+      dscale.data_ptr<float>(), dbias.data_ptr<float>(), partials.data_ptr<float>(), B, C,
+      x.numel() / (int64_t(B) * C), static_cast<float>(alpha), dtype_of(x), dtype_of(dx),
+      c10::cuda::getCurrentCUDAStream().stream()));
+}
+
 int64_t conv3d_partials_len(int64_t B, int64_t cout, int64_t D, int64_t H, int64_t W) {
   return lnn_conv3d_partials_len(as_int(B, "B"), as_int(cout, "Cout"), as_int(D, "D"),
                                  as_int(H, "H"), as_int(W, "W"));
 }
 
-// x: [B, Cin, D, H, W]; w: [Cin, 27, Cout] in x's dtype; scale, offset:
-// [Cout] f32; y: [B, Cout, D, H, W]; partials: conv3d_partials_len floats.
+// The dims of a conv call: x [B, Cin, D, H, W], w [Cin, 27, Cout] in x's
+// dtype, y [B, Cout, D, H, W] (any of the two dtypes).
+struct ConvDims {
+  int B, cin, cout, D, H, W;
+};
+
+ConvDims check_conv(const torch::Tensor& x, const torch::Tensor& w,
+                    const torch::Tensor& y) {
+  check(x, x, "x");
+  TORCH_CHECK(x.dim() == 5, "x must be [B, Cin, D, H, W]");
+  ConvDims d{as_int(x.size(0), "B"), as_int(x.size(1), "Cin"), 0,
+             as_int(x.size(2), "D"), as_int(x.size(3), "H"), as_int(x.size(4), "W")};
+  check(w, x, "w");
+  TORCH_CHECK(w.dim() == 3 && w.size(0) == d.cin && w.size(1) == 27 &&
+                  w.scalar_type() == x.scalar_type(),
+              "w must be [Cin, 27, Cout] in x's dtype");
+  d.cout = as_int(w.size(2), "Cout");
+  check(y, x, "y");
+  TORCH_CHECK(y.dim() == 5 && y.size(0) == d.B && y.size(1) == d.cout &&
+                  y.size(2) == d.D && y.size(3) == d.H && y.size(4) == d.W,
+              "y must be [B, Cout, D, H, W]");
+  return d;
+}
+
+// scale, offset: [Cout] f32; y: [B, Cout, D, H, W]; partials:
+// conv3d_partials_len floats.
 void conv3d_in_lrelu_fwd(const torch::Tensor& x, const torch::Tensor& w,
                          const torch::Tensor& scale, const torch::Tensor& offset,
                          const torch::Tensor& y, const torch::Tensor& partials,
                          double slope, double eps) {
-  check(x, x, "x");
-  TORCH_CHECK(x.dim() == 5, "x must be [B, Cin, D, H, W]");
-  const int B = as_int(x.size(0), "B"), cin = as_int(x.size(1), "Cin");
-  const int D = as_int(x.size(2), "D"), H = as_int(x.size(3), "H"),
-            W = as_int(x.size(4), "W");
-  check(w, x, "w");
-  TORCH_CHECK(w.dim() == 3 && w.size(0) == cin && w.size(1) == 27 &&
-                  w.scalar_type() == x.scalar_type(),
-              "w must be [Cin, 27, Cout] in x's dtype");
-  const int cout = as_int(w.size(2), "Cout");
-  check_f32(scale, x, cout, "scale");
-  check_f32(offset, x, cout, "offset");
-  check(y, x, "y");
-  TORCH_CHECK(y.dim() == 5 && y.size(0) == B && y.size(1) == cout && y.size(2) == D &&
-                  y.size(3) == H && y.size(4) == W,
-              "y must be [B, Cout, D, H, W]");
-  check_f32(partials, x, lnn_conv3d_partials_len(B, cout, D, H, W), "partials");
+  const ConvDims d = check_conv(x, w, y);
+  check_f32(scale, x, d.cout, "scale");
+  check_f32(offset, x, d.cout, "offset");
+  check_f32(partials, x, lnn_conv3d_partials_len(d.B, d.cout, d.D, d.H, d.W), "partials");
   const c10::cuda::CUDAGuard guard(x.device());
   C10_CUDA_CHECK(lnn_conv3d_in_lrelu_fwd(
       x.data_ptr(), w.data_ptr(), scale.data_ptr<float>(), offset.data_ptr<float>(),
-      y.data_ptr(), partials.data_ptr<float>(), B, cin, cout, D, H, W,
+      y.data_ptr(), partials.data_ptr<float>(), d.B, d.cin, d.cout, d.D, d.H, d.W,
       static_cast<float>(slope), static_cast<float>(eps), dtype_of(x), dtype_of(y),
       c10::cuda::getCurrentCUDAStream().stream()));
+}
+
+// As conv3d_in_lrelu_fwd, plus ycf (the raw conv output, out's shape and
+// dtype) and mean, inv: [B, Cout] f32.
+void conv3d_in_lrelu_train_fwd(const torch::Tensor& x, const torch::Tensor& w,
+                               const torch::Tensor& scale, const torch::Tensor& offset,
+                               const torch::Tensor& ycf, const torch::Tensor& out,
+                               const torch::Tensor& mean, const torch::Tensor& inv,
+                               const torch::Tensor& partials, double slope, double eps) {
+  const ConvDims d = check_conv(x, w, ycf);
+  check(out, x, "out");
+  TORCH_CHECK(out.sizes() == ycf.sizes() && out.scalar_type() == ycf.scalar_type(),
+              "out must match ycf");
+  check_f32(scale, x, d.cout, "scale");
+  check_f32(offset, x, d.cout, "offset");
+  check_f32(mean, x, int64_t(d.B) * d.cout, "mean");
+  check_f32(inv, x, int64_t(d.B) * d.cout, "inv");
+  check_f32(partials, x, lnn_conv3d_partials_len(d.B, d.cout, d.D, d.H, d.W), "partials");
+  const c10::cuda::CUDAGuard guard(x.device());
+  C10_CUDA_CHECK(lnn_conv3d_in_lrelu_train_fwd(
+      x.data_ptr(), w.data_ptr(), scale.data_ptr<float>(), offset.data_ptr<float>(),
+      ycf.data_ptr(), out.data_ptr(), mean.data_ptr<float>(), inv.data_ptr<float>(),
+      partials.data_ptr<float>(), d.B, d.cin, d.cout, d.D, d.H, d.W,
+      static_cast<float>(slope), static_cast<float>(eps), dtype_of(x), dtype_of(ycf),
+      c10::cuda::getCurrentCUDAStream().stream()));
+}
+
+// The conv alone: y = conv3d(x, w), 3x3x3, stride 1, SAME.
+void conv3d_fwd(const torch::Tensor& x, const torch::Tensor& w, const torch::Tensor& y) {
+  const ConvDims d = check_conv(x, w, y);
+  const c10::cuda::CUDAGuard guard(x.device());
+  C10_CUDA_CHECK(lnn_conv3d_fwd(x.data_ptr(), w.data_ptr(), y.data_ptr(), d.B, d.cin,
+                                d.cout, d.D, d.H, d.W, dtype_of(x), dtype_of(y),
+                                c10::cuda::getCurrentCUDAStream().stream()));
 }
 
 }  // namespace
@@ -102,8 +179,14 @@ void conv3d_in_lrelu_fwd(const torch::Tensor& x, const torch::Tensor& w,
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("instance_norm_leaky_fwd", &instance_norm_leaky_fwd,
         "InstanceNorm + LeakyReLU forward (instance_norm.cu)");
+  m.def("instance_norm_leaky_bwd", &instance_norm_leaky_bwd,
+        "InstanceNorm + LeakyReLU backward (instance_norm.cu)");
   m.def("conv3d_partials_len", &conv3d_partials_len,
         "floats of partial-statistics scratch for one conv3d_in_lrelu_fwd call");
   m.def("conv3d_in_lrelu_fwd", &conv3d_in_lrelu_fwd,
         "fused 3x3x3 conv + InstanceNorm + LeakyReLU forward (conv3d_in_lrelu.cu)");
+  m.def("conv3d_in_lrelu_train_fwd", &conv3d_in_lrelu_train_fwd,
+        "the fused forward keeping ycf, mean and inv for the backward");
+  m.def("conv3d_fwd", &conv3d_fwd,
+        "3x3x3 stride-1 SAME conv alone, the fused op's data gradient");
 }

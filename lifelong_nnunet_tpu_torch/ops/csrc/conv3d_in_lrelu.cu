@@ -35,6 +35,16 @@
 //    reduction and a fixed combine order give each block's partial sums with
 //    no atomics, so a run repeats bit for bit.  A finishing kernel, one
 //    block per (b, channel), reduces the partials and normalizes y in place.
+//
+// Training (`_fused_fwd` / `_fused_bwd`, conv3d.py:302-362).  The backward
+// needs the raw conv output ycf and the statistics, which the in-place
+// finish destroys, so a training entry runs the same two kernels with the
+// finishing kernel writing `out` to its own buffer and mean / inv [B, Cout]
+// f32 beside it.  The data gradient dx is the same 3x3x3 stride-1 conv of
+// dy with the taps flipped and Cin / Cout swapped (`_fused_bwd`'s second
+// call of `conv3d_direct_cf`, conv3d.py:335-344): a conv-only entry runs
+// the conv kernel with no statistics and no finish, on weights the wrapper
+// lays out as [Cout, 27, Cin] with the taps reversed.
 
 #include "lnn_common.cuh"
 
@@ -141,7 +151,25 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   // y in the output dtype, and this thread's share of the tile statistics
+  // (none for the conv-only entry, which passes no partials)
   const int od = d0 + ld, oh = h0 + lh;
+  if (partials == nullptr) {
+    if (od < D && oh < H) {
+#pragma unroll
+      for (int j = 0; j < kVox; ++j) {
+        const int ow = w0 + lw + j;
+        if (ow >= W) continue;
+#pragma unroll
+        for (int o = 0; o < kCoThr; ++o) {
+          const int co = co0 + cg * kCoThr + o;
+          if (co < Cout)
+            y[((long long)b * Cout + co) * DHW + od * HW + (long long)oh * W + ow] =
+                lnn_from_f32<Tout>(acc[j][o]);
+        }
+      }
+    }
+    return;
+  }
   float s[kCoThr], ss[kCoThr];
 #pragma unroll
   for (int o = 0; o < kCoThr; ++o) s[o] = ss[o] = 0.f;
@@ -187,13 +215,15 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // One block per (b, channel) row: reduce the tile partials, then normalize
-// and activate the row of y in place.
+// and activate the row of y into `out` (in place when out == y, the
+// inference entry), and keep mean and inv when asked (the training entry).
 template <typename T>
 __global__ void __launch_bounds__(kFinThreads)
-    in_lrelu_finalize_kernel(T* __restrict__ y, const float* __restrict__ partials,
+    in_lrelu_finalize_kernel(const T* y, T* out, const float* __restrict__ partials,
                              const float* __restrict__ scale,
-                             const float* __restrict__ offset, int Cout, int nTiles,
-                             long long N, float slope, float eps) {
+                             const float* __restrict__ offset, float* mean_out,
+                             float* inv_out, int Cout, int nTiles, long long N,
+                             float slope, float eps) {
   __shared__ float red[32];
   const long long row = blockIdx.x;
   const int co = (int)(row % Cout);
@@ -211,18 +241,26 @@ __global__ void __launch_bounds__(kFinThreads)
   const float inv = rsqrtf(var + eps);
   const float mul = lnn_round_to<T>(inv * scale[co]);
   const float sub = lnn_round_to<T>(mean * inv * scale[co] - offset[co]);
-  T* yr = y + row * N;
+  const T* yr = y + row * N;
+  T* orow = out + row * N;
   for (long long i = threadIdx.x; i < N; i += kFinThreads) {
     const float z = lnn_to_f32(yr[i]) * mul - sub;
-    yr[i] = lnn_from_f32<T>(z >= 0.f ? z : slope * z);
+    orow[i] = lnn_from_f32<T>(z >= 0.f ? z : slope * z);
+  }
+  if (mean_out != nullptr && threadIdx.x == 0) {
+    mean_out[row] = mean;
+    inv_out[row] = inv;
   }
 }
 
+// The conv kernel alone (partials null: no statistics) or followed by the
+// finishing kernel (scale non-null), which writes `out` (== y for in place)
+// and, when mean is non-null, mean and inv.
 template <typename Tin, typename Tout>
 cudaError_t launch(const void* x, const void* w, const float* scale,
-                   const float* offset, void* y, float* partials, int B, int Cin,
-                   int Cout, int D, int H, int W, float slope, float eps,
-                   cudaStream_t st) {
+                   const float* offset, void* y, void* out, float* mean, float* inv,
+                   float* partials, int B, int Cin, int Cout, int D, int H, int W,
+                   float slope, float eps, cudaStream_t st) {
   const int nTh = (H + kTH - 1) / kTH, nTw = (W + kTW - 1) / kTW;
   const long long nTiles = num_tiles(D, H, W);
   const dim3 grid((unsigned)nTiles, (unsigned)((Cout + kCoT - 1) / kCoT),
@@ -231,11 +269,39 @@ cudaError_t launch(const void* x, const void* w, const float* scale,
       static_cast<const Tin*>(x), static_cast<const Tin*>(w), static_cast<Tout*>(y),
       partials, Cin, Cout, D, H, W, nTh, nTw);
   const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || scale == nullptr) return err;
   in_lrelu_finalize_kernel<Tout><<<(unsigned)((long long)B * Cout), kFinThreads, 0, st>>>(
-      static_cast<Tout*>(y), partials, scale, offset, Cout, (int)nTiles,
-      (long long)D * H * W, slope, eps);
+      static_cast<const Tout*>(y), static_cast<Tout*>(out), partials, scale, offset, mean,
+      inv, Cout, (int)nTiles, (long long)D * H * W, slope, eps);
   return cudaGetLastError();
+}
+
+bool bad_shape(int B, int Cin, int Cout, int D, int H, int W) {
+  return B <= 0 || B > 65535 || Cin <= 0 || Cout <= 0 || D <= 0 || H <= 0 || W <= 0 ||
+         (Cout + kCoT - 1) / kCoT > 65535 || num_tiles(D, H, W) > 0x7fffffffLL ||
+         (long long)B * Cout > 0x7fffffffLL;
+}
+
+cudaError_t dispatch(const void* x, const void* w, const float* scale,
+                     const float* offset, void* y, void* out, float* mean, float* inv,
+                     float* partials, int B, int Cin, int Cout, int D, int H, int W,
+                     float slope, float eps, LnnDtype in_dtype, LnnDtype out_dtype,
+                     cudaStream_t st) {
+  if (bad_shape(B, Cin, Cout, D, H, W)) return cudaErrorInvalidValue;
+  if (in_dtype == LNN_F32 && out_dtype == LNN_F32)
+    return launch<float, float>(x, w, scale, offset, y, out, mean, inv, partials, B, Cin,
+                                Cout, D, H, W, slope, eps, st);
+  if (in_dtype == LNN_F32 && out_dtype == LNN_BF16)
+    return launch<float, __nv_bfloat16>(x, w, scale, offset, y, out, mean, inv, partials,
+                                        B, Cin, Cout, D, H, W, slope, eps, st);
+  if (in_dtype == LNN_BF16 && out_dtype == LNN_F32)
+    return launch<__nv_bfloat16, float>(x, w, scale, offset, y, out, mean, inv, partials,
+                                        B, Cin, Cout, D, H, W, slope, eps, st);
+  if (in_dtype == LNN_BF16 && out_dtype == LNN_BF16)
+    return launch<__nv_bfloat16, __nv_bfloat16>(x, w, scale, offset, y, out, mean, inv,
+                                                partials, B, Cin, Cout, D, H, W, slope,
+                                                eps, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -249,21 +315,24 @@ cudaError_t lnn_conv3d_in_lrelu_fwd(const void* x, const void* w, const float* s
                                     int B, int Cin, int Cout, int D, int H, int W,
                                     float slope, float eps, LnnDtype in_dtype,
                                     LnnDtype out_dtype, cudaStream_t st) {
-  if (B <= 0 || B > 65535 || Cin <= 0 || Cout <= 0 || D <= 0 || H <= 0 || W <= 0 ||
-      (Cout + kCoT - 1) / kCoT > 65535 || num_tiles(D, H, W) > 0x7fffffffLL ||
-      (long long)B * Cout > 0x7fffffffLL)
-    return cudaErrorInvalidValue;
-  if (in_dtype == LNN_F32 && out_dtype == LNN_F32)
-    return launch<float, float>(x, w, scale, offset, y, partials, B, Cin, Cout, D, H,
-                                W, slope, eps, st);
-  if (in_dtype == LNN_F32 && out_dtype == LNN_BF16)
-    return launch<float, __nv_bfloat16>(x, w, scale, offset, y, partials, B, Cin, Cout,
-                                        D, H, W, slope, eps, st);
-  if (in_dtype == LNN_BF16 && out_dtype == LNN_F32)
-    return launch<__nv_bfloat16, float>(x, w, scale, offset, y, partials, B, Cin, Cout,
-                                        D, H, W, slope, eps, st);
-  if (in_dtype == LNN_BF16 && out_dtype == LNN_BF16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(x, w, scale, offset, y, partials, B,
-                                                Cin, Cout, D, H, W, slope, eps, st);
-  return cudaErrorInvalidValue;
+  return dispatch(x, w, scale, offset, y, y, nullptr, nullptr, partials, B, Cin, Cout, D,
+                  H, W, slope, eps, in_dtype, out_dtype, st);
+}
+
+cudaError_t lnn_conv3d_in_lrelu_train_fwd(const void* x, const void* w,
+                                          const float* scale, const float* offset,
+                                          void* ycf, void* out, float* mean, float* inv,
+                                          float* partials, int B, int Cin, int Cout,
+                                          int D, int H, int W, float slope, float eps,
+                                          LnnDtype in_dtype, LnnDtype out_dtype,
+                                          cudaStream_t st) {
+  return dispatch(x, w, scale, offset, ycf, out, mean, inv, partials, B, Cin, Cout, D, H,
+                  W, slope, eps, in_dtype, out_dtype, st);
+}
+
+cudaError_t lnn_conv3d_fwd(const void* x, const void* w, void* y, int B, int Cin,
+                           int Cout, int D, int H, int W, LnnDtype in_dtype,
+                           LnnDtype out_dtype, cudaStream_t st) {
+  return dispatch(x, w, nullptr, nullptr, y, nullptr, nullptr, nullptr, nullptr, B, Cin,
+                  Cout, D, H, W, 0.f, 0.f, in_dtype, out_dtype, st);
 }

@@ -21,6 +21,18 @@ cudaError_t lnn_instance_norm_leaky_fwd(const void* x, const float* scale,
                                         float alpha, float eps, LnnDtype dtype,
                                         cudaStream_t stream);
 
+// InstanceNorm + LeakyReLU backward.  x, g: [B, C, N] of `dtype` (the
+// forward's input and the gradient of its output); scale, bias: [C] f32;
+// mean, rstd: [B, C] f32 from the forward; dx: [B, C, N] of `dx_dtype`;
+// dscale, dbias: [C] f32, summed over B; partials: 2 * B * C floats of
+// scratch.
+cudaError_t lnn_instance_norm_leaky_bwd(const void* x, const void* g, const float* scale,
+                                        const float* bias, const float* mean,
+                                        const float* rstd, void* dx, float* dscale,
+                                        float* dbias, float* partials, int B, int C,
+                                        long long N, float alpha, LnnDtype dtype,
+                                        LnnDtype dx_dtype, cudaStream_t stream);
+
 // Length in floats of the partial-statistics scratch of one conv call.
 long long lnn_conv3d_partials_len(int B, int Cout, int D, int H, int W);
 
@@ -34,3 +46,21 @@ cudaError_t lnn_conv3d_in_lrelu_fwd(const void* x, const void* w, const float* s
                                     int B, int Cin, int Cout, int D, int H, int W,
                                     float slope, float eps, LnnDtype in_dtype,
                                     LnnDtype out_dtype, cudaStream_t stream);
+
+// The same fused forward for training: ycf receives the raw conv output
+// (of `out_dtype`), out the activated result, mean and inv ([B, Cout] f32)
+// the statistics the backward reuses.
+cudaError_t lnn_conv3d_in_lrelu_train_fwd(const void* x, const void* w,
+                                          const float* scale, const float* offset,
+                                          void* ycf, void* out, float* mean, float* inv,
+                                          float* partials, int B, int Cin, int Cout,
+                                          int D, int H, int W, float slope, float eps,
+                                          LnnDtype in_dtype, LnnDtype out_dtype,
+                                          cudaStream_t stream);
+
+// The 3x3x3 stride-1 SAME conv alone (no statistics, no normalization):
+// x [B, Cin, D, H, W] and w [Cin, 27, Cout] of `in_dtype`, y [B, Cout, D, H, W]
+// of `out_dtype`.  The fused op's data gradient runs through it.
+cudaError_t lnn_conv3d_fwd(const void* x, const void* w, void* y, int B, int Cin,
+                           int Cout, int D, int H, int W, LnnDtype in_dtype,
+                           LnnDtype out_dtype, cudaStream_t stream);

@@ -1,15 +1,30 @@
-"""Fused 3x3x3 stride-1 SAME conv + InstanceNorm + LeakyReLU (forward): the
-port of ``lifelong_nnunet_tpu/ops/pallas/conv3d.py::conv3d_in_lrelu``.
+"""Fused 3x3x3 stride-1 SAME conv + InstanceNorm + LeakyReLU, forward and
+backward: the port of ``lifelong_nnunet_tpu/ops/pallas/conv3d.py::conv3d_in_lrelu``
+(``_fused_fwd_impl`` and its custom VJP ``_fused_fwd`` / ``_fused_bwd``).
 
-The CUDA kernel lives in ``ops/csrc/conv3d_in_lrelu.cu``.  A tensor on the
-CPU goes through :func:`plain_conv3d_in_lrelu`, the same math in plain
-PyTorch; a CUDA tensor launches the kernel or raises, whatever its shape.
+The CUDA kernels live in ``ops/csrc/conv3d_in_lrelu.cu`` (the conv with its
+statistics and the normalizing finish; the conv alone for the data
+gradient) and ``ops/csrc/instance_norm.cu`` (the InstanceNorm backward).  A
+tensor on the CPU goes through the plain PyTorch versions beside them
+(:func:`plain_conv3d_in_lrelu`, :func:`plain_conv3d_in_lrelu_bwd`); a CUDA
+tensor launches the kernels or raises, whatever its shape.
+
+Where autograd records the call, :class:`Conv3dINLReLU` runs the training
+forward (the raw conv output ``ycf`` and the f32 mean / inv kept beside the
+output), and its backward runs, as ``_fused_bwd`` does: the InstanceNorm
+backward on ``ycf`` (the kernel of ``instance_norm.py``), the data
+gradient as the same conv of dy with the taps flipped and Cin / Cout
+swapped (a kernel, launched only when the input needs a gradient), and the
+weight gradient in f32 by the library (``aten.convolution_backward``), as
+the JAX package leaves it to XLA.
 
 ``conv3d_in_lrelu`` keeps the JAX signature (channels-last ``x [B, D, H, W,
 Cin]``, ``w [3, 3, 3, Cin, Cout]``); ``conv3d_in_lrelu_cf`` is the
 channels-first entry the U-Net uses (``x [B, Cin, D, H, W]``, ``w`` in
 ``nn.Conv3d``'s ``[Cout, Cin, 3, 3, 3]``).  Like the TPU kernel, neither
-takes a conv bias: the InstanceNorm mean subtraction absorbs it.
+uses a conv bias: the InstanceNorm mean subtraction absorbs it.  A bias
+handed to ``conv3d_in_lrelu_cf`` gets a zero gradient, as the unused
+parameter does in the JAX package, so the optimizer still decays it.
 """
 
 from __future__ import annotations
@@ -18,19 +33,27 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .instance_norm import instance_norm_leaky_bwd_cf
+
+_ONES = (1, 1, 1)
 
 
 def _out_dtype(x: torch.Tensor, out_dtype) -> torch.dtype:
     return x.dtype if out_dtype is None else out_dtype
 
 
-def plain_conv3d_in_lrelu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-                          offset: torch.Tensor, negative_slope: float = 0.01,
-                          epsilon: float = 1e-5, out_dtype=None) -> torch.Tensor:
-    """Channels-first reference of the fused kernel: ``F.conv3d`` in x's
-    dtype, one-pass f32 statistics clamped at 0, and the TPU epilogue
-    ``y * mul - sub`` with ``mul``/``sub`` rounded to the output dtype
-    (``conv3d.py:262-268, 288-290``)."""
+def _stats(t: torch.Tensor) -> torch.Tensor:
+    return t[:, :, None, None, None]
+
+
+def plain_conv3d_in_lrelu_train(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                                offset: torch.Tensor, negative_slope: float = 0.01,
+                                epsilon: float = 1e-5, out_dtype=None):
+    """(out, ycf, mean, inv): ``F.conv3d`` in x's dtype, one-pass f32
+    statistics clamped at 0, and the TPU epilogue ``y * mul - sub`` with
+    ``mul``/``sub`` rounded to the output dtype (``conv3d.py:262-268,
+    288-290``); ``ycf`` is the conv output in the output dtype, ``mean`` /
+    ``inv`` [B, Cout] f32."""
     dt = _out_dtype(x, out_dtype)
     y = F.conv3d(x, w.to(x.dtype), padding=1)
     yf = y.float()
@@ -38,24 +61,66 @@ def plain_conv3d_in_lrelu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     mean = yf.sum(dim=(2, 3, 4)) / n                          # [B, Cout]
     var = torch.clamp(yf.square().sum(dim=(2, 3, 4)) / n - mean.square(), min=0.0)
     inv = torch.rsqrt(var + epsilon)
-    mul = (inv * scale.float()).to(dt).float()[:, :, None, None, None]
-    sub = (mean * inv * scale.float() - offset.float()).to(dt).float()[
-        :, :, None, None, None]
-    z = y.to(dt).float() * mul - sub
-    return torch.where(z >= 0, z, negative_slope * z).to(dt)
+    mul = _stats((inv * scale.float()).to(dt).float())
+    sub = _stats((mean * inv * scale.float() - offset.float()).to(dt).float())
+    ycf = y.to(dt)
+    z = ycf.float() * mul - sub
+    return torch.where(z >= 0, z, negative_slope * z).to(dt), ycf, mean, inv
 
 
-def conv3d_in_lrelu_cf(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-                       offset: torch.Tensor, negative_slope: float = 0.01,
-                       epsilon: float = 1e-5, out_dtype=None) -> torch.Tensor:
-    """conv3d(3^3, stride 1, SAME, no bias) -> InstanceNorm -> LeakyReLU.
-    ``x [B, Cin, D, H, W]``, ``w [Cout, Cin, 3, 3, 3]``, ``scale``/``offset``
-    [Cout].  Returns ``[B, Cout, D, H, W]`` in ``out_dtype`` (default x's)."""
-    if x.device.type == "cpu":
-        return plain_conv3d_in_lrelu(x, w, scale, offset, negative_slope,
-                                     epsilon, out_dtype)
-    dev = build.require_cuda(x, w, scale, offset)
-    dt = _out_dtype(x, out_dtype)
+def plain_conv3d_in_lrelu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                          offset: torch.Tensor, negative_slope: float = 0.01,
+                          epsilon: float = 1e-5, out_dtype=None) -> torch.Tensor:
+    """Channels-first reference of the fused kernel (the output of
+    :func:`plain_conv3d_in_lrelu_train`)."""
+    return plain_conv3d_in_lrelu_train(x, w, scale, offset, negative_slope, epsilon,
+                                       out_dtype)[0]
+
+
+def _dx_weight(w: torch.Tensor) -> torch.Tensor:
+    """``[Cout, Cin, 3, 3, 3]`` -> the torch weight of the data-gradient
+    conv, ``[Cin, Cout, 3, 3, 3]`` with the taps flipped."""
+    return w.flip(2, 3, 4).transpose(0, 1)
+
+
+def plain_conv3d_dx(dy: torch.Tensor, w: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """dx = conv(dy, flip(w) with Cin / Cout swapped), in dy's dtype."""
+    return F.conv3d(dy, _dx_weight(w).to(dy.dtype), padding=1).to(_out_dtype(dy, out_dtype))
+
+
+def conv3d_weight_grad(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """dw of the 3x3x3 SAME conv in f32 (``_fused_bwd``'s XLA weight-grad,
+    ``conv3d.py:351-360``), in w's dtype.  The library's weight gradient."""
+    return torch.ops.aten.convolution_backward(
+        dy.float(), x.float(), w.float(), None, _ONES, _ONES, _ONES, False,
+        (0, 0, 0), 1, (False, True, False))[1].to(w.dtype)
+
+
+def plain_conv3d_in_lrelu_bwd(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                              offset: torch.Tensor, ycf: torch.Tensor, mean: torch.Tensor,
+                              inv: torch.Tensor, g: torch.Tensor,
+                              negative_slope: float = 0.01, need_dx: bool = True):
+    """``_fused_bwd`` step by step: the LeakyReLU mask recomputed from (ycf,
+    mean, inv, scale, offset), the InstanceNorm backward per (b, c), dy
+    rounded to x's dtype, dx by the flipped conv, dw in f32.  Returns (dx or
+    None, dw, dscale [Cout], doffset [Cout])."""
+    gcf = g.float()
+    yhat = (ycf.float() - _stats(mean)) * _stats(inv)
+    z = yhat * scale.float()[None, :, None, None, None] \
+        + offset.float()[None, :, None, None, None]
+    dz = torch.where(z >= 0, gcf, negative_slope * gcf)
+    axes = (2, 3, 4)
+    dscale = (dz * yhat).sum(dim=axes)                      # [B, C]
+    doffset = dz.sum(dim=axes)
+    m_dz = dz.mean(dim=axes, keepdim=True)
+    m_dzy = (dz * yhat).mean(dim=axes, keepdim=True)
+    gi = _stats(scale.float()[None, :] * inv)
+    dy = (gi * (dz - m_dz - yhat * m_dzy)).to(x.dtype)
+    dx = plain_conv3d_dx(dy, w, x.dtype) if need_dx else None
+    return dx, conv3d_weight_grad(x, w, dy), dscale.sum(dim=0), doffset.sum(dim=0)
+
+
+def _check(x, w, scale, offset, dt) -> None:
     if x.dtype not in build.DTYPES or dt not in build.DTYPES:
         raise TypeError(f"conv3d_in_lrelu kernel takes float32/bfloat16, got "
                         f"{x.dtype} -> {dt}")
@@ -65,22 +130,123 @@ def conv3d_in_lrelu_cf(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                          f"[Cout, Cin, 3, 3, 3]; got {tuple(x.shape)}, "
                          f"{tuple(w.shape)}, scale {tuple(scale.shape)}, "
                          f"offset {tuple(offset.shape)}")
-    B, cin, D, H, W = x.shape
+
+
+def _kernel_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """[Cout, Cin, kd, kh, kw] -> [Cin, 27, Cout], in the input dtype as the
+    TPU kernel casts its weights (conv3d.py:220)."""
+    return w.to(dtype).permute(1, 2, 3, 4, 0).contiguous().view(w.shape[1], 27, w.shape[0])
+
+
+def _kernel_forward(x, w, scale, offset, negative_slope, epsilon, out_dtype, train):
+    """One launch of the fused forward: ``out`` (normalized in place) or,
+    for training, (out, ycf, mean, inv)."""
+    dev = build.require_cuda(x, w, scale, offset)
+    dt = _out_dtype(x, out_dtype)
+    _check(x, w, scale, offset, dt)
+    B, _, D, H, W = x.shape
     cout = w.shape[0]
     ext = build.load_extension()
-    xc = x.contiguous()
-    # [Cout, Cin, kd, kh, kw] -> [Cin, 27, Cout], in the input dtype as the
-    # TPU kernel casts its weights (conv3d.py:220)
-    wk = w.to(x.dtype).permute(1, 2, 3, 4, 0).contiguous()
-    sc = scale.float().contiguous()
-    of = offset.float().contiguous()
+    args = (x.contiguous(), _kernel_weight(w, x.dtype), scale.float().contiguous(),
+            offset.float().contiguous())
     y = torch.empty((B, cout, D, H, W), dtype=dt, device=dev)
     partials = torch.empty(ext.conv3d_partials_len(B, cout, D, H, W),
                            dtype=torch.float32, device=dev)
-    ext.conv3d_in_lrelu_fwd(xc, wk.view(cin, 27, cout), sc, of, y, partials,
-                            float(negative_slope), float(epsilon))
+    if train:
+        out = torch.empty_like(y)
+        mean = torch.empty((B, cout), dtype=torch.float32, device=dev)
+        inv = torch.empty_like(mean)
+        ext.conv3d_in_lrelu_train_fwd(*args, y, out, mean, inv, partials,
+                                      float(negative_slope), float(epsilon))
+        result = (out, y, mean, inv)
+    else:
+        ext.conv3d_in_lrelu_fwd(*args, y, partials, float(negative_slope), float(epsilon))
+        result = y
     conv3d_in_lrelu_cf.launches += 1
-    return y
+    return result
+
+
+def conv3d_dx_cf(dy: torch.Tensor, w: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """The fused op's data gradient: ``dy [B, Cout, D, H, W]``, ``w [Cout,
+    Cin, 3, 3, 3]`` -> ``dx [B, Cin, D, H, W]`` in ``out_dtype`` (default
+    dy's).  One launch of the conv kernel for a CUDA tensor."""
+    if dy.device.type == "cpu":
+        return plain_conv3d_dx(dy, w, out_dtype)
+    dev = build.require_cuda(dy, w)
+    dt = _out_dtype(dy, out_dtype)
+    if dy.dtype not in build.DTYPES or dt not in build.DTYPES:
+        raise TypeError(f"conv3d kernel takes float32/bfloat16, got {dy.dtype} -> {dt}")
+    if dy.dim() != 5 or w.dim() != 5 or w.shape[0] != dy.shape[1] \
+            or tuple(w.shape[2:]) != (3, 3, 3):
+        raise ValueError(f"conv3d_dx takes dy [B, Cout, D, H, W] and w [Cout, Cin, 3, "
+                         f"3, 3]; got {tuple(dy.shape)}, {tuple(w.shape)}")
+    B, _, D, H, W = dy.shape
+    ext = build.load_extension()
+    dx = torch.empty((B, w.shape[1], D, H, W), dtype=dt, device=dev)
+    ext.conv3d_fwd(dy.contiguous(), _kernel_weight(_dx_weight(w), dy.dtype), dx)
+    conv3d_dx_cf.launches += 1
+    return dx
+
+
+conv3d_dx_cf.launches = 0
+
+
+class Conv3dINLReLU(torch.autograd.Function):
+    """``jax.custom_vjp`` of ``conv3d_in_lrelu`` (``_fused_fwd`` /
+    ``_fused_bwd``) as an autograd Function.  The forward saves x, w, scale,
+    offset, ycf, mean and inv (not the output)."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale, offset, bias, negative_slope, epsilon, out_dtype):
+        if x.device.type == "cpu":
+            out, ycf, mean, inv = plain_conv3d_in_lrelu_train(
+                x, w, scale, offset, negative_slope, epsilon, out_dtype)
+        else:
+            out, ycf, mean, inv = _kernel_forward(x, w, scale, offset, negative_slope,
+                                                  epsilon, out_dtype, train=True)
+        ctx.save_for_backward(x, w, scale, offset, ycf, mean, inv)
+        ctx.negative_slope = negative_slope
+        ctx.has_bias = bias is not None
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, scale, offset, ycf, mean, inv = ctx.saved_tensors
+        need_dx = ctx.needs_input_grad[0]
+        if g.device.type == "cpu":
+            dx, dw, dscale, doffset = plain_conv3d_in_lrelu_bwd(
+                x, w, scale, offset, ycf, mean, inv, g, ctx.negative_slope, need_dx)
+        else:
+            # the IN part of _fused_bwd is _bwd_kernel with x := ycf and
+            # rstd := inv: one kernel for both, dy written in x's dtype
+            dy, dscale, doffset = instance_norm_leaky_bwd_cf(
+                ycf, scale, offset, mean, inv, g, ctx.negative_slope, dx_dtype=x.dtype)
+            dx = conv3d_dx_cf(dy, w, x.dtype) if need_dx else None
+            dw = conv3d_weight_grad(x, w, dy)
+        dbias = torch.zeros(w.shape[:1], dtype=w.dtype, device=w.device) \
+            if ctx.has_bias else None
+        return (dx, dw, dscale.to(scale.dtype), doffset.to(offset.dtype), dbias,
+                None, None, None)
+
+
+def conv3d_in_lrelu_cf(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                       offset: torch.Tensor, negative_slope: float = 0.01,
+                       epsilon: float = 1e-5, out_dtype=None,
+                       bias: torch.Tensor | None = None) -> torch.Tensor:
+    """conv3d(3^3, stride 1, SAME, no bias) -> InstanceNorm -> LeakyReLU.
+    ``x [B, Cin, D, H, W]``, ``w [Cout, Cin, 3, 3, 3]``, ``scale``/``offset``
+    [Cout].  Returns ``[B, Cout, D, H, W]`` in ``out_dtype`` (default x's).
+    Differentiable through :class:`Conv3dINLReLU` where autograd records;
+    ``bias`` (the conv's, unused by the math) then gets a zero gradient."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, scale, offset, bias)):
+        return Conv3dINLReLU.apply(x, w, scale, offset, bias, negative_slope, epsilon,
+                                   out_dtype)
+    if x.device.type == "cpu":
+        return plain_conv3d_in_lrelu(x, w, scale, offset, negative_slope, epsilon,
+                                     out_dtype)
+    return _kernel_forward(x, w, scale, offset, negative_slope, epsilon, out_dtype,
+                           train=False)
 
 
 conv3d_in_lrelu_cf.launches = 0

@@ -5,9 +5,13 @@ The arguments of the JAX package's ``nnUNet_inference``
 (``lifelong_nnunet_tpu/run/run_inference.py``), plus ``--device``, which
 defaults to ``cuda`` and never falls back to the CPU.  The model is looked
 up in the base-trainer layout
-``$RESULTS_FOLDER/nnUNet_ext/<network>/<task>/nnUNetTrainerV2__<plans>/Generic_UNet/fold_X``;
-continual-learning layouts and the ViT-U-Net come with later parts of the
-port and are refused here.
+``$RESULTS_FOLDER/nnUNet_ext/<network>/<task>/nnUNetTrainerV2__<plans>/Generic_UNet/fold_X``
+for ``nnUNetTrainerV2``, and for ``base_v2`` in the folder that
+``nnUNet_torch_train_base_v2`` writes
+(``<network>/<task>/<task>/nnUNetTrainerBase_v2__<plans>/Generic_UNet/SEQ/fold_X``;
+the JAX CLI reads ``base_v2`` from the base-trainer layout, where its
+trainer does not write).  Continual-learning layouts and the ViT-U-Net
+come with later parts of the port and are refused here.
 """
 
 from __future__ import annotations
@@ -16,9 +20,12 @@ import argparse
 import json
 import os
 
+from .. import paths
 from ..device import resolve_device
 from ..inference.predict import predict_from_folder
-from ..shared import arch_dir, paths, resolve_task
+from ..run.plan_and_preprocess import resolve_task
+from ..run.run_training import output_folder
+from ..training.output_paths import arch_dir
 from ..training.restore import find_checkpoint, restore_model
 
 BASE_TRAINERS = ("nnUNetTrainerV2", "base_v2")
@@ -85,9 +92,13 @@ def _refuse_unported(args) -> None:
 
 def _locate_model(args, results: str, fold: int) -> str:
     task = (args.use or args.trained_on)[-1]
-    folder = os.path.join(results, args.network, task,
-                          f"nnUNetTrainerV2__{args.plans_identifier}", arch_dir(),
-                          f"fold_{fold}")
+    if args.trainer == "base_v2":
+        folder = output_folder(results, args.network, task, "base_v2",
+                               args.plans_identifier, fold, transfer_heads=True)
+    else:
+        folder = os.path.join(results, args.network, task,
+                              f"nnUNetTrainerV2__{args.plans_identifier}", arch_dir(),
+                              f"fold_{fold}")
     ckpt = find_checkpoint(folder)
     if ckpt is None:
         raise FileNotFoundError(f"no checkpoint in {folder}")

@@ -1,13 +1,18 @@
 """Checkpoints of the port: ``torch.save`` state plus a JSON manifest.
 
-    <name>.pt     {"heads": {task: state_dict of the assembled U-Net}}
+    <name>.pt     {"heads": {task: state_dict of the assembled U-Net}},
+                  and from the trainer also "optimizer" (its state_dict),
+                  "step" and "epoch"
     <name>.json   the JAX manifest's keys (``trainer.py:660-684``: plans,
                   trainer, extension, config_name, widths, fold, ...) plus
-                  "meta" {"task_order", "active_task"}
+                  "meta" {"task_order", "active_task"}, "step", "epoch"
+                  and "has_opt_state"
 
 Names follow the JAX package and the reference: ``model_final_checkpoint``,
 ``model_latest``, ``model_best``.  The manifest stores no absolute path.
-Optimizer and continual-learning state come with the trainer port.
+A served model reads only "heads", so ``restore_model`` takes a trained
+checkpoint as it takes a hand-saved one.  Continual-learning state comes
+with the CL trainers.
 """
 
 from __future__ import annotations
@@ -45,16 +50,26 @@ def base_manifest(plans, config_name: str, model, trainer: str = "nnUNetTrainerV
     }
 
 
-def save_checkpoint(path_base: str, heads: dict, manifest: dict) -> None:
-    """``heads``: {task: state_dict}, in task order; the last is active."""
+def save_checkpoint(path_base: str, heads: dict, manifest: dict,
+                    optimizer: dict | None = None, step: int = 0, epoch: int = 0,
+                    active_task: str | None = None) -> None:
+    """``heads``: {task: state_dict}, in task order; ``active_task``
+    defaults to the last.  ``optimizer`` is the trainer optimizer's
+    ``state_dict``."""
     if not heads:
         raise ValueError("a checkpoint needs at least one head")
     os.makedirs(os.path.dirname(path_base) or ".", exist_ok=True)
     blob = {"heads": {t: {k: v.detach().cpu() for k, v in sd.items()}
-                      for t, sd in heads.items()}}
+                      for t, sd in heads.items()},
+            "step": int(step), "epoch": int(epoch)}
+    if optimizer is not None:
+        blob["optimizer"] = optimizer
     torch.save(blob, path_base + CKPT_SUFFIX)
     man = dict(manifest)
-    man["meta"] = {"task_order": list(heads), "active_task": list(heads)[-1]}
+    man["meta"] = {"task_order": list(heads),
+                   "active_task": active_task or list(heads)[-1]}
+    man.update({"step": int(step), "epoch": int(epoch),
+                "has_opt_state": optimizer is not None})
     with open(path_base + ".json", "w") as f:
         json.dump(man, f, indent=2, default=str)
 
@@ -67,4 +82,5 @@ def load_checkpoint(path_base: str, device: torch.device):
                       weights_only=True)
     order = manifest["meta"]["task_order"]
     return {t: blob["heads"][t] for t in order}, manifest
+
 

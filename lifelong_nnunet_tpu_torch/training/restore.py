@@ -14,7 +14,7 @@ import torch
 
 from ..device import compute_dtype
 from ..models.unet import GenericUNet, unet_from_plans
-from ..shared import Configuration, Plans
+from ..planning.plans import Configuration, Plans
 from .checkpoints import CKPT_SUFFIX, load_checkpoint
 
 

@@ -1,0 +1,29 @@
+"""Trainer registry of the port: extension name / class name -> trainer
+class.  The continual-learning trainers of the JAX package
+(``lifelong_nnunet_tpu/training/trainers/``) come with a later part of the
+port; asking for one raises."""
+
+from ..trainer import MultiHeadTrainer
+from .sequential import BaseUNetTrainer, SequentialTrainer
+
+TRAINER_MAP = {
+    "multihead": MultiHeadTrainer,
+    "sequential": SequentialTrainer,
+    "base_v2": BaseUNetTrainer,
+}
+
+# reference class names -> ours
+CLASS_NAME_MAP = {
+    "nnUNetTrainerV2": BaseUNetTrainer,
+    "nnUNetTrainerMultiHead": MultiHeadTrainer,
+    "nnUNetTrainerSequential": SequentialTrainer,
+}
+
+
+def get_trainer(name: str):
+    if name in TRAINER_MAP:
+        return TRAINER_MAP[name]
+    if name in CLASS_NAME_MAP:
+        return CLASS_NAME_MAP[name]
+    raise NotImplementedError(f"trainer/extension {name!r} is not ported yet; the "
+                              f"port trains {sorted(TRAINER_MAP)}")

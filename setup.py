@@ -21,8 +21,12 @@ console_scripts = [
     "nnUNet_evaluate = lifelong_nnunet_tpu.run.run_evaluation:main",
     "nnUNet_evaluate2 = lifelong_nnunet_tpu.run.run_evaluation:main2",
     "nnUNet_inference = lifelong_nnunet_tpu.run.run_inference:main",
-    # the PyTorch port's serving path (lifelong_nnunet_tpu_torch/)
+    # the PyTorch port (lifelong_nnunet_tpu_torch/): serving and training
     "nnUNet_torch_inference = lifelong_nnunet_tpu_torch.run.run_inference:main",
+] + [
+    f"nnUNet_torch_train_{ext} = lifelong_nnunet_tpu_torch.run.run_training:main_{ext}"
+    for ext in ("multihead", "sequential", "base_v2")
+] + [
     "nnUNet_parameter_search = lifelong_nnunet_tpu.run.run_param_search:main",
     "nnUNet_train_vit = lifelong_nnunet_tpu.run.run_training_vit:main",
     "nnUNet_prepare_cascade = lifelong_nnunet_tpu.run.prepare_cascade:main",

@@ -9,8 +9,9 @@ import pytest
 import torch
 
 from lifelong_nnunet_tpu_torch.ops.kernels import build
-from lifelong_nnunet_tpu_torch.ops.kernels.conv3d import conv3d_in_lrelu_cf
-from lifelong_nnunet_tpu_torch.ops.kernels.instance_norm import instance_norm_leaky_cf
+from lifelong_nnunet_tpu_torch.ops.kernels.conv3d import conv3d_dx_cf, conv3d_in_lrelu_cf
+from lifelong_nnunet_tpu_torch.ops.kernels.instance_norm import (
+    instance_norm_leaky_bwd_cf, instance_norm_leaky_cf)
 
 TORCH_INCLUDE = re.compile(r'#include\s*[<"](torch|ATen|c10|pybind11)/')
 CSRC_FILES = sorted(p.name for p in build.CSRC.iterdir())
@@ -38,8 +39,9 @@ def test_only_the_binding_includes_torch_headers(name):
 
 
 def test_the_header_declares_the_launchers():
-    assert _launchers() == ["lnn_instance_norm_leaky_fwd", "lnn_conv3d_partials_len",
-                            "lnn_conv3d_in_lrelu_fwd"]
+    assert _launchers() == ["lnn_instance_norm_leaky_fwd", "lnn_instance_norm_leaky_bwd",
+                            "lnn_conv3d_partials_len", "lnn_conv3d_in_lrelu_fwd",
+                            "lnn_conv3d_in_lrelu_train_fwd", "lnn_conv3d_fwd"]
 
 
 @pytest.mark.parametrize("launcher", _launchers())
@@ -71,12 +73,26 @@ def test_installed_copy_builds_under_the_user_cache(tmp_path, monkeypatch):
                                  torch.zeros(2, device="meta")),
     lambda x: instance_norm_leaky_cf(x, torch.ones(2, device="meta"),
                                      torch.zeros(2, device="meta")),
-], ids=["conv3d_in_lrelu", "instance_norm_leaky"])
+    lambda x: conv3d_in_lrelu_cf(x.requires_grad_(),
+                                 torch.ones(2, 2, 3, 3, 3, device="meta"),
+                                 torch.ones(2, device="meta"),
+                                 torch.zeros(2, device="meta")),
+    lambda x: instance_norm_leaky_cf(x.requires_grad_(), torch.ones(2, device="meta"),
+                                     torch.zeros(2, device="meta")),
+    lambda x: conv3d_dx_cf(x, torch.ones(2, 2, 3, 3, 3, device="meta")),
+    lambda x: instance_norm_leaky_bwd_cf(
+        x, torch.ones(2, device="meta"), torch.zeros(2, device="meta"),
+        torch.zeros(1, 2, device="meta"), torch.ones(1, 2, device="meta"), x),
+], ids=["conv3d_in_lrelu", "instance_norm_leaky", "conv3d_in_lrelu_train",
+        "instance_norm_leaky_train", "conv3d_dx", "instance_norm_leaky_bwd"])
 def test_wrappers_take_the_plain_version_only_for_cpu_tensors(call, monkeypatch):
-    """A tensor off the CPU goes to the kernel or raises: here (a meta
-    tensor) it raises before any build, and the launch count stays."""
+    """A tensor off the CPU goes to the kernel or raises, forward or
+    backward, with autograd recording or not: here (a meta tensor) it
+    raises before any build, and the launch counts stay."""
     monkeypatch.setattr(build, "load_extension", lambda: pytest.fail("built"))
-    before = (conv3d_in_lrelu_cf.launches, instance_norm_leaky_cf.launches)
+    counted = (conv3d_in_lrelu_cf, instance_norm_leaky_cf, conv3d_dx_cf,
+               instance_norm_leaky_bwd_cf)
+    before = [f.launches for f in counted]
     with pytest.raises(ValueError, match="CUDA"):
         call(torch.ones(1, 2, 4, 4, 4, device="meta"))
-    assert (conv3d_in_lrelu_cf.launches, instance_norm_leaky_cf.launches) == before
+    assert [f.launches for f in counted] == before

@@ -1,11 +1,13 @@
 """The port runs where jax, flax, optax, msgpack and scikit-learn are not
-installed (the GPU host has none of them): a fresh interpreter whose
-``sys.meta_path`` refuses those imports loads every module of
-``lifelong_nnunet_tpu_torch`` and ``chip_smoke.py`` (with everything the
-script imports, its synthetic-task helper included), and runs one tiny CPU
-forward through the model and the sliding window."""
+installed (the GPU host has none of them), and imports nothing of the JAX
+package ``lifelong_nnunet_tpu``, not even its jax-free modules: a fresh
+interpreter whose ``sys.meta_path`` refuses those imports loads every module
+of ``lifelong_nnunet_tpu_torch`` and ``chip_smoke.py``, runs one tiny CPU
+forward through the model and the sliding window, and one CPU training run
+of a single step through ``run/run_training.py``."""
 
 import ast
+import json
 import os
 import shutil
 import subprocess
@@ -14,18 +16,31 @@ import textwrap
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-SCRIPT = textwrap.dedent("""
-    import importlib, pkgutil, sys
+# A blocked name is found (torch's own probes with importlib.util.find_spec
+# see a spec without an origin) but refuses to load.
+BLOCKER = textwrap.dedent("""
+    import importlib.machinery, sys
 
     class Refuse:
-        BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "sklearn")
+        BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "sklearn",
+                   "lifelong_nnunet_tpu")
 
         def find_spec(self, name, path=None, target=None):
             if name.split(".")[0] in self.BLOCKED:
-                raise ImportError("blocked import of " + name)
+                return importlib.machinery.ModuleSpec(name, self)
             return None
 
+        def create_module(self, spec):
+            raise ImportError("blocked import of " + spec.name)
+
+        def exec_module(self, module):
+            pass
+
     sys.meta_path.insert(0, Refuse())
+""")
+
+SCRIPT = BLOCKER + textwrap.dedent("""
+    import importlib, pkgutil
     import numpy as np
     import torch
     torch.set_num_threads(1)
@@ -34,7 +49,6 @@ SCRIPT = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     import chip_smoke
-    chip_smoke._load_synthetic()
     from lifelong_nnunet_tpu_torch.inference.sliding_window import predict_sliding_window
     from lifelong_nnunet_tpu_torch.models.unet import GenericUNet
     model = GenericUNet(1, 3, ((2, 2, 2),), ((3, 3, 3),) * 2, 4, 8,
@@ -48,13 +62,48 @@ SCRIPT = textwrap.dedent("""
 """)
 
 
+TRAIN_SCRIPT = BLOCKER + textwrap.dedent("""
+    import json, os
+    import torch
+    torch.set_num_threads(1)
+    root = sys.argv[1]
+    os.environ.update(nnUNet_raw_data_base=os.path.join(root, "raw"),
+                      nnUNet_preprocessed=os.path.join(root, "pre"),
+                      RESULTS_FOLDER=os.path.join(root, "results"))
+    from lifelong_nnunet_tpu_torch.run.plan_and_preprocess import plan_and_preprocess
+    from lifelong_nnunet_tpu_torch.run.run_training import run_training
+    from lifelong_nnunet_tpu_torch.utilities.synthetic import make_synthetic_task
+    task_dir = make_synthetic_task(os.path.join(root, "raw", "nnUNet_raw_data"),
+                                   num_cases=2, shape=(12, 14, 12))
+    plan_and_preprocess([task_dir], os.path.join(root, "pre"), configs=("3d_fullres",),
+                        verbose=False)
+    run_training("base_v2", ["3d_fullres", "-t", "Task097_SynthA", "-f", "-1",
+                             "-num_epochs", "1", "-num_iters", "1", "-val_iters", "1",
+                             "-patch_size", "8", "8", "8", "-base_features", "2",
+                             "-max_features", "4", "--device", "cpu"])
+    loaded = {m.split(".")[0] for m in sys.modules} & set(Refuse.BLOCKED)
+    print(json.dumps({"loaded": sorted(loaded)}))
+""")
+
+
 def test_port_imports_and_runs_without_jax():
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     n = int(proc.stdout.split("imported ")[1].split()[0])
-    assert n >= 15, proc.stdout
+    assert n >= 35, proc.stdout
+
+
+def test_one_train_step_runs_without_jax(tmp_path):
+    """``run/run_training.py`` takes one CPU train step (and its
+    validation batch and checkpoints) under the blocker."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", TRAIN_SCRIPT, str(tmp_path)], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"loaded": []}
+    assert list(tmp_path.rglob("model_final_checkpoint.pt"))
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):
@@ -81,11 +130,12 @@ def test_chip_smoke_refuses_to_run_outside_the_repository(tmp_path):
 
 
 def test_chip_smoke_imports_only_the_port():
-    """The script reaches planning, preprocessing, NIfTI I/O and metrics
-    through the port (``lifelong_nnunet_tpu_torch.shared``), never through
-    the JAX package or jax itself."""
+    """The script reaches planning, preprocessing, NIfTI I/O, metrics and
+    its synthetic task through the port's own modules, never through the JAX
+    package, the repository's tests or jax itself."""
     with open(os.path.join(ROOT, "chip_smoke.py")) as f:
-        tree = ast.parse(f.read())
+        source = f.read()
+    tree = ast.parse(source)
     roots = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -95,7 +145,8 @@ def test_chip_smoke_imports_only_the_port():
     assert "lifelong_nnunet_tpu_torch" in roots
     assert not roots & {"lifelong_nnunet_tpu", "tests", "jax", "jaxlib", "flax",
                         "optax", "msgpack", "sklearn"}, roots
-    allowed = {"__future__", "importlib", "json", "math", "os", "shutil",
-               "statistics", "subprocess", "sys", "tempfile", "time", "numpy",
-               "torch", "lifelong_nnunet_tpu_torch"}
+    allowed = {"__future__", "json", "math", "os", "shutil", "statistics",
+               "subprocess", "sys", "tempfile", "time", "numpy", "torch",
+               "lifelong_nnunet_tpu_torch"}
     assert roots <= allowed, roots - allowed
+    assert "synthetic.py" not in source and '"tests"' not in source
