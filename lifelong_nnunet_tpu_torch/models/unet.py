@@ -65,7 +65,9 @@ def _conv(conv: nn.Module, x: torch.Tensor, dim: int) -> torch.Tensor:
 class InstanceNorm(nn.Module):
     """Affine per-sample, per-channel normalization over the spatial dims.
     Mirrors the JAX module (``unet.py:35-57``): one-pass f32 statistics
-    E[x^2] - E[x]^2 clamped at 0, normalization in the activation dtype."""
+    E[x^2] - E[x]^2 clamped at 0, normalization in the activation dtype.
+    A float64 input keeps float64 statistics, so an f64 model is an f64
+    reference throughout."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -76,7 +78,7 @@ class InstanceNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         axes = tuple(range(2, x.dim()))
         shape = (1, -1) + (1,) * len(axes)
-        xf = x.float()
+        xf = x if x.dtype == torch.float64 else x.float()
         mean = xf.mean(dim=axes, keepdim=True)
         var = xf.square().mean(dim=axes, keepdim=True) - mean.square()
         inv = torch.rsqrt(torch.clamp(var, min=0.0) + self.eps)
@@ -130,8 +132,9 @@ class ConvStage(nn.Module):
 class GenericUNet(nn.Module):
     """Plans-driven U-Net.  ``forward(x [B, C_in, *spatial])`` returns the
     deep-supervision logits, highest resolution first, each
-    ``[B, num_classes, *spatial_i]`` float32; with ``deep_supervision=False``
-    only the full-resolution head runs and the list has one entry."""
+    ``[B, num_classes, *spatial_i]`` float32 (float64 for an f64 model);
+    with ``deep_supervision=False`` only the full-resolution head runs and
+    the list has one entry."""
 
     def __init__(self, in_channels: int, num_classes: int,
                  pool_op_kernel_sizes, conv_kernel_sizes,
@@ -223,7 +226,8 @@ class GenericUNet(nn.Module):
                                 up.stride)
             h = getattr(self, f"dec{d}")(torch.cat([h, skips[-1 - d]], dim=1))
             if self.deep_supervision or d == self.num_pool - 1:
-                outputs.append(_conv(getattr(self, f"seg{d}"), h, dim).float())
+                logits = _conv(getattr(self, f"seg{d}"), h, dim)
+                outputs.append(logits if logits.dtype == torch.float64 else logits.float())
         return outputs[::-1]
 
 

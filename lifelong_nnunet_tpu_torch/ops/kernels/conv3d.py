@@ -12,11 +12,12 @@ tensor launches the kernels or raises, whatever its shape.
 Where autograd records the call, :class:`Conv3dINLReLU` runs the training
 forward (the raw conv output ``ycf`` and the f32 mean / inv kept beside the
 output), and its backward runs, as ``_fused_bwd`` does: the InstanceNorm
-backward on ``ycf`` (the kernel of ``instance_norm.py``), the data
+backward on ``ycf`` (the wrapper of ``instance_norm.py``), the data
 gradient as the same conv of dy with the taps flipped and Cin / Cout
 swapped (a kernel, launched only when the input needs a gradient), and the
-weight gradient in f32 by the library (``aten.convolution_backward``), as
-the JAX package leaves it to XLA.
+weight gradient by the library (``aten.convolution_backward``, f32
+accumulation), as the JAX package leaves it to XLA.  The CPU runs the same
+steps through the wrappers' plain versions.
 
 ``conv3d_in_lrelu`` keeps the JAX signature (channels-last ``x [B, D, H, W,
 Cin]``, ``w [3, 3, 3, Cin, Cout]``); ``conv3d_in_lrelu_cf`` is the
@@ -33,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .instance_norm import instance_norm_leaky_bwd_cf
+from .instance_norm import instance_norm_leaky_bwd_cf, plain_instance_norm_leaky_bwd
 
 _ONES = (1, 1, 1)
 
@@ -89,8 +90,14 @@ def plain_conv3d_dx(dy: torch.Tensor, w: torch.Tensor, out_dtype=None) -> torch.
 
 
 def conv3d_weight_grad(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """dw of the 3x3x3 SAME conv in f32 (``_fused_bwd``'s XLA weight-grad,
-    ``conv3d.py:351-360``), in w's dtype.  The library's weight gradient."""
+    """dw of the 3x3x3 SAME conv (``_fused_bwd``'s XLA weight-grad,
+    ``conv3d.py:351-360``), accumulated in f32 and returned in w's dtype: the
+    library's weight gradient on x and dy cast to f32.  On the card cuDNN
+    rounds those inputs to TF32 where ``torch.backends.cudnn.allow_tf32``
+    lets it (PyTorch's default).  With bf16 activations, the training dtype,
+    that rounds nothing (a bf16 value is a TF32 value) and dw is the f32
+    result; with f32 activations it is TF32's, as XLA's default precision
+    for an f32 conv on a TPU is not full f32 either."""
     return torch.ops.aten.convolution_backward(
         dy.float(), x.float(), w.float(), None, _ONES, _ONES, _ONES, False,
         (0, 0, 0), 1, (False, True, False))[1].to(w.dtype)
@@ -100,24 +107,14 @@ def plain_conv3d_in_lrelu_bwd(x: torch.Tensor, w: torch.Tensor, scale: torch.Ten
                               offset: torch.Tensor, ycf: torch.Tensor, mean: torch.Tensor,
                               inv: torch.Tensor, g: torch.Tensor,
                               negative_slope: float = 0.01, need_dx: bool = True):
-    """``_fused_bwd`` step by step: the LeakyReLU mask recomputed from (ycf,
-    mean, inv, scale, offset), the InstanceNorm backward per (b, c), dy
-    rounded to x's dtype, dx by the flipped conv, dw in f32.  Returns (dx or
-    None, dw, dscale [Cout], doffset [Cout])."""
-    gcf = g.float()
-    yhat = (ycf.float() - _stats(mean)) * _stats(inv)
-    z = yhat * scale.float()[None, :, None, None, None] \
-        + offset.float()[None, :, None, None, None]
-    dz = torch.where(z >= 0, gcf, negative_slope * gcf)
-    axes = (2, 3, 4)
-    dscale = (dz * yhat).sum(dim=axes)                      # [B, C]
-    doffset = dz.sum(dim=axes)
-    m_dz = dz.mean(dim=axes, keepdim=True)
-    m_dzy = (dz * yhat).mean(dim=axes, keepdim=True)
-    gi = _stats(scale.float()[None, :] * inv)
-    dy = (gi * (dz - m_dz - yhat * m_dzy)).to(x.dtype)
+    """``_fused_bwd`` step by step: the InstanceNorm backward of
+    :func:`plain_instance_norm_leaky_bwd` on (ycf, mean, inv) (the LeakyReLU
+    mask recomputed, dy rounded to x's dtype), dx by the flipped conv, dw in
+    f32.  Returns (dx or None, dw, dscale [Cout], doffset [Cout])."""
+    dy, dscale, doffset = plain_instance_norm_leaky_bwd(
+        ycf, scale, offset, mean, inv, g, negative_slope, dx_dtype=x.dtype)
     dx = plain_conv3d_dx(dy, w, x.dtype) if need_dx else None
-    return dx, conv3d_weight_grad(x, w, dy), dscale.sum(dim=0), doffset.sum(dim=0)
+    return dx, conv3d_weight_grad(x, w, dy), dscale, doffset
 
 
 def _check(x, w, scale, offset, dt) -> None:
@@ -213,16 +210,13 @@ class Conv3dINLReLU(torch.autograd.Function):
     def backward(ctx, g):
         x, w, scale, offset, ycf, mean, inv = ctx.saved_tensors
         need_dx = ctx.needs_input_grad[0]
-        if g.device.type == "cpu":
-            dx, dw, dscale, doffset = plain_conv3d_in_lrelu_bwd(
-                x, w, scale, offset, ycf, mean, inv, g, ctx.negative_slope, need_dx)
-        else:
-            # the IN part of _fused_bwd is _bwd_kernel with x := ycf and
-            # rstd := inv: one kernel for both, dy written in x's dtype
-            dy, dscale, doffset = instance_norm_leaky_bwd_cf(
-                ycf, scale, offset, mean, inv, g, ctx.negative_slope, dx_dtype=x.dtype)
-            dx = conv3d_dx_cf(dy, w, x.dtype) if need_dx else None
-            dw = conv3d_weight_grad(x, w, dy)
+        # the IN part of _fused_bwd is _bwd_kernel with x := ycf and
+        # rstd := inv: one wrapper for both, dy written in x's dtype; on the
+        # CPU the two wrappers run plain_conv3d_in_lrelu_bwd's steps
+        dy, dscale, doffset = instance_norm_leaky_bwd_cf(
+            ycf, scale, offset, mean, inv, g, ctx.negative_slope, dx_dtype=x.dtype)
+        dx = conv3d_dx_cf(dy, w, x.dtype) if need_dx else None
+        dw = conv3d_weight_grad(x, w, dy)
         dbias = torch.zeros(w.shape[:1], dtype=w.dtype, device=w.device) \
             if ctx.has_bias else None
         return (dx, dw, dscale.to(scale.dtype), doffset.to(offset.dtype), dbias,

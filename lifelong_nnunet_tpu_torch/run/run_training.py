@@ -76,8 +76,6 @@ def build_parser(extension: str) -> argparse.ArgumentParser:
     p.add_argument("-model_parallel", type=int, default=1)
     p.add_argument("--no_augment", action="store_true")
     p.add_argument("--remat", action="store_true")
-    p.add_argument("--pallas_conv", dest="use_kernels", action="store_true",
-                   default=True, help="the hand-written kernels (the default)")
     p.add_argument("--no_pallas_conv", dest="use_kernels", action="store_false",
                    help="train on the plain route, without the hand-written kernels")
     p.add_argument("--device", default="cuda",

@@ -31,7 +31,7 @@ from dataclasses import dataclass
 import torch
 
 from ..data.augment import AugmentConfig
-from ..data.dataset import PreprocessedDataset, final_splits, param_search_split
+from ..data.dataset import PreprocessedDataset, final_splits
 from ..data.pipeline import Prefetcher
 from ..data.sampler import PatchSampler
 from ..device import resolve_device
@@ -42,6 +42,11 @@ from . import checkpoints
 from .optimizer import PolySGD
 from .train_step import StepConfig, make_eval_step, make_train_step
 
+# the JAX package's recipe values, which no caller of the port changes
+INITIAL_LR = 1e-2
+OVERSAMPLE_FOREGROUND = 0.33
+SEED = 0
+
 
 @dataclass
 class TrainerOptions:
@@ -49,17 +54,12 @@ class TrainerOptions:
     iters_per_epoch: int = 250
     val_iters: int = 50
     save_every: int = 25
-    initial_lr: float = 1e-2
     split_at: str = "seg_outputs"
     batch_size: int | None = None          # None -> plans value
     patch_size: tuple | None = None        # None -> plans value
     dtype: str = "bfloat16"                # activations on the card
     augment: bool = True
-    oversample: float = 0.33
-    seed: int = 0
     fold: int = 0
-    use_param_split: bool = False          # param-search 80:20 split
-    mixed_precision_on_cpu: bool = False   # tests keep f32 on the CPU
     base_num_features: int | None = None   # None -> plans value
     max_num_features: int | None = None
     device: str = "cuda"
@@ -68,7 +68,6 @@ class TrainerOptions:
 
 class MultiHeadTrainer:
     EXTENSION = "multihead"
-    HYPERPARAMS: dict = {}
     # Sequential-style trainers transfer the previous head to new tasks
     TRANSFER_HEADS = False
 
@@ -84,13 +83,11 @@ class MultiHeadTrainer:
         # nnU-Net's batch-dice rule: 2d and 3d_fullres pool over the batch
         self.batch_dice = config_name in ("2d", "3d_fullres")
         self.device = resolve_device(self.opts.device)
-        dtype = torch.float32
-        if self.opts.dtype == "bfloat16" and (
-                self.device.type == "cuda" or self.opts.mixed_precision_on_cpu):
-            dtype = torch.bfloat16
+        dtype = torch.bfloat16 if self.opts.dtype == "bfloat16" \
+            and self.device.type == "cuda" else torch.float32
         self.model = unet_from_plans(
             plans, config_name, dtype=dtype, use_kernels=self.opts.use_kernels,
-            generator=torch.Generator().manual_seed(self.opts.seed),
+            generator=torch.Generator().manual_seed(SEED),
             base_num_features=self.opts.base_num_features,
             max_num_features=self.opts.max_num_features).to(self.device)
         self.ds_factors = tuple(ds_scale_factors(self.cfg.pool_op_kernel_sizes))
@@ -107,7 +104,7 @@ class MultiHeadTrainer:
         self.already_trained_on: dict = {}
         self.metadata_folder = output_folder
         self.logger = RunLogger(output_folder)
-        self.generator = torch.Generator(device=self.device).manual_seed(self.opts.seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(SEED)
         self._datasets: dict = {}     # task -> (PreprocessedDataset, tr_cases, val_cases)
         self._epoch_log: list = []    # dicts: task, epoch, tr_loss, val_loss, val_dice
         self.step_losses: list = []   # per train step, floats, in order
@@ -140,16 +137,14 @@ class MultiHeadTrainer:
             splits = final_splits(os.path.dirname(stage_dir), ds.cases)
             s = splits[fold % len(splits)]
             tr, val = list(s["train"]), list(s["val"])
-        if self.opts.use_param_split:
-            tr, val = param_search_split(tr)
         self._datasets[task] = (ds, tr, val)
         return tr, val
 
     def _make_sampler(self, task: str, train: bool = True, seed_offset: int = 0):
         ds, tr, val = self._datasets[task]
         return PatchSampler(ds, tr if train else val, self.patch_size, self.batch_size,
-                            oversample_foreground_percent=self.opts.oversample,
-                            seed=self.opts.seed + seed_offset + (0 if train else 1000))
+                            oversample_foreground_percent=OVERSAMPLE_FOREGROUND,
+                            seed=SEED + seed_offset + (0 if train else 1000))
 
     # -------------------------------------------------------------- setup
     def _ensure_initialized(self, task: str):
@@ -165,7 +160,7 @@ class MultiHeadTrainer:
         self.model.load_state_dict(self.mh.assemble())
         self.optimizer = PolySGD(self.model.parameters(), max_epochs=self.opts.num_epochs,
                                  iters_per_epoch=self.opts.iters_per_epoch,
-                                 initial_lr=self.opts.initial_lr)
+                                 initial_lr=INITIAL_LR)
         aug = AugmentConfig(dummy_2d=bool(getattr(self.cfg, "do_dummy_2d_aug", False))) \
             if self.opts.augment else None
         step_cfg = StepConfig(ds_factors=self.ds_factors, batch_dice=self.batch_dice,

@@ -13,7 +13,6 @@ from ..trainer import MultiHeadTrainer
 class SequentialTrainer(MultiHeadTrainer):
     EXTENSION = "sequential"
     TRANSFER_HEADS = True
-    HYPERPARAMS: dict = {}
 
 
 class BaseUNetTrainer(SequentialTrainer):

@@ -158,8 +158,8 @@ def test_conv_bwd_matches_xla_grads_unaligned(shape, cout):
 
 def test_plain_conv_bwd_is_the_functions_cpu_route():
     """The Function's CPU backward is ``plain_conv3d_in_lrelu_bwd`` on the
-    saved (ycf, mean, inv); bit for bit, with the data gradient equal to
-    ``plain_conv3d_dx`` of the InstanceNorm backward's dy."""
+    saved (ycf, mean, inv), bit for bit: the InstanceNorm backward's dy
+    through ``plain_conv3d_dx``, its dscale / doffset as they are."""
     x, w, scale, off, g = _conv_inputs((2, 5, 6, 7, 3), 4, 3)
     xc = torch.from_numpy(np.moveaxis(x, -1, 1).copy())
     wc = torch.from_numpy(np.ascontiguousarray(w.transpose(4, 3, 0, 1, 2)))
@@ -172,9 +172,9 @@ def test_plain_conv_bwd_is_the_functions_cpu_route():
     for t, ref in zip(ts, want):
         torch.testing.assert_close(t.grad, ref, atol=0, rtol=0)
     dy, dscale, doff = plain_instance_norm_leaky_bwd(ycf, s, o, mean, inv, gc)
-    torch.testing.assert_close(plain_conv3d_dx(dy, wc), want[0], atol=1e-6, rtol=1e-5)
-    torch.testing.assert_close(dscale, want[2], atol=1e-5, rtol=1e-5)
-    torch.testing.assert_close(doff, want[3], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(plain_conv3d_dx(dy, wc), want[0], atol=0, rtol=0)
+    torch.testing.assert_close(dscale, want[2], atol=0, rtol=0)
+    torch.testing.assert_close(doff, want[3], atol=0, rtol=0)
 
 
 def test_fused_block_gives_the_bias_a_zero_grad_and_skips_dx_for_the_data():

@@ -15,8 +15,8 @@ from lifelong_nnunet_tpu.models.unet import GenericUNet as JaxUNet
 from lifelong_nnunet_tpu.models.unet import ds_scale_factors as jax_ds_scale_factors
 from lifelong_nnunet_tpu.models.unet import unet_from_plans as jax_unet_from_plans
 from lifelong_nnunet_tpu_torch.models.convert import jax_params_to_state_dict
-from lifelong_nnunet_tpu_torch.models.unet import (GenericUNet, ds_scale_factors,
-                                                   unet_from_plans)
+from lifelong_nnunet_tpu_torch.models.unet import (GenericUNet, InstanceNorm,
+                                                   ds_scale_factors, unet_from_plans)
 
 torch.set_num_threads(2)
 
@@ -77,6 +77,31 @@ def test_deep_supervision_off_returns_full_resolution_head():
     ref = jm.apply({"params": params}, jnp.asarray(x))[0]
     np.testing.assert_allclose(np.moveaxis(out.numpy(), 1, -1), np.asarray(ref),
                                atol=2e-4, rtol=1e-3)
+
+
+def test_f64_plain_route_is_f64_throughout():
+    """An f64 plain-route model keeps f64 InstanceNorm statistics and f64
+    logits: on a channel whose mean is 3e3 times its spread, where one-pass
+    f32 statistics lose the variance (errors of order 1), it agrees with
+    torch's two-pass f64 ``instance_norm`` to 1e-7, and it matches the f32
+    model on plain data to 1e-4 (f32 roundoff)."""
+    gen = torch.Generator().manual_seed(2)
+    norm = InstanceNorm(3).double()
+    x = 3e3 + torch.randn(2, 3, 6, 7, 8, generator=gen, dtype=torch.float64)
+    ref = torch.nn.functional.instance_norm(x, eps=norm.eps)
+    torch.testing.assert_close(norm(x), ref, atol=1e-7, rtol=0)
+    pools, kernels = ((2, 2, 2), (2, 2, 2)), ((3, 3, 3),) * 3
+    _, _, tm, x = _pair(pools, kernels, 1, (16, 16, 16), use_kernels=False)
+    xc = torch.from_numpy(np.ascontiguousarray(np.moveaxis(x, -1, 1)))
+    with torch.no_grad():
+        outs32 = tm(xc)
+        tm64 = GenericUNet(1, 3, pools, kernels, base_num_features=4, max_num_features=16,
+                           dtype=torch.float64, use_kernels=False).double()
+        tm64.load_state_dict(tm.state_dict())
+        outs64 = tm64(xc)
+    for o32, o64 in zip(outs32, outs64):
+        assert o64.dtype == torch.float64
+        torch.testing.assert_close(o64.float(), o32, atol=1e-4, rtol=1e-4)
 
 
 def test_converter_rejects_a_foreign_tree():
