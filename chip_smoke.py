@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths (the U-Net's and the
+ViT-U-Net's) once on one NVIDIA GPU.
 
 Run from the repository root, with no arguments:  python3 chip_smoke.py
 
@@ -34,14 +35,30 @@ Phases (one line each; any failure raises, so the exit code is not 0):
      ``nnUNet_torch_inference --device cuda`` serves the checkpoint it wrote
      (Dice recorded); one train step from the same weights and batch, the
      kernel and plain routes in f32 held to the plain route in f64 (loss
-     and every gradient) within a limit that a bf16 control must exceed; warm seconds per train step, the routes in
-     turns, peak device memory, and the kernel route's device time by
-     kernel (torch.profiler).
-The line before the last is the kernels' JSON record (forward kernels per
-forward at the serving path's largest batch, backward kernels per train
-step; ``launches`` summed over the serving and training runs, and per path
-under ``launches_by_path``); the last line is ``{"ok": true, "device":
-{...}}``.  Work files go to build/chip_smoke/ and are removed at the end.
+     and every gradient) within a limit that a bf16 control must exceed;
+     warm seconds per train step, the routes in turns, peak device memory,
+     and the kernel route's device time by kernel (torch.profiler);
+  7. the flash-attention kernels (forward, and the backward's three
+     kernels) against their plain versions at the ViT train step's
+     (1, 12, 490, 64), serving's (8, 12, 490, 64), CT scale's
+     (1, 12, 512, 64) and hd 80's (1, 16, 512, 80), f32 and bf16, with
+     bf16 medians of the kernel, the plain version and SDPA (the library
+     time, never used by the port);
+  8. the ViT-U-Net path: ``nnUNet_torch_train_vit 3d_fullres <task> 0
+     --device cuda`` trains V1 with ViT-base at full width (batch 1, the
+     plan's halved) as phase 6 trains the U-Net; the launch counters of all
+     six kernels as the route predicts (no bottleneck stage, 12 flash
+     forwards and backwards per step), a finite loss, ``nnUNet_torch_inference
+     nnViTUNetTrainer --use_vit --device cuda`` serving the checkpoint (12
+     flash launches per forward, Dice recorded), the f32 step check of
+     phase 6 on the ViT-U-Net, warm s/step of both routes in turns, peak
+     memory and the kernel route's device time by kernel.
+The line before the last is the kernels' JSON record (the U-Net's forward
+kernels per forward at the serving path's largest batch, its backward
+kernels per train step, the flash kernels per ViT-U-Net train step;
+``launches`` summed over the four paths' runs, and per path under
+``launches_by_path``: ``serve``, ``train``, ``vit_train``, ``vit_serve``);
+the last line is ``{"ok": true, "device": {...}}``.  Work files go to build/chip_smoke/ and are removed at the end.
 The script imports only the port, never the JAX package, and fails if any
 of lifelong_nnunet_tpu, jax, flax, optax, msgpack or sklearn was imported
 by the end of the run.
@@ -80,7 +97,11 @@ from lifelong_nnunet_tpu_torch.inference.sliding_window import (  # noqa: E402
     predict_sliding_window, window_grid)
 from lifelong_nnunet_tpu_torch.models.unet import (  # noqa: E402
     ConvNormAct, ds_scale_factors, unet_from_plans)
+from lifelong_nnunet_tpu_torch.models.vit_unet import vit_unet_from_plans  # noqa: E402
 from lifelong_nnunet_tpu_torch.ops.kernels import build  # noqa: E402
+from lifelong_nnunet_tpu_torch.ops.kernels.attention import (  # noqa: E402
+    flash_attention, flash_attention_bwd, flash_attention_fwd, plain_attention_bwd,
+    plain_attention_fwd)
 from lifelong_nnunet_tpu_torch.ops.kernels.conv3d import (  # noqa: E402
     conv3d_dx_cf, conv3d_in_lrelu_cf, plain_conv3d_dx, plain_conv3d_in_lrelu)
 from lifelong_nnunet_tpu_torch.ops.kernels.instance_norm import (  # noqa: E402
@@ -92,9 +113,11 @@ from lifelong_nnunet_tpu_torch.run.plan_and_preprocess import plan_and_preproces
 from lifelong_nnunet_tpu_torch.run.run_inference import run_inference  # noqa: E402
 from lifelong_nnunet_tpu_torch.run.run_training import (  # noqa: E402
     output_folder, run_training)
+from lifelong_nnunet_tpu_torch.run.run_training_vit import run_training_vit  # noqa: E402
 from lifelong_nnunet_tpu_torch.training.checkpoints import (  # noqa: E402
     base_manifest, save_checkpoint)
 from lifelong_nnunet_tpu_torch.training.optimizer import PolySGD  # noqa: E402
+from lifelong_nnunet_tpu_torch.training.output_paths import arch_dir  # noqa: E402
 from lifelong_nnunet_tpu_torch.training.restore import restore_model  # noqa: E402
 from lifelong_nnunet_tpu_torch.training.train_step import (  # noqa: E402
     StepConfig, make_train_step)
@@ -115,6 +138,14 @@ TRAIN_EPOCHS, TRAIN_ITERS, VAL_ITERS = 2, 60, 4
 # must meet and the bf16 control must exceed.  On an H100 80GB HBM3 (700 W)
 # both f32 routes read 6.09 and the bf16 kernel route 78.2 (PERF.md)
 F32_GRAD_LIMIT = 10.0
+# flash attention (phase 7): the train step's shape (ViT-base on the
+# hippocampus plan's first skip, 56x80x56 -> a 7x10x7 grid of patch 8), the
+# serving path's (8 mirrors of one window), CT scale (128^3 -> 16^3 patches)
+# and the huge preset's head dim; limits (atol, rtol) against the plain
+# versions on the same inputs
+FLASH_SHAPES = {"train": (1, 12, 490, 64), "serve": (8, 12, 490, 64),
+                "CT": (1, 12, 512, 64), "hd80": (1, 16, 512, 80)}
+FLASH_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-3, 1e-2)}
 NO_JAX = ("lifelong_nnunet_tpu", "jax", "jaxlib", "flax", "optax", "msgpack", "sklearn")
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): bf16 tensor
 # cores and HBM3
@@ -166,7 +197,9 @@ def _library_dgrad(dy, x, w):
 COUNTED = {"conv3d_in_lrelu": conv3d_in_lrelu_cf,
            "instance_norm_leaky": instance_norm_leaky_cf,
            "conv3d_dx": conv3d_dx_cf,
-           "instance_norm_leaky_bwd": instance_norm_leaky_bwd_cf}
+           "instance_norm_leaky_bwd": instance_norm_leaky_bwd_cf,
+           "flash_attention": flash_attention,
+           "flash_attention_bwd": flash_attention_bwd}
 
 
 def _reset_counts():
@@ -192,6 +225,196 @@ def _block_shapes(model, patch, device):
     for h in hooks:
         h.remove()
     return seen
+
+
+def _flash_bound(shape, backward: bool):
+    """The bound of one flash-attention launch on bf16 ``[B, H, N, hd]``:
+    the forward's two products (4 B H N^2 hd flops) on q, k, v read and out
+    written, plus the f32 lse written; the backward's five (10 B H N^2 hd:
+    the logits again, dV, dP, dQ, dK) on q, k, v, out, dout and the lse read
+    and dq, dk, dv written."""
+    b, h, n, hd = shape
+    elems = b * h * n * hd
+    if backward:
+        return _bound(10 * b * h * n * n * hd, 2 * 8 * elems + 4 * b * h * n)
+    return _bound(4 * b * h * n * n * hd, 2 * 4 * elems + 4 * b * h * n)
+
+
+def _sdpa_grads(q, k, v, g):
+    """A closure timing SDPA's backward alone (its forward run once here):
+    the library call the backward kernel is timed against."""
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs)
+    return lambda: torch.autograd.grad(out, (qs, ks, vs), g, retain_graph=True)
+
+
+def _flash_phase(randn) -> dict:
+    """Phase 7: the flash-attention kernels against their plain versions at
+    FLASH_SHAPES, forward (out and lse) and backward (dq, dk, dv from the
+    plain forward's out and lse), f32 and bf16, and a second run of each
+    kernel equal bit for bit to the first; bf16 medians of one launch for
+    the kernel, the plain version and SDPA (forward; backward alone).
+    Returns {shape name: {"fwd" | "bwd": (ms, plain_ms, sdpa_ms, bound)}}
+    and the largest errors under "err" ({"fwd" | "bwd": {dtype: err}})."""
+    res = {}
+    err = {p: dict.fromkeys(FLASH_TOL, 0.0) for p in ("fwd", "bwd")}
+    for name, shape in FLASH_SHAPES.items():
+        for dtype, (atol, rtol) in FLASH_TOL.items():
+            q, k, v, g = (randn(*shape, dtype=dtype) for _ in range(4))
+            out, lse = flash_attention_fwd(q, k, v)
+            ref, ref_lse = plain_attention_fwd(q, k, v)
+            torch.cuda.synchronize()
+            what = f"flash {dtype} {shape}"
+            err["fwd"][dtype] = max(err["fwd"][dtype],
+                                    _compare(what + " out", out, ref, atol, rtol))
+            _compare(what + " lse", lse, ref_lse, 1e-4, 1e-5)
+            got = flash_attention_bwd(q, k, v, ref, ref_lse, g)
+            want = plain_attention_bwd(q, k, v, ref, ref_lse, g)
+            torch.cuda.synchronize()
+            for grad, a, b in zip(("dq", "dk", "dv"), got, want):
+                err["bwd"][dtype] = max(err["bwd"][dtype],
+                                        _compare(f"{what} {grad}", a, b, atol, rtol))
+            again = (*flash_attention_fwd(q, k, v),
+                     *flash_attention_bwd(q, k, v, ref, ref_lse, g))
+            assert all(torch.equal(a, b) for a, b in zip(again, (out, lse, *got))), \
+                f"{what}: a second run differs"
+            del out, lse, got, want, again
+        # timed in bf16, the dtype of the card's routes
+        sdpa_bwd = _sdpa_grads(q, k, v, g)
+        res[name] = {
+            "fwd": (_time_ms(lambda: flash_attention_fwd(q, k, v), 10),
+                    _time_ms(lambda: plain_attention_fwd(q, k, v), 10),
+                    _time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10),
+                    _flash_bound(shape, False)),
+            "bwd": (_time_ms(lambda: flash_attention_bwd(q, k, v, ref, ref_lse, g), 10),
+                    _time_ms(lambda: plain_attention_bwd(q, k, v, ref, ref_lse, g), 10),
+                    _time_ms(sdpa_bwd, 10), _flash_bound(shape, True))}
+        del q, k, v, g, ref, ref_lse, sdpa_bwd
+        print(f"[phase 7]   flash {name} {shape} bf16, one launch: " + "; ".join(
+            f"{p} kernel {ms:.4f} ms ({b[0] / ms:.3f} of the bound {b[0]:.4f} ms, {b[1]}), "
+            f"plain {pl:.4f} ms, SDPA {lib:.4f} ms"
+            for p, (ms, pl, lib, b) in res[name].items()), flush=True)
+    print(f"[phase 7] flash attention: {len(FLASH_SHAPES)} shapes ok, forward (out; lse "
+          f"atol 1e-4 + rtol 1e-5) and backward (dq, dk, dv) against the plain versions, "
+          + ", ".join(f"{d} atol {a} + rtol {r}" for d, (a, r) in
+                      zip(("f32", "bf16"), FLASH_TOL.values()))
+          + "; max err " + ", ".join(f"{p} {d} {e:.3e}".replace("torch.", "")
+                                     for p, by in err.items() for d, e in by.items())
+          + "; second runs equal bit for bit", flush=True)
+    res["err"] = err
+    return res
+
+
+def _step_check(make_model, batch, ds_factors, dev, dead=()) -> str:
+    """One train step from the same weights and batch, its loss and every
+    parameter's gradient, on four routes: kernel and plain in f32, the
+    kernel route in bf16 (the control: a route whose roundoff is known to
+    be too large), and the plain route in f64 (f64 statistics and logits),
+    which the other three are held to.  ``make_model(dtype, use_kernels)``
+    builds the seeded model; the modules named in ``dead`` get no gradient
+    on any route.  Raises where a limit is missed; returns the readings."""
+    torch.backends.cudnn.allow_tf32 = False
+    grads = {}
+    for route, use_kernels, dtype in (("kernel", True, torch.float32),
+                                      ("plain", False, torch.float32),
+                                      ("kernel bf16", True, torch.bfloat16),
+                                      ("plain f64", False, torch.float64)):
+        m = make_model(dtype, use_kernels)
+        m = m.to(dev, torch.float64 if dtype == torch.float64 else torch.float32)
+        loss = deep_supervision_loss(m(batch["data"]), batch["seg"].long(), ds_factors)
+        loss.backward()
+        assert all(p.grad is None for d in dead for p in getattr(m, d).parameters()), route
+        # the coarsest head has loss weight 0 and no gradient
+        grads[route] = (loss.item(), {
+            k: torch.zeros_like(p) if p.grad is None else p.grad.double()
+            for k, p in m.named_parameters()})
+    # a fused conv's bias: the InstanceNorm absorbs it, so its gradient is 0
+    # on the kernel route and roundoff of 0 on the plain route, held to 1e-3
+    # of its weight's gradient
+    fused_bias = {f"{n}.conv.bias" for n, mod in m.named_modules()
+                  if isinstance(mod, ConvNormAct) and mod.fused}
+    del m, loss
+    (lk, gk), (lp, gp), (lb, gb), (l64, g64) = (
+        grads[r] for r in ("kernel", "plain", "kernel bf16", "plain f64"))
+    bias_err = max(gp[k].abs().max().item() / gp[k[:-4] + "weight"].abs().max().item()
+                   for k in fused_bias if k.split(".")[0] not in dead)
+    assert all(not gk[k].any() for k in fused_bias) and bias_err <= 1e-3, bias_err
+
+    def worst(g):
+        """max over parameters of |g - g64| / (1e-5 + 1e-3 max|g64|)"""
+        return max(((g[k] - g64[k]).abs().max().item()
+                    / (1e-5 + 1e-3 * g64[k].abs().max().item()), k)
+                   for k in g64 if k not in fused_bias)
+
+    (grad_err, worst_k), (plain_err, worst_p), (bf16_err, worst_b) = \
+        worst(gk), worst(gp), worst(gb)
+    readings = (lk, lp, lb, l64, grad_err, worst_k, plain_err, worst_p, bf16_err, worst_b)
+    assert math.isfinite(lk) and abs(lk - l64) <= 1e-4, readings
+    assert max(grad_err, plain_err) <= F32_GRAD_LIMIT < bf16_err, readings
+    return (f"f32 step against the plain route in f64: |loss diff| kernel "
+            f"{abs(lk - l64):.3e} (limit 1e-4), plain {abs(lp - l64):.3e}, bf16 control "
+            f"{abs(lb - l64):.3e}; worst gradient |diff| / (1e-5 + 1e-3 max|f64|): kernel "
+            f"route {grad_err:.3f} ({worst_k}), plain route {plain_err:.3f} ({worst_p}), "
+            f"limit {F32_GRAD_LIMIT}, kernel route in bf16 (control, must exceed it) "
+            f"{bf16_err:.3f} ({worst_b}); fused conv biases 0 vs plain <= {bias_err:.3e} "
+            f"of the weight's (limit 1e-3)")
+
+
+def _turns(make_model, batches, step_cfg, dev):
+    """Warm seconds per train step (bf16, ``step_cfg``'s augmentation), the
+    routes in turns (plain, kernel, kernel, plain), and each route's device
+    time by kernel over PROFILE_STEPS more warm steps (torch.profiler).
+    Returns ({use_kernels: [s/step]}, {use_kernels: (wall s, [(ms, name)])})."""
+    torch.backends.cudnn.allow_tf32 = True
+    step_s, profile = {True: [], False: []}, {}
+    for use_kernels in (False, True, True, False):
+        m = make_model(torch.bfloat16, use_kernels).to(dev)
+        opt = PolySGD(m.parameters(), max_epochs=TRAIN_EPOCHS, iters_per_epoch=TRAIN_ITERS)
+        train_step = make_train_step(
+            m, opt, step_cfg, generator=torch.Generator(device=dev).manual_seed(SEED))
+        for i in range(3):
+            train_step({}, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(STEP_REPS):
+            train_step({}, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        step_s[use_kernels].append((time.perf_counter() - t0) / STEP_REPS)
+        if use_kernels not in profile:
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for i in range(PROFILE_STEPS):
+                    train_step({}, batches[i % len(batches)])
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) / PROFILE_STEPS
+            profile[use_kernels] = wall, sorted(
+                ((e.self_device_time_total / PROFILE_STEPS / 1e3, e.key)
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.self_device_time_total > 0), reverse=True)
+        del m, opt, train_step
+    return step_s, profile
+
+
+def _turns_text(step_s) -> str:
+    return (f"warm s/step, bf16, in turns: kernel route {statistics.median(step_s[True]):.4f} "
+            f"vs plain route {statistics.median(step_s[False]):.4f} (runs "
+            f"{[round(t, 4) for t in step_s[True]]} vs "
+            f"{[round(t, 4) for t in step_s[False]]})")
+
+
+def _print_profile(phase: int, what: str, profile) -> None:
+    for use_kernels in (True, False):
+        wall, kernels_ms = profile[use_kernels]
+        busy = sum(t for t, _ in kernels_ms)
+        print(f"[phase {phase}] {'kernel' if use_kernels else 'plain'} route, device time "
+              f"per {what} (torch.profiler, {PROFILE_STEPS} warm steps): {busy:.3f} ms of "
+              f"{1e3 * wall:.3f} ms wall under the profiler, busy share "
+              f"{busy / (1e3 * wall):.3f}; {len(kernels_ms)} kernels, the top: "
+              + "; ".join(f"{name[:60]} {t:.3f} ms" for t, name in kernels_ms[:12]),
+              flush=True)
 
 
 def main() -> int:
@@ -394,7 +617,8 @@ def main() -> int:
         launches = _counts()
         expect = {"conv3d_in_lrelu": n_fused * forwards,
                   "instance_norm_leaky": n_strided * forwards,
-                  "conv3d_dx": 0, "instance_norm_leaky_bwd": 0}
+                  "conv3d_dx": 0, "instance_norm_leaky_bwd": 0,
+                  "flash_attention": 0, "flash_attention_bwd": 0}
         assert launches == expect, (launches, expect)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -576,7 +800,8 @@ def main() -> int:
         expect = {"conv3d_in_lrelu": n_fused * (steps + val_steps),
                   "instance_norm_leaky": n_strided * (steps + val_steps),
                   "conv3d_dx": (n_fused - 1) * steps,
-                  "instance_norm_leaky_bwd": (n_fused + n_strided) * steps}
+                  "instance_norm_leaky_bwd": (n_fused + n_strided) * steps,
+                  "flash_attention": 0, "flash_attention_bwd": 0}
         assert train_launches == expect, (train_launches, expect)
         trained = output_folder(os.path.join(results, "nnUNet_ext"), "3d_fullres", task,
                                 "base_v2", plans.plans_name, 0, transfer_heads=True)
@@ -596,12 +821,8 @@ def main() -> int:
             assert seg.shape == label.shape
             trained_dice.append(subject_metrics(seg, label, plans.num_classes + 1)["Dice"])
 
-        # one train step from the same weights and batch, the loss and every
-        # parameter's gradient, on four routes: kernel and plain in f32, the
-        # kernel route in bf16 (the control: a route whose roundoff is known
-        # to be too large), and the plain route in f64 (f64 statistics and
-        # logits), which the other three are held to
-        torch.backends.cudnn.allow_tf32 = False
+        # one train step from the same weights and batch on four routes, then
+        # s/step in turns and each route's device time by kernel
         stage = os.path.join(pre, task, "nnUNetData_plans_v2.1_3d_fullres")
         sampler = PatchSampler(PreprocessedDataset(stage), PreprocessedDataset(stage).cases,
                                patch, b2, seed=SEED)
@@ -609,87 +830,15 @@ def main() -> int:
         dev_batches = [{k: torch.from_numpy(b[k]).to(dev) for k in ("data", "seg")}
                        for b in host]
         ds_factors = tuple(ds_scale_factors(cfg.pool_op_kernel_sizes))
-        step_grads = {}
-        for route, use_kernels, dtype in (("kernel", True, torch.float32),
-                                          ("plain", False, torch.float32),
-                                          ("kernel bf16", True, torch.bfloat16),
-                                          ("plain f64", False, torch.float64)):
-            m = unet_from_plans(plans, "3d_fullres", dtype=dtype, use_kernels=use_kernels,
-                                generator=torch.Generator().manual_seed(SEED))
-            m = m.to(dev, torch.float64 if dtype == torch.float64 else torch.float32)
-            loss = deep_supervision_loss(m(dev_batches[0]["data"]),
-                                         dev_batches[0]["seg"].long(), ds_factors)
-            loss.backward()
-            # the coarsest head has loss weight 0 and no gradient
-            step_grads[route] = (loss.item(), {
-                k: torch.zeros_like(p) if p.grad is None else p.grad.double()
-                for k, p in m.named_parameters()})
-            model_t = m
-            del loss
-        # a fused conv's bias: the InstanceNorm absorbs it, so its gradient
-        # is 0 on the kernel route and roundoff of 0 on the plain route, held
-        # to 1e-3 of its weight's gradient
-        fused_bias = {f"{n}.conv.bias" for n, mod in model_t.named_modules()
-                      if isinstance(mod, ConvNormAct) and mod.fused}
-        (lk, gk), (lp, gp), (lb, gb), (l64, g64) = (
-            step_grads[r] for r in ("kernel", "plain", "kernel bf16", "plain f64"))
-        bias_err = max(gp[k].abs().max().item() / gp[k[:-4] + "weight"].abs().max().item()
-                       for k in fused_bias)
-        assert all(not gk[k].any() for k in fused_bias) and bias_err <= 1e-3, bias_err
-
-        def worst(g):
-            """max over parameters of |g - g64| / (1e-5 + 1e-3 max|g64|)"""
-            return max(((g[k] - g64[k]).abs().max().item()
-                        / (1e-5 + 1e-3 * g64[k].abs().max().item()), k)
-                       for k in g64 if k not in fused_bias)
-
-        (grad_err, worst_k), (plain_err, worst_p), (bf16_err, worst_b) = \
-            worst(gk), worst(gp), worst(gb)
-        loss_err = abs(lk - l64)
-        readings = (lk, lp, lb, l64, grad_err, worst_k, plain_err, worst_p, bf16_err, worst_b)
-        assert math.isfinite(lk) and loss_err <= 1e-4, readings
-        assert max(grad_err, plain_err) <= F32_GRAD_LIMIT < bf16_err, readings
-        del step_grads, gk, gp, gb, g64, m, model_t
-
-        # warm seconds per train step (bf16, augmentation on), in turns:
-        # plain, kernel, kernel, plain
-        torch.backends.cudnn.allow_tf32 = True
         step_cfg = StepConfig(ds_factors=ds_factors, batch_dice=True,
                               num_classes=plans.num_classes + 1, augment=AugmentConfig())
-        step_s = {True: [], False: []}
-        profile = {}
-        for use_kernels in (False, True, True, False):
-            m = unet_from_plans(plans, "3d_fullres", dtype=torch.bfloat16,
-                                use_kernels=use_kernels,
-                                generator=torch.Generator().manual_seed(SEED)).to(dev)
-            opt = PolySGD(m.parameters(), max_epochs=TRAIN_EPOCHS,
-                          iters_per_epoch=TRAIN_ITERS)
-            train_step = make_train_step(
-                m, opt, step_cfg, generator=torch.Generator(device=dev).manual_seed(SEED))
-            for i in range(3):
-                train_step({}, dev_batches[i % 4])
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(STEP_REPS):
-                train_step({}, dev_batches[i % 4])
-            torch.cuda.synchronize()
-            step_s[use_kernels].append((time.perf_counter() - t0) / STEP_REPS)
-            if use_kernels not in profile:
-                # device time by kernel over a few warm steps of each route
-                with torch.profiler.profile(activities=[
-                        torch.profiler.ProfilerActivity.CPU,
-                        torch.profiler.ProfilerActivity.CUDA]) as prof:
-                    t0 = time.perf_counter()
-                    for i in range(PROFILE_STEPS):
-                        train_step({}, dev_batches[i % 4])
-                    torch.cuda.synchronize()
-                    wall = (time.perf_counter() - t0) / PROFILE_STEPS
-                profile[use_kernels] = wall, sorted(
-                    ((e.self_device_time_total / PROFILE_STEPS / 1e3, e.key)
-                     for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA
-                     and e.self_device_time_total > 0), reverse=True)
-            del m, opt, train_step
+
+        def unet(dtype, use_kernels):
+            return unet_from_plans(plans, "3d_fullres", dtype=dtype, use_kernels=use_kernels,
+                                   generator=torch.Generator().manual_seed(SEED))
+
+        step_text = _step_check(unet, dev_batches[0], ds_factors, dev)
+        step_s, profile = _turns(unet, dev_batches, step_cfg, dev)
         print(f"[phase 6] nnUNet_torch_train_base_v2 --device cuda, full width "
               f"{plans.num_modalities}->{plans.num_classes + 1}, patch {patch}, batch {b2}, "
               f"{TRAIN_EPOCHS} epochs x {TRAIN_ITERS} steps + {VAL_ITERS} val batches, "
@@ -699,28 +848,110 @@ def main() -> int:
               f"(+{n_strided}), conv3d_dx: {n_fused - 1}, instance_norm_leaky_bwd: "
               f"{n_fused + n_strided}}}; loss first 10 steps {first10:.4f} -> last 10 "
               f"{last10:.4f}; served by nnUNet_torch_inference: Dice "
-              f"{[[round(d, 4) for d in ds] for ds in trained_dice]}; f32 step against "
-              f"the plain route in f64: |loss diff| kernel {loss_err:.3e} (limit 1e-4), "
-              f"plain {abs(lp - l64):.3e}, bf16 control {abs(lb - l64):.3e}; worst "
-              f"gradient |diff| / (1e-5 + 1e-3 max|f64|): kernel route {grad_err:.3f} "
-              f"({worst_k}), plain route {plain_err:.3f} ({worst_p}), limit "
-              f"{F32_GRAD_LIMIT}, kernel route in bf16 (control, must exceed it) "
-              f"{bf16_err:.3f} ({worst_b}); fused conv biases 0 vs plain "
-              f"<= {bias_err:.3e} of the weight's (limit 1e-3); "
-              f"warm s/step, "
-              f"bf16, in turns: kernel route {statistics.median(step_s[True]):.4f} vs "
-              f"plain route {statistics.median(step_s[False]):.4f} (runs "
-              f"{[round(t, 4) for t in step_s[True]]} vs "
-              f"{[round(t, 4) for t in step_s[False]]})", flush=True)
-        for use_kernels in (True, False):
-            wall, kernels_ms = profile[use_kernels]
-            busy = sum(t for t, _ in kernels_ms)
-            print(f"[phase 6] {'kernel' if use_kernels else 'plain'} route, device time per "
-                  f"train step (torch.profiler, {PROFILE_STEPS} warm steps): {busy:.3f} ms of "
-                  f"{1e3 * wall:.3f} ms wall under the profiler, busy share "
-                  f"{busy / (1e3 * wall):.3f}; {len(kernels_ms)} kernels, the top: "
-                  + "; ".join(f"{name[:60]} {t:.3f} ms" for t, name in kernels_ms[:10]),
-                  flush=True)
+              f"{[[round(d, 4) for d in ds] for ds in trained_dice]}; {step_text}; "
+              + _turns_text(step_s), flush=True)
+        _print_profile(6, "train step", profile)
+
+        # ---- phase 7: the flash-attention kernels at the ViT path's shapes
+        flash = _flash_phase(randn)
+
+        # ---- phase 8: the ViT-U-Net (V1, base) through its entry points
+        # what one forward runs: every block but the bottleneck's, whose
+        # output V1 replaces, and one attention per transformer block
+        vit_m = vit_unet_from_plans(plans, "3d_fullres", patch, dtype=torch.bfloat16,
+                                    generator=torch.Generator().manual_seed(SEED)).to(dev)
+        attn = vit_m.vit.block0.attn
+        tokens = vit_m.vit.pos_embed_0.shape[1]
+        assert (attn.qkv.in_features, attn.num_heads) == (768, 12), attn
+        # phase 7's train shape is the one this path gives the kernel
+        assert (1, 12, tokens, 64) == FLASH_SHAPES["train"], tokens
+        vit_shapes = _block_shapes(vit_m, patch, dev)
+        v_fused = sum(f for f, _, _ in vit_shapes)
+        v_strided = len(vit_shapes) - v_fused
+        n_attn = vit_m.vit.depth
+        assert (v_fused, v_strided) == (n_fused - 1, n_strided - 1), vit_shapes
+        del vit_m, attn
+        torch.backends.cudnn.allow_tf32 = True
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run_training_vit(["3d_fullres", task, "0", "-num_epochs", str(TRAIN_EPOCHS),
+                          "-num_iters", str(TRAIN_ITERS), "-val_iters", str(VAL_ITERS),
+                          "--device", "cuda"])
+        torch.cuda.synchronize()
+        vit_train_s = time.perf_counter() - t0
+        vit_train_launches = _counts()
+        vit_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        expect = {"conv3d_in_lrelu": v_fused * (steps + val_steps),
+                  "instance_norm_leaky": v_strided * (steps + val_steps),
+                  "conv3d_dx": (v_fused - 1) * steps,
+                  "instance_norm_leaky_bwd": (v_fused + v_strided) * steps,
+                  "flash_attention": n_attn * (steps + val_steps),
+                  "flash_attention_bwd": n_attn * steps}
+        assert vit_train_launches == expect, (vit_train_launches, expect)
+        vit_fold = os.path.join(results, "nnUNet_ext", "3d_fullres", task,
+                                f"nnViTUNetTrainer__{plans.plans_name}",
+                                arch_dir(vit=True), "fold_0")
+        with open(os.path.join(vit_fold, "model_final_checkpoint.json")) as f:
+            manifest = json.load(f)
+        assert manifest["use_vit"] and manifest["vit"]["type"] == "base" \
+            and manifest["batch_size"] == 1, manifest["vit"]
+        with open(os.path.join(vit_fold, "progress.json")) as f:
+            vit_losses = json.load(f)["step_losses"]
+        assert len(vit_losses) == steps and all(map(math.isfinite, vit_losses))
+        vit_first10, vit_last10 = (statistics.mean(vit_losses[:10]),
+                                   statistics.mean(vit_losses[-10:]))
+
+        _reset_counts()
+        served_vit = os.path.join(work, "seg_vit")
+        run_inference(["3d_fullres", "nnViTUNetTrainer", "-i",
+                       os.path.join(task_dir, "imagesTr"), "-o", served_vit, "-trained_on",
+                       task, "--use_vit", "--device", "cuda"])
+        vit_serve_launches = _counts()
+        per_case = dict(zip((c for c, _ in cases), windows))
+        vit_forwards = sum(math.ceil(per_case[c] / WINDOW_BATCH)
+                           for c, _ in case_files(os.path.join(task_dir, "imagesTr")))
+        expect = {"conv3d_in_lrelu": v_fused * vit_forwards,
+                  "instance_norm_leaky": v_strided * vit_forwards,
+                  "conv3d_dx": 0, "instance_norm_leaky_bwd": 0,
+                  "flash_attention": n_attn * vit_forwards, "flash_attention_bwd": 0}
+        assert vit_serve_launches == expect, (vit_serve_launches, expect)
+        vit_dice = []
+        for case, _ in case_files(os.path.join(task_dir, "imagesTr")):
+            seg = np.asarray(read_image(os.path.join(served_vit, f"{case}.nii.gz")).data)
+            label = np.asarray(read_image(labels[case]).data)
+            assert seg.shape == label.shape and int(seg.max()) < plans.num_classes + 1
+            vit_dice.append(subject_metrics(seg, label, plans.num_classes + 1)["Dice"])
+
+        # one train step of the ViT-U-Net at its batch (1) on four routes, as
+        # phase 6 (V1's bottleneck gets no gradient on any), then s/step in
+        # turns and each route's device time by kernel
+        vit_batches = [{k: t[:1] for k, t in b.items()} for b in dev_batches]
+
+        def vit_unet(dtype, use_kernels):
+            return vit_unet_from_plans(plans, "3d_fullres", patch, dtype=dtype,
+                                       use_kernels=use_kernels,
+                                       generator=torch.Generator().manual_seed(SEED))
+
+        vit_step_text = _step_check(vit_unet, vit_batches[0], ds_factors, dev,
+                                    dead=("bottleneck",))
+        vit_step_s, vit_profile = _turns(vit_unet, vit_batches, step_cfg, dev)
+        print(f"[phase 8] nnUNet_torch_train_vit 3d_fullres --device cuda: V1 ViT-U-Net, "
+              f"ViT base (embed 768, depth {n_attn}, 12 heads, {tokens} tokens), U-Net "
+              f"{plans.num_modalities}->{plans.num_classes + 1} full width, "
+              f"patch {patch}, batch 1, {TRAIN_EPOCHS} epochs x {TRAIN_ITERS} steps + "
+              f"{VAL_ITERS} val batches, augmentation on: {vit_train_s:.2f} s in all, peak "
+              f"{vit_peak_gb:.2f} GB; launches {vit_train_launches} == predicted per step "
+              f"{{conv3d_in_lrelu: {v_fused} (+{v_fused} per val batch), "
+              f"instance_norm_leaky: {v_strided} (+{v_strided}), conv3d_dx: {v_fused - 1}, "
+              f"instance_norm_leaky_bwd: {v_fused + v_strided}, flash_attention: {n_attn} "
+              f"(+{n_attn}), flash_attention_bwd: {n_attn}}}; loss first 10 steps "
+              f"{vit_first10:.4f} -> last 10 {vit_last10:.4f}; served by "
+              f"nnUNet_torch_inference --use_vit ({vit_forwards} forwards): launches "
+              f"{vit_serve_launches} == predicted, Dice "
+              f"{[[round(d, 4) for d in ds] for ds in vit_dice]}; {vit_step_text}; "
+              + _turns_text(vit_step_s), flush=True)
+        _print_profile(8, "ViT-U-Net train step", vit_profile)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -729,24 +960,36 @@ def main() -> int:
     assert not loaded, f"the port imported {loaded}"
     csrc = os.path.relpath(build.CSRC, ROOT)
     pallas = "lifelong_nnunet_tpu/ops/pallas"
+    def per_step(p):
+        """phase 7's (ms, plain, bound, SDPA) at the train step's shape, times
+        the ViT's blocks: per train step"""
+        ms, plain_ms, lib_ms, (bound, by) = flash["train"][p]
+        return n_attn * ms, n_attn * plain_ms, (n_attn * bound, by), n_attn * lib_ms
+
     rows = [  # name, source, replaces, err, ms, plain, bound, library, per
-        ("conv3d_in_lrelu", "conv3d_in_lrelu.cu", "conv3d.py:225", conv_err,
+        ("conv3d_in_lrelu", "conv3d_in_lrelu.cu", f"{pallas}/conv3d.py:225", conv_err,
          conv_ms[batch], conv_plain_ms[batch], conv_bound, conv_lib_ms,
          f"forward at B={batch}"),
-        ("instance_norm_leaky", "instance_norm.cu", "instance_norm.py:82", in_err,
+        ("instance_norm_leaky", "instance_norm.cu", f"{pallas}/instance_norm.py:82", in_err,
          in_ms[batch], in_plain_ms[batch], in_bound, None, f"forward at B={batch}"),
-        ("conv3d_dx", "conv3d_in_lrelu.cu", "conv3d.py:343", dx_err, dx_ms,
+        ("conv3d_dx", "conv3d_in_lrelu.cu", f"{pallas}/conv3d.py:343", dx_err, dx_ms,
          dx_plain_ms, dx_bound, dx_lib_ms, f"train step at B={TRAIN_BATCH}"),
-        ("instance_norm_leaky_bwd", "instance_norm.cu", "instance_norm.py:122", inb_err,
+        ("instance_norm_leaky_bwd", "instance_norm.cu", f"{pallas}/instance_norm.py:122", inb_err,
          inb_ms, inb_plain_ms, inb_bound, None, f"train step at B={TRAIN_BATCH}"),
-    ]
+    ] + [(name, "flash_attention.cu", "lifelong_nnunet_tpu/models/vit.py:172",
+          max(flash["err"][p].values()),
+          *per_step(p),
+          f"ViT-U-Net train step at B=1 ({n_attn} blocks)")
+         for name, p in (("flash_attention", "fwd"), ("flash_attention_bwd", "bwd"))]
+    paths = {"serve": launches, "train": train_launches, "vit_train": vit_train_launches,
+             "vit_serve": vit_serve_launches}
     kernels = [
         {"name": name, "route": "cuda", "source": f"{csrc}/{src}",
-         "replaces": f"{pallas}/{where}",
-         "launches": launches[name] + train_launches[name], "max_abs_err": err,
+         "replaces": where,
+         "launches": sum(c[name] for c in paths.values()), "max_abs_err": err,
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
          "library_ms": lib_ms, "per": per,
-         "launches_by_path": {"serve": launches[name], "train": train_launches[name]}}
+         "launches_by_path": {path: c[name] for path, c in paths.items()}}
         for name, src, where, err, ms, plain_ms, bound, lib_ms, per in rows]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -209,26 +209,36 @@ class GenericUNet(nn.Module):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
 
-    def forward(self, x: torch.Tensor) -> list:
-        dim = self.dim
-        if x.dim() != dim + 2:
-            raise ValueError(f"model is {dim}D, input has shape {tuple(x.shape)}")
+    def _encode(self, x: torch.Tensor) -> list:
+        """The encoder stages' outputs (the skips), in the activation dtype."""
+        if x.dim() != self.dim + 2:
+            raise ValueError(f"model is {self.dim}D, input has shape {tuple(x.shape)}")
         h = x.to(self.dtype)
         skips = []
         for s in range(self.num_pool):
             h = getattr(self, f"enc{s}")(h)
             skips.append(h)
-        h = self.bottleneck(h)
+        return skips
+
+    def forward(self, x: torch.Tensor) -> list:
+        skips = self._encode(x)
+        h = self.bottleneck(skips[-1])
         outputs = []
         for d in range(self.num_pool):
-            up = getattr(self, f"up{d}")
-            h = _CONV_T_FN[dim](h, up.weight.to(h.dtype), up.bias.to(h.dtype),
-                                up.stride)
-            h = getattr(self, f"dec{d}")(torch.cat([h, skips[-1 - d]], dim=1))
+            h = getattr(self, f"dec{d}")(torch.cat([self._up(d, h), skips[-1 - d]], dim=1))
             if self.deep_supervision or d == self.num_pool - 1:
-                logits = _conv(getattr(self, f"seg{d}"), h, dim)
-                outputs.append(logits if logits.dtype == torch.float64 else logits.float())
+                outputs.append(self._seg(d, h))
         return outputs[::-1]
+
+    def _up(self, d: int, h: torch.Tensor) -> torch.Tensor:
+        """The transposed conv ``up{d}`` in h's dtype."""
+        up = getattr(self, f"up{d}")
+        return _CONV_T_FN[self.dim](h, up.weight.to(h.dtype), up.bias.to(h.dtype), up.stride)
+
+    def _seg(self, d: int, h: torch.Tensor) -> torch.Tensor:
+        """The logits of head ``seg{d}``, f32 (f64 for an f64 model)."""
+        logits = _conv(getattr(self, f"seg{d}"), h, self.dim)
+        return logits if logits.dtype == torch.float64 else logits.float()
 
 
 def unet_from_plans(plans, config_name: str, dtype: torch.dtype = torch.float32,

@@ -5,6 +5,8 @@
 // launch.  It never synchronizes and never allocates.
 #include <torch/extension.h>
 
+#include <array>
+
 #include <c10/cuda/CUDAException.h>
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
@@ -174,9 +176,73 @@ void conv3d_fwd(const torch::Tensor& x, const torch::Tensor& w, const torch::Ten
                                 c10::cuda::getCurrentCUDAStream().stream()));
 }
 
+// t: on q's device, contiguous, q's shape and dtype
+void check_like(const torch::Tensor& t, const torch::Tensor& q, const char* what) {
+  check(t, q, what);
+  TORCH_CHECK(t.sizes() == q.sizes() && t.scalar_type() == q.scalar_type(), what,
+              " must have q's shape and dtype");
+}
+
+// The dims of an attention call: q [B, H, N, hd]; returns {B * H, N, hd}.
+std::array<int, 3> check_attention(const torch::Tensor& q, const torch::Tensor& lse) {
+  check(q, q, "q");
+  TORCH_CHECK(q.dim() == 4, "q must be [B, H, N, hd]");
+  dtype_of(q);
+  const int BH = as_int(q.size(0) * q.size(1), "B * H");
+  const int N = as_int(q.size(2), "N"), hd = as_int(q.size(3), "hd");
+  TORCH_CHECK(hd == 64 || hd == 80, "the flash-attention kernel takes head dim 64 or 80, got ",
+              hd);
+  check_f32(lse, q, int64_t(BH) * N, "lse");
+  return {BH, N, hd};
+}
+
+// q, k, v, o: [B, H, N, hd] of one dtype; lse: [B, H, N] f32.
+void flash_attention_fwd(const torch::Tensor& q, const torch::Tensor& k,
+                         const torch::Tensor& v, const torch::Tensor& o,
+                         const torch::Tensor& lse, double scale) {
+  const auto d = check_attention(q, lse);
+  check_like(k, q, "k");
+  check_like(v, q, "v");
+  check_like(o, q, "o");
+  const c10::cuda::CUDAGuard guard(q.device());
+  C10_CUDA_CHECK(lnn_flash_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                         o.data_ptr(), lse.data_ptr<float>(), d[0], d[1], d[2],
+                                         static_cast<float>(scale), dtype_of(q),
+                                         c10::cuda::getCurrentCUDAStream().stream()));
+}
+
+// As the forward, plus dout, dq, dk, dv ([B, H, N, hd], q's dtype) and
+// delta ([B, H, N] f32 scratch).
+void flash_attention_bwd(const torch::Tensor& q, const torch::Tensor& k,
+                         const torch::Tensor& v, const torch::Tensor& o,
+                         const torch::Tensor& dout, const torch::Tensor& lse,
+                         const torch::Tensor& delta, const torch::Tensor& dq,
+                         const torch::Tensor& dk, const torch::Tensor& dv, double scale) {
+  const auto d = check_attention(q, lse);
+  check_like(k, q, "k");
+  check_like(v, q, "v");
+  check_like(o, q, "o");
+  check_like(dout, q, "dout");
+  check_like(dq, q, "dq");
+  check_like(dk, q, "dk");
+  check_like(dv, q, "dv");
+  check_f32(delta, q, int64_t(d[0]) * d[1], "delta");
+  const c10::cuda::CUDAGuard guard(q.device());
+  C10_CUDA_CHECK(lnn_flash_attention_bwd(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
+      lse.data_ptr<float>(), delta.data_ptr<float>(), dq.data_ptr(), dk.data_ptr(),
+      dv.data_ptr(), d[0], d[1], d[2], static_cast<float>(scale), dtype_of(q),
+      c10::cuda::getCurrentCUDAStream().stream()));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("flash_attention_fwd", &flash_attention_fwd,
+        "non-causal flash attention forward, keeping the row log-sum-exp "
+        "(flash_attention.cu)");
+  m.def("flash_attention_bwd", &flash_attention_bwd,
+        "its backward: FlashAttention-2's recomputation from the log-sum-exp");
   m.def("instance_norm_leaky_fwd", &instance_norm_leaky_fwd,
         "InstanceNorm + LeakyReLU forward (instance_norm.cu)");
   m.def("instance_norm_leaky_bwd", &instance_norm_leaky_bwd,

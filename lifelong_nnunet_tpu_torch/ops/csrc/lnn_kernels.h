@@ -64,3 +64,18 @@ cudaError_t lnn_conv3d_in_lrelu_train_fwd(const void* x, const void* w,
 cudaError_t lnn_conv3d_fwd(const void* x, const void* w, void* y, int B, int Cin,
                            int Cout, int D, int H, int W, LnnDtype in_dtype,
                            LnnDtype out_dtype, cudaStream_t stream);
+
+// Non-causal flash attention forward: q, k, v, o [BH, N, HD] of `dtype`,
+// contiguous, HD 64 or 80; o = softmax(q k^T * scale) v; lse [BH, N] f32,
+// the row log-sum-exp of the scaled logits, kept for the backward.
+cudaError_t lnn_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                                    float* lse, int BH, int N, int HD, float scale,
+                                    LnnDtype dtype, cudaStream_t stream);
+
+// Its backward from the forward's o and lse and the output gradient dout
+// (all [BH, N, HD] of `dtype`): dq, dk, dv of `dtype`; delta: BH * N floats
+// of scratch (rowsum(dout * o)).
+cudaError_t lnn_flash_attention_bwd(const void* q, const void* k, const void* v,
+                                    const void* o, const void* dout, const float* lse,
+                                    float* delta, void* dq, void* dk, void* dv, int BH, int N,
+                                    int HD, float scale, LnnDtype dtype, cudaStream_t stream);

@@ -5,13 +5,18 @@ The arguments of the JAX package's ``nnUNet_inference``
 (``lifelong_nnunet_tpu/run/run_inference.py``), plus ``--device``, which
 defaults to ``cuda`` and never falls back to the CPU.  The model is looked
 up in the base-trainer layout
-``$RESULTS_FOLDER/nnUNet_ext/<network>/<task>/nnUNetTrainerV2__<plans>/Generic_UNet/fold_X``
-for ``nnUNetTrainerV2``, and for ``base_v2`` in the folder that
+``$RESULTS_FOLDER/nnUNet_ext/<network>/<task>/<Trainer>__<plans>/<arch>/fold_X``
+for ``nnUNetTrainerV2`` (``Generic_UNet``) and for ``nnViTUNetTrainer`` /
+``vit_unet`` (``Generic_ViT_UNetV{v}/<type>/not_task_specific/<variant>``,
+from ``-v``, ``-v_type``, ``--do_SPT``, ``--do_LSA``: the folder
+``nnUNet_torch_train_vit`` writes), and for ``base_v2`` in the folder that
 ``nnUNet_torch_train_base_v2`` writes
-(``<network>/<task>/<task>/nnUNetTrainerBase_v2__<plans>/Generic_UNet/SEQ/fold_X``;
-the JAX CLI reads ``base_v2`` from the base-trainer layout, where its
-trainer does not write).  Continual-learning layouts and the ViT-U-Net
-come with later parts of the port and are refused here.
+(``<network>/<task>/<task>/nnUNetTrainerBase_v2__<plans>/<arch>/SEQ/fold_X``,
+``<arch>`` a ViT's with ``--use_vit``; the JAX CLI reads ``base_v2`` from
+the base-trainer layout, where its trainer does not write).  The
+checkpoint's manifest says whether the network is a U-Net or a ViT-U-Net.
+Continual-learning layouts and task-specific LayerNorms come with later
+parts of the port and are refused here.
 """
 
 from __future__ import annotations
@@ -24,17 +29,17 @@ from .. import paths
 from ..device import resolve_device
 from ..inference.predict import predict_from_folder
 from ..run.plan_and_preprocess import resolve_task
-from ..run.run_training import output_folder
+from ..run.run_training import arch_kwargs, output_folder
 from ..training.output_paths import arch_dir
 from ..training.restore import find_checkpoint, restore_model
 
-BASE_TRAINERS = ("nnUNetTrainerV2", "base_v2")
+# base trainer -> whether its layout holds a ViT-U-Net (the JAX CLI's rule)
+BASE_TRAINERS = {"nnUNetTrainerV2": False, "base_v2": False,
+                 "nnViTUNetTrainer": True, "vit_unet": True}
 # options of the JAX CLI kept for argument parity, with the value that means
-# "off": the ViT-U-Net and the continual-learning heads they act on are not
+# "off": the continual-learning heads and task-specific LayerNorms are not
 # ported yet, so any other value is refused
-UNPORTED_OPTIONS = {"no_transfer_heads": False, "use_vit": False, "vit_version": 1,
-                    "vit_type": "base", "task_specific_ln": False, "do_LSA": False,
-                    "do_SPT": False}
+UNPORTED_OPTIONS = {"no_transfer_heads": False, "task_specific_ln": False}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -82,22 +87,28 @@ def _resolve_task(task: str) -> str:
 def _refuse_unported(args) -> None:
     if args.trainer not in BASE_TRAINERS:
         raise NotImplementedError(
-            f"trainer {args.trainer!r}: the port reads base U-Net models "
+            f"trainer {args.trainer!r}: the port reads single-task models "
             f"({', '.join(BASE_TRAINERS)}) only")
     set_ = [k for k, off in UNPORTED_OPTIONS.items() if getattr(args, k) != off]
     if set_:
         raise NotImplementedError(f"{', '.join(set_)}: not ported yet (the port "
-                                  "serves the base U-Net only)")
+                                  "serves single-task models only)")
 
 
 def _locate_model(args, results: str, fold: int) -> str:
     task = (args.use or args.trained_on)[-1]
     if args.trainer == "base_v2":
         folder = output_folder(results, args.network, task, "base_v2",
-                               args.plans_identifier, fold, transfer_heads=True)
+                               args.plans_identifier, fold, transfer_heads=True,
+                               **arch_kwargs(args))
     else:
+        is_vit = BASE_TRAINERS[args.trainer]
+        name = "nnViTUNetTrainer" if is_vit else "nnUNetTrainerV2"
         folder = os.path.join(results, args.network, task,
-                              f"nnUNetTrainerV2__{args.plans_identifier}", arch_dir(),
+                              f"{name}__{args.plans_identifier}",
+                              arch_dir(vit=is_vit, vit_version=f"V{args.vit_version}",
+                                       vit_type=args.vit_type, spt=args.do_SPT,
+                                       lsa=args.do_LSA),
                               f"fold_{fold}")
     ckpt = find_checkpoint(folder)
     if ckpt is None:

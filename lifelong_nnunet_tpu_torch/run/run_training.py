@@ -6,10 +6,13 @@ The arguments of the JAX package's ``nnUNet_train_<method>``
 ``cuda``, never falling back to the CPU) in place of its ``-d`` list.  One
 task per run: the fold loop, the per-task output folder and metadata tree,
 and the trainer's epoch loop are the JAX package's.  Options whose parts
-are not ported yet (continuation ``-c``, ``--init_seq``, the ViT, SPMD,
-progress validation, rematerialization, task sequences) are refused, as
-``nnUNet_torch_inference`` refuses its unported options.
-``--no_pallas_conv`` trains on the plain route (no hand-written kernels).
+are not ported yet (continuation ``-c``, ``--init_seq``, task-specific
+LayerNorms, SPMD, progress validation, rematerialization, task sequences)
+are refused, as ``nnUNet_torch_inference`` refuses its unported options.
+``--use_vit`` trains the ViT-U-Net (``-v``, ``-v_type``, ``--do_LSA``,
+``--do_SPT``, ``-vit_depth``) into the ``Generic_ViT_UNetV{v}/...`` folder
+of the JAX CLI.  ``--no_pallas_conv`` trains on the plain route (no
+hand-written kernels).
 
 The trained model is served by ``nnUNet_torch_inference <network>
 <extension> -trained_on <task>``.
@@ -32,9 +35,7 @@ from .plan_and_preprocess import resolve_task
 UNPORTED_OPTIONS = {"continue_training": False, "init_seq": False,
                     "initialize_with_network_trainer": None,
                     "val_mode": "sliding_window", "use_progress_val": False,
-                    "use_vit": False, "vit_version": 1, "vit_type": "base",
-                    "task_specific_ln": False, "do_LSA": False, "do_SPT": False,
-                    "vit_depth": None, "n_devices": None, "model_parallel": 1,
+                    "task_specific_ln": False, "n_devices": None, "model_parallel": 1,
                     "remat": False}
 
 
@@ -107,10 +108,18 @@ def trainer_name(extension: str) -> str:
     return f"nnUNetTrainer{special.get(extension, extension.capitalize())}"
 
 
+def arch_kwargs(args) -> dict:
+    """The ``arch_dir`` options of parsed CLI arguments."""
+    return dict(vit=args.use_vit, vit_version=f"V{args.vit_version}",
+                vit_type=args.vit_type, task_specific_ln=args.task_specific_ln,
+                spt=args.do_SPT, lsa=args.do_LSA)
+
+
 def output_folder(results: str, network: str, task: str, extension: str,
-                  plans_identifier: str, fold: int, transfer_heads: bool) -> str:
+                  plans_identifier: str, fold: int, transfer_heads: bool,
+                  **arch) -> str:
     return build_output_folder(results, network, [task], [task], trainer_name(extension),
-                               plans_identifier, fold, transfer_heads)
+                               plans_identifier, fold, transfer_heads, **arch)
 
 
 def run_training(extension: str, argv=None) -> int:
@@ -136,11 +145,13 @@ def run_training(extension: str, argv=None) -> int:
             patch_size=tuple(args.patch_size) if args.patch_size else None,
             batch_size=args.batch_size, augment=not args.no_augment,
             base_num_features=args.base_features, max_num_features=args.max_features,
-            device=args.device, use_kernels=args.use_kernels)
+            device=args.device, use_kernels=args.use_kernels, use_vit=args.use_vit,
+            vit_version=f"V{args.vit_version}", vit_type=args.vit_type,
+            vit_lsa=args.do_LSA, vit_spt=args.do_SPT, vit_depth_override=args.vit_depth)
         meta_dir = metadata_folder(results, args.network, [task], name,
-                                   args.plans_identifier, transfer)
+                                   args.plans_identifier, transfer, **arch_kwargs(args))
         out_dir = output_folder(results, args.network, task, extension,
-                                args.plans_identifier, fold, transfer)
+                                args.plans_identifier, fold, transfer, **arch_kwargs(args))
         trainer = trainer_cls(plans, args.network, out_dir, opts)
         trainer.metadata_folder = meta_dir
         trainer.train_task(task, stage_dir_for(pre, task, args.network))

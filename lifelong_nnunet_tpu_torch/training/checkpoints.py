@@ -26,9 +26,19 @@ import torch
 CKPT_SUFFIX = ".pt"
 
 
+def vit_manifest(version: str, vit_type: str, lsa: bool, spt: bool,
+                 depth_override: int | None) -> dict:
+    """The manifest's ``vit`` entry, the JAX trainer's keys
+    (``trainer.py:671-679``); task-specific LayerNorms are not ported yet."""
+    return {"version": version, "type": vit_type, "lsa": lsa, "spt": spt,
+            "task_specific_ln": False, "ln_tasks": [], "active_task_idx": 0,
+            "depth_override": depth_override}
+
+
 def base_manifest(plans, config_name: str, model, trainer: str = "nnUNetTrainerV2",
-                  extension: str = "base_v2", fold: int = 0) -> dict:
-    """The JAX manifest's keys for a plain single-task U-Net."""
+                  extension: str = "base_v2", fold: int = 0, vit: dict | None = None) -> dict:
+    """The JAX manifest's keys for a single-task U-Net, or a ViT-U-Net
+    with ``vit`` (:func:`vit_manifest`) trained on the plans' patch."""
     cfg = plans.config(config_name)
     return {
         "plans": dataclasses.asdict(plans),
@@ -41,8 +51,8 @@ def base_manifest(plans, config_name: str, model, trainer: str = "nnUNetTrainerV
         "batch_size": cfg.batch_size,
         "base_num_features": int(model.base_num_features),
         "max_num_features": int(model.max_num_features),
-        "use_vit": False,
-        "vit": None,
+        "use_vit": vit is not None,
+        "vit": vit,
         "fold": fold,
         "split_at": None,
         "transfer_heads": False,

@@ -2,8 +2,10 @@
 ``lifelong_nnunet_tpu/training/restore.py``.
 
 The manifest embeds the full plans (the first task's, so later tasks never
-reshape the network) and the network widths; ``restore_model`` rebuilds the
-U-Net from them and loads one task's head.
+reshape the network), the network widths and, for a ViT-U-Net, its
+``vit`` options and the patch size its position embeddings were sized for;
+``restore_model`` rebuilds the U-Net or the ViT-U-Net from them and loads
+one task's head.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 
 from ..device import compute_dtype
 from ..models.unet import GenericUNet, unet_from_plans
+from ..models.vit_unet import vit_overrides, vit_unet_from_plans
 from ..planning.plans import Configuration, Plans
 from .checkpoints import CKPT_SUFFIX, load_checkpoint
 
@@ -35,25 +38,36 @@ def find_checkpoint(folder: str, prefer: str = "model_final_checkpoint") -> str 
     return None
 
 
+def model_from_manifest(manifest: dict, plans: Plans, **kwargs) -> GenericUNet:
+    """The network a manifest describes (the JAX ``restore_trainer``'s model
+    rules, ``restore.py:45-66``), built with ``kwargs`` (dtype, deep
+    supervision, route, generator)."""
+    widths = dict(base_num_features=manifest.get("base_num_features"),
+                  max_num_features=manifest.get("max_num_features"), **kwargs)
+    vit = manifest.get("vit")
+    if not (manifest.get("use_vit") and vit):
+        return unet_from_plans(plans, manifest["config_name"], **widths)
+    if vit.get("ln_tasks") or vit.get("task_specific_ln"):
+        raise NotImplementedError("task-specific LayerNorms are not ported yet")
+    return vit_unet_from_plans(
+        plans, manifest["config_name"], manifest.get("patch_size"),
+        vit_version=vit["version"], vit_type=vit["type"], lsa=vit["lsa"], spt=vit["spt"],
+        **widths, **vit_overrides(vit.get("depth_override")))
+
+
 def restore_model(checkpoint_base: str, device: torch.device, head: str | None = None,
                   use_kernels: bool = True):
-    """checkpoint_base: path WITHOUT extension.  Returns (GenericUNet on
-    ``device`` in eval mode with ``head`` loaded — default the last task —,
-    plans, config_name).  The activation dtype follows the device; only the
-    full-resolution head runs (inference).  ``use_kernels=False`` gives the
-    plain route (``models/unet.py``)."""
+    """checkpoint_base: path WITHOUT extension.  Returns (GenericUNet or
+    GenericViTUNet on ``device`` in eval mode with ``head`` loaded — default
+    the last task —, plans, config_name).  The activation dtype follows the
+    device; only the full-resolution head runs (inference).
+    ``use_kernels=False`` gives the plain route (``models/unet.py``)."""
     heads, manifest = load_checkpoint(checkpoint_base, device)
-    if manifest.get("use_vit"):
-        raise NotImplementedError("the ViT-U-Net is not ported yet")
     plans = plans_from_manifest(manifest)
-    config_name = manifest["config_name"]
     head = head or manifest["meta"]["task_order"][-1]
     if head not in heads:
         raise KeyError(f"no head {head!r} in {checkpoint_base}: {list(heads)}")
-    model: GenericUNet = unet_from_plans(
-        plans, config_name, dtype=compute_dtype(device),
-        deep_supervision=False, use_kernels=use_kernels,
-        base_num_features=manifest.get("base_num_features"),
-        max_num_features=manifest.get("max_num_features"))
+    model = model_from_manifest(manifest, plans, dtype=compute_dtype(device),
+                                deep_supervision=False, use_kernels=use_kernels)
     model.load_state_dict(heads[head])
-    return model.to(device).eval(), plans, config_name
+    return model.to(device).eval(), plans, manifest["config_name"]

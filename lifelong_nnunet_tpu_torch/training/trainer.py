@@ -1,7 +1,9 @@
 """MultiHeadTrainer, the single-task path: the port of
 ``lifelong_nnunet_tpu/training/trainer.py``.
 
-It owns the U-Net on one explicit device, the multi-head registry, the
+It owns the U-Net (or, with ``use_vit``, the ViT-U-Net of
+``models/vit_unet.py`` at half the plans' batch, as the JAX trainer halves
+it) on one explicit device, the multi-head registry, the
 task's data split, the epoch loop (``iters_per_epoch`` train steps, then
 ``val_iters`` validation batches), the checkpoints ``model_best`` /
 ``model_latest`` / ``model_final_checkpoint`` and the
@@ -10,8 +12,8 @@ package's: 250/50 train/val iterations per epoch, poly LR from 0.01, SGD
 Nesterov 0.99, clip 12, deep supervision, moreDA augmentation on the
 device, bf16 activations on the card with f32 parameters.
 
-Not ported yet, and refused by ``run/run_training.py`` when asked for: the
-ViT backbone, SPMD (``-n_devices`` / ``-model_parallel``), rematerialization,
+Not ported yet, and refused by ``run/run_training.py`` when asked for:
+task-specific LayerNorms, SPMD (``-n_devices`` / ``-model_parallel``), rematerialization,
 patch-sampled and sliding-window progress validation
 (``_perform_validation``), and resuming a task (``-c``); their options are
 not fields of :class:`TrainerOptions` (nor is the profiler's).  In place of the
@@ -37,6 +39,7 @@ from ..data.sampler import PatchSampler
 from ..device import resolve_device
 from ..models.multihead import MultiHeadParams
 from ..models.unet import ds_scale_factors, unet_from_plans
+from ..models.vit_unet import vit_overrides, vit_unet_from_plans
 from ..utilities.logging_utils import RunLogger
 from . import checkpoints
 from .optimizer import PolySGD
@@ -64,6 +67,13 @@ class TrainerOptions:
     max_num_features: int | None = None
     device: str = "cuda"
     use_kernels: bool = True               # False: the plain route
+    # the ViT-U-Net backbone (models/vit_unet.py)
+    use_vit: bool = False
+    vit_version: str = "V1"
+    vit_type: str = "base"
+    vit_lsa: bool = False
+    vit_spt: bool = False
+    vit_depth_override: int | None = None  # depth d, embed max(16, 8 d), 2 heads
 
 
 class MultiHeadTrainer:
@@ -85,14 +95,23 @@ class MultiHeadTrainer:
         self.device = resolve_device(self.opts.device)
         dtype = torch.bfloat16 if self.opts.dtype == "bfloat16" \
             and self.device.type == "cuda" else torch.float32
-        self.model = unet_from_plans(
-            plans, config_name, dtype=dtype, use_kernels=self.opts.use_kernels,
-            generator=torch.Generator().manual_seed(SEED),
-            base_num_features=self.opts.base_num_features,
-            max_num_features=self.opts.max_num_features).to(self.device)
-        self.ds_factors = tuple(ds_scale_factors(self.cfg.pool_op_kernel_sizes))
         self.patch_size = tuple(self.opts.patch_size or self.cfg.patch_size)
         self.batch_size = int(self.opts.batch_size or self.cfg.batch_size)
+        widths = dict(dtype=dtype, use_kernels=self.opts.use_kernels,
+                      generator=torch.Generator().manual_seed(SEED),
+                      base_num_features=self.opts.base_num_features,
+                      max_num_features=self.opts.max_num_features)
+        if self.opts.use_vit:
+            self.model = vit_unet_from_plans(
+                plans, config_name, self.patch_size, vit_version=self.opts.vit_version,
+                vit_type=self.opts.vit_type, lsa=self.opts.vit_lsa, spt=self.opts.vit_spt,
+                **widths, **vit_overrides(self.opts.vit_depth_override))
+            # the ViT's batch halving (reference multihead trainer :283-292)
+            self.batch_size = max(1, self.batch_size // 2)
+        else:
+            self.model = unet_from_plans(plans, config_name, **widths)
+        self.model = self.model.to(self.device)
+        self.ds_factors = tuple(ds_scale_factors(self.cfg.pool_op_kernel_sizes))
         self.mh: MultiHeadParams | None = None
         self.cl_state = self.init_cl_state()
         self.optimizer: PolySGD | None = None
@@ -273,11 +292,14 @@ class MultiHeadTrainer:
 
     # -------------------------------------------------------------- checkpoints
     def manifest(self) -> dict:
+        o = self.opts
+        vit = checkpoints.vit_manifest(o.vit_version, o.vit_type, o.vit_lsa, o.vit_spt,
+                                       o.vit_depth_override) if o.use_vit else None
         man = checkpoints.base_manifest(self.plans, self.config_name, self.model,
                                         trainer=type(self).__name__,
-                                        extension=self.EXTENSION, fold=self.opts.fold)
+                                        extension=self.EXTENSION, fold=o.fold, vit=vit)
         man.update(patch_size=list(self.patch_size), batch_size=self.batch_size,
-                   split_at=self.opts.split_at, transfer_heads=self.TRANSFER_HEADS,
+                   split_at=o.split_at, transfer_heads=self.TRANSFER_HEADS,
                    hyperparams={k: str(v) for k, v in self.hyperparams.items()})
         return man
 

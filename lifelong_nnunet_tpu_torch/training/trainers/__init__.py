@@ -4,12 +4,13 @@ class.  The continual-learning trainers of the JAX package
 port; asking for one raises."""
 
 from ..trainer import MultiHeadTrainer
-from .sequential import BaseUNetTrainer, SequentialTrainer
+from .sequential import BaseUNetTrainer, SequentialTrainer, ViTUNetTrainer
 
 TRAINER_MAP = {
     "multihead": MultiHeadTrainer,
     "sequential": SequentialTrainer,
     "base_v2": BaseUNetTrainer,
+    "vit_unet": ViTUNetTrainer,
 }
 
 # reference class names -> ours
@@ -17,6 +18,7 @@ CLASS_NAME_MAP = {
     "nnUNetTrainerV2": BaseUNetTrainer,
     "nnUNetTrainerMultiHead": MultiHeadTrainer,
     "nnUNetTrainerSequential": SequentialTrainer,
+    "nnViTUNetTrainer": ViTUNetTrainer,
 }
 
 

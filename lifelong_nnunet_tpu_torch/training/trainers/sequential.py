@@ -4,7 +4,9 @@
 ``SequentialTrainer`` transfers the previous task's trained head to a new
 task (``TRANSFER_HEADS``), with no CL regularization; ``BaseUNetTrainer``
 is the plain single-task trainer, the stand-in for upstream
-``nnUNetTrainerV2`` base models.
+``nnUNetTrainerV2`` base models; ``ViTUNetTrainer`` is the single-task
+trainer of ``nnUNet_torch_train_vit`` (the JAX package's, defined in its
+``run/run_training_vit.py``; reference ``nnViTUNetTrainer``).
 """
 
 from ..trainer import MultiHeadTrainer
@@ -17,3 +19,7 @@ class SequentialTrainer(MultiHeadTrainer):
 
 class BaseUNetTrainer(SequentialTrainer):
     EXTENSION = "base_v2"
+
+
+class ViTUNetTrainer(SequentialTrainer):
+    EXTENSION = "vit_unet"

@@ -27,6 +27,8 @@ console_scripts = [
     f"nnUNet_torch_train_{ext} = lifelong_nnunet_tpu_torch.run.run_training:main_{ext}"
     for ext in ("multihead", "sequential", "base_v2")
 ] + [
+    "nnUNet_torch_train_vit = lifelong_nnunet_tpu_torch.run.run_training_vit:main",
+] + [
     "nnUNet_parameter_search = lifelong_nnunet_tpu.run.run_param_search:main",
     "nnUNet_train_vit = lifelong_nnunet_tpu.run.run_training_vit:main",
     "nnUNet_prepare_cascade = lifelong_nnunet_tpu.run.prepare_cascade:main",

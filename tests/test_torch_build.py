@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from lifelong_nnunet_tpu_torch.ops.kernels import build
+from lifelong_nnunet_tpu_torch.ops.kernels.attention import flash_attention, flash_attention_bwd
 from lifelong_nnunet_tpu_torch.ops.kernels.conv3d import conv3d_dx_cf, conv3d_in_lrelu_cf
 from lifelong_nnunet_tpu_torch.ops.kernels.instance_norm import (
     instance_norm_leaky_bwd_cf, instance_norm_leaky_cf)
@@ -24,7 +25,8 @@ def _launchers() -> list:
 
 def test_one_load_builds_every_source_for_sm_90a():
     names = [p.name for p in build.sources()]
-    assert names == ["binding.cpp", "conv3d_in_lrelu.cu", "instance_norm.cu"]
+    assert names == ["binding.cpp", "conv3d_in_lrelu.cu", "flash_attention.cu",
+                     "instance_norm.cu"]
     assert "-gencode=arch=compute_90a,code=sm_90a" in build.CUDA_FLAGS
 
 
@@ -41,7 +43,8 @@ def test_only_the_binding_includes_torch_headers(name):
 def test_the_header_declares_the_launchers():
     assert _launchers() == ["lnn_instance_norm_leaky_fwd", "lnn_instance_norm_leaky_bwd",
                             "lnn_conv3d_partials_len", "lnn_conv3d_in_lrelu_fwd",
-                            "lnn_conv3d_in_lrelu_train_fwd", "lnn_conv3d_fwd"]
+                            "lnn_conv3d_in_lrelu_train_fwd", "lnn_conv3d_fwd",
+                            "lnn_flash_attention_fwd", "lnn_flash_attention_bwd"]
 
 
 @pytest.mark.parametrize("launcher", _launchers())
@@ -83,15 +86,19 @@ def test_installed_copy_builds_under_the_user_cache(tmp_path, monkeypatch):
     lambda x: instance_norm_leaky_bwd_cf(
         x, torch.ones(2, device="meta"), torch.zeros(2, device="meta"),
         torch.zeros(1, 2, device="meta"), torch.ones(1, 2, device="meta"), x),
+    lambda x: flash_attention(x[0], x[0], x[0]),
+    lambda x: flash_attention(x[0].requires_grad_(), x[0], x[0]),
+    lambda x: flash_attention_bwd(x[0], x[0], x[0], x[0], x[0, :, :, :, 0], x[0]),
 ], ids=["conv3d_in_lrelu", "instance_norm_leaky", "conv3d_in_lrelu_train",
-        "instance_norm_leaky_train", "conv3d_dx", "instance_norm_leaky_bwd"])
+        "instance_norm_leaky_train", "conv3d_dx", "instance_norm_leaky_bwd",
+        "flash_attention", "flash_attention_train", "flash_attention_bwd"])
 def test_wrappers_take_the_plain_version_only_for_cpu_tensors(call, monkeypatch):
     """A tensor off the CPU goes to the kernel or raises, forward or
     backward, with autograd recording or not: here (a meta tensor) it
     raises before any build, and the launch counts stay."""
     monkeypatch.setattr(build, "load_extension", lambda: pytest.fail("built"))
     counted = (conv3d_in_lrelu_cf, instance_norm_leaky_cf, conv3d_dx_cf,
-               instance_norm_leaky_bwd_cf)
+               instance_norm_leaky_bwd_cf, flash_attention, flash_attention_bwd)
     before = [f.launches for f in counted]
     with pytest.raises(ValueError, match="CUDA"):
         call(torch.ones(1, 2, 4, 4, 4, device="meta"))

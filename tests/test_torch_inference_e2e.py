@@ -110,13 +110,20 @@ def test_cuda_without_a_gpu_raises(served, monkeypatch):
     assert not (served["root"] / "never").exists()
 
 
-@pytest.mark.parametrize("extra", [
-    ["--use_vit"], [], ["--no_transfer_heads"], ["--task_specific_ln"], ["--do_LSA"],
-    ["--do_SPT"], ["-v", "2"], ["-v_type", "large"]])
-def test_unported_model_layouts_are_refused(served, extra):
-    """Base trainers only, and every option of the JAX CLI that acts on a
-    model the port does not serve yet is refused instead of ignored."""
-    trainer = "nnUNetTrainerV2" if extra else "sequential"
+REFUSED = [  # (trainer, extra arguments)
+    ("nnViTUNetTrainer", ["--task_specific_ln"]), ("sequential", []),
+    ("nnUNetTrainerV2", ["--no_transfer_heads"]), ("nnUNetTrainerV2", ["--task_specific_ln"]),
+    ("multihead", []), ("nnViTUNetTrainer", ["--no_transfer_heads"]), ("ewc_vit", []),
+    ("frozen_vit", ["--use_vit"])]
+
+
+@pytest.mark.parametrize("trainer,extra", REFUSED,
+                         ids=[f"extra{i}" for i in range(len(REFUSED))])
+def test_unported_model_layouts_are_refused(served, trainer, extra):
+    """Single-task trainers only (the U-Net's and the ViT-U-Net's), and
+    every option of the JAX CLI that acts on a model the port does not
+    serve yet (continual-learning heads, task-specific LayerNorms) is
+    refused instead of ignored."""
     with pytest.raises(NotImplementedError):
         run_inference(["3d_fullres", trainer, "-i", served["images"], "-o",
                        str(served["root"] / "never"), "-trained_on", TASK,

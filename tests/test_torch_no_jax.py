@@ -4,7 +4,8 @@ package ``lifelong_nnunet_tpu``, not even its jax-free modules: a fresh
 interpreter whose ``sys.meta_path`` refuses those imports loads every module
 of ``lifelong_nnunet_tpu_torch`` and ``chip_smoke.py``, runs one tiny CPU
 forward through the model and the sliding window, and one CPU training run
-of a single step through ``run/run_training.py``."""
+of a single step through ``run/run_training.py`` and one through
+``run/run_training_vit.py``."""
 
 import ast
 import json
@@ -72,6 +73,7 @@ TRAIN_SCRIPT = BLOCKER + textwrap.dedent("""
                       RESULTS_FOLDER=os.path.join(root, "results"))
     from lifelong_nnunet_tpu_torch.run.plan_and_preprocess import plan_and_preprocess
     from lifelong_nnunet_tpu_torch.run.run_training import run_training
+    from lifelong_nnunet_tpu_torch.run.run_training_vit import run_training_vit
     from lifelong_nnunet_tpu_torch.utilities.synthetic import make_synthetic_task
     task_dir = make_synthetic_task(os.path.join(root, "raw", "nnUNet_raw_data"),
                                    num_cases=2, shape=(12, 14, 12))
@@ -81,6 +83,9 @@ TRAIN_SCRIPT = BLOCKER + textwrap.dedent("""
                              "-num_epochs", "1", "-num_iters", "1", "-val_iters", "1",
                              "-patch_size", "8", "8", "8", "-base_features", "2",
                              "-max_features", "4", "--device", "cpu"])
+    run_training_vit(["3d_fullres", "Task097_SynthA", "-1", "-num_epochs", "1",
+                      "-num_iters", "1", "-val_iters", "1", "-base_features", "2",
+                      "-max_features", "4", "-vit_depth", "1", "--device", "cpu"])
     loaded = {m.split(".")[0] for m in sys.modules} & set(Refuse.BLOCKED)
     print(json.dumps({"loaded": sorted(loaded)}))
 """)
@@ -96,14 +101,15 @@ def test_port_imports_and_runs_without_jax():
 
 
 def test_one_train_step_runs_without_jax(tmp_path):
-    """``run/run_training.py`` takes one CPU train step (and its
-    validation batch and checkpoints) under the blocker."""
+    """``run/run_training.py`` and ``run/run_training_vit.py`` (a ViT-U-Net)
+    each take one CPU train step (and its validation batch and
+    checkpoints) under the blocker."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", TRAIN_SCRIPT, str(tmp_path)], cwd=ROOT,
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"loaded": []}
-    assert list(tmp_path.rglob("model_final_checkpoint.pt"))
+    assert len(list(tmp_path.rglob("model_final_checkpoint.pt"))) == 2
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):

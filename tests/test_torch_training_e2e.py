@@ -82,6 +82,28 @@ def test_train_then_serve_through_the_entry_points(env):
     assert seg.shape == label.shape and int(seg.max()) <= 2
 
 
+def test_base_v2_trains_and_serves_the_vit_unet(env):
+    """``--use_vit`` on ``nnUNet_torch_train_base_v2``: the ViT-U-Net (V1,
+    ``-vit_depth 1``, at the plans' patch, which serving windows with) is
+    written under the ViT's architecture folder, at half the plans' batch,
+    and ``nnUNet_torch_inference base_v2 --use_vit`` finds it there."""
+    vit = ["--use_vit", "-vit_depth", "1"]
+    assert run_training("base_v2", ["3d_fullres", "-t", TASK, "-num_epochs", "1",
+                                    "-num_iters", "2", "-val_iters", "1",
+                                    "--device", "cpu"] + TINY[4:] + vit) == 0
+    fold = (env["root"] / "results" / "nnUNet_ext" / "3d_fullres" / TASK / TASK
+            / "nnUNetTrainerBase_v2__nnUNetPlansv2.1" / "Generic_ViT_UNetV1" / "base"
+            / "not_task_specific" / "traditional" / "SEQ" / "fold_0")
+    manifest = json.loads((fold / "model_final_checkpoint.json").read_text())
+    assert manifest["use_vit"] and manifest["batch_size"] == 1
+    assert manifest["vit"]["depth_override"] == 1
+    out = env["root"] / "served_vit"
+    assert run_inference(["3d_fullres", "base_v2", "-i", os.path.join(env["raw"], "imagesTr"),
+                          "-o", str(out), "-trained_on", TASK, "--disable_tta",
+                          "--device", "cpu"] + vit[:1]) == 0
+    assert len(os.listdir(out)) == 6
+
+
 def test_cuda_without_a_gpu_raises(env, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
@@ -90,7 +112,7 @@ def test_cuda_without_a_gpu_raises(env, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    ["-c"], ["--init_seq"], ["--use_vit"], ["-n_devices", "2"], ["-model_parallel", "2"],
+    ["-c"], ["--init_seq"], ["--task_specific_ln"], ["-n_devices", "2"], ["-model_parallel", "2"],
     ["--use_progress_val"], ["-val_mode", "patches"], ["--remat"], ["-t", TASK, "Task098_B"]])
 def test_unported_options_are_refused(env, extra):
     with pytest.raises(NotImplementedError):
@@ -119,6 +141,33 @@ def test_trainers_give_the_jax_trainers_losses(env, tmp_path):
     assert asdict(plans) == asdict(jplans)
     port = BaseUNetTrainer(plans, "3d_fullres", str(tmp_path / "port"),
                            TrainerOptions(device="cpu", **kw))
+    port.model.load_state_dict(jax_params_to_state_dict(init.assemble(), port.model))
+    port.train_task(TASK, str(env["stage"]))
+
+    for a, b in zip(port._epoch_log, jax_tr._epoch_log):
+        np.testing.assert_allclose([a["tr_loss"], a["val_loss"]],
+                                   [b["tr_loss"], b["val_loss"]], rtol=1e-4)
+    want = jax_params_to_state_dict(jax_tr.mh.assemble(), port.model)
+    for name, value in port.mh.assemble().items():
+        assert (value - want[name]).abs().max().item() <= 1e-4, name
+
+
+def test_vit_trainers_give_the_jax_trainers_losses(env, tmp_path):
+    """As above for the ViT-U-Net (V1, the trainer's ``vit_depth_override``
+    1: embed 16, 2 heads): both trainers halve the plans' batch to 1 and
+    give the same per-epoch losses, to 1e-4 relative, and final
+    parameters, to 1e-4."""
+    kw = dict(num_epochs=2, iters_per_epoch=2, val_iters=1, augment=False,
+              patch_size=(16, 16, 16), base_num_features=4, max_num_features=16,
+              use_vit=True, vit_depth_override=1)
+    jplans = JaxPlans.load(plans_path(str(env["pre"] / TASK)))
+    jax_tr = JaxBase(jplans, "3d_fullres", str(tmp_path / "jax"), JaxOptions(**kw))
+    jax_tr.train_task(TASK, str(env["stage"]))
+    init, _, _ = jax_checkpoints.load_checkpoint(str(tmp_path / "jax" / "before_training"))
+
+    port = BaseUNetTrainer(Plans.load(plans_path(str(env["pre"] / TASK))), "3d_fullres",
+                           str(tmp_path / "port"), TrainerOptions(device="cpu", **kw))
+    assert port.batch_size == jax_tr.batch_size == 1
     port.model.load_state_dict(jax_params_to_state_dict(init.assemble(), port.model))
     port.train_task(TASK, str(env["stage"]))
 
