@@ -52,13 +52,35 @@ Phases (one line each; any failure raises, so the exit code is not 0):
      nnViTUNetTrainer --use_vit --device cuda`` serving the checkpoint (12
      flash launches per forward, Dice recorded), the f32 step check of
      phase 6 on the ViT-U-Net, warm s/step of both routes in turns, peak
-     memory and the kernel route's device time by kernel.
-The line before the last is the kernels' JSON record (the U-Net's forward
-kernels per forward at the serving path's largest batch, its backward
-kernels per train step, the flash kernels per ViT-U-Net train step;
-``launches`` summed over the four paths' runs, and per path under
-``launches_by_path``: ``serve``, ``train``, ``vit_train``, ``vit_serve``);
-the last line is ``{"ok": true, "device": {...}}``.  Work files go to build/chip_smoke/ and are removed at the end.
+     memory and the kernel route's device time by kernel;
+  9. the CT-scale route's copy kernels (block pack and unpack, the 2x
+     interleave and de-interleave) against their plain versions, bit for
+     bit, at every shape the CT train step (batch 2) and CT serving (window
+     batch 8: a batch of 64) give them, bf16 and f32, with the kernel, plain
+     and library medians per train step (the library: the F.pad +
+     Tensor.unfold chain, its inverse permute, and F.conv_transpose3d
+     forward and backward beside the octant route);
+  10. the CT path: a 160^3 synthetic task planned to nnU-Net's CT
+     configuration (patch 128^3, batch 2, five pools, 32 -> 320 features) is
+     trained by ``nnUNet_torch_train_base_v2 --device cuda`` with
+     LNN_BLOCKED_CONV=1 and LNN_UPT_MODE=pallas (1 epoch of 20 steps and 2
+     validation batches), the launch counters of all ten kernels as the
+     routes predict per step and validation batch, a finite loss;
+     ``nnUNet_torch_inference --device cuda`` serves one 156^3 case (8
+     windows, one batch of 64) with launches as predicted, its f32
+     probabilities against the ordinary kernel route's and its
+     segmentation against the plain route's; the f32 step check of phase 6
+     on the CT routes; warm s/step in turns (plain, kernel, CT routes and
+     back), s/volume of both kernel routes, peak memory and the CT route's
+     device time by kernel.
+Phases 4, 6 and 8 run with both switches set: at hippocampus scale the
+gates admit nothing, so their launch counts are those of the ordinary
+routes.  The line before the last is the kernels' JSON record (the U-Net's
+forward kernels per forward at the serving path's largest batch, its
+backward kernels per train step, the flash kernels per ViT-U-Net train
+step, the copy kernels per CT train step; ``launches`` summed over the six
+paths' runs, and per path under ``launches_by_path``: ``serve``, ``train``,
+``vit_train``, ``vit_serve``, ``ct_train``, ``ct_serve``); the last line is ``{"ok": true, "device": {...}}``.  Work files go to build/chip_smoke/ and are removed at the end.
 The script imports only the port, never the JAX package, and fails if any
 of lifelong_nnunet_tpu, jax, flax, optax, msgpack or sklearn was imported
 by the end of the run.
@@ -81,6 +103,8 @@ if not os.path.isdir(os.path.join(ROOT, "lifelong_nnunet_tpu_torch")):
     raise SystemExit("chip_smoke.py runs from the repository root: the package "
                      "lifelong_nnunet_tpu_torch is not beside it")
 sys.path.insert(0, ROOT)
+# the CT phases allocate and free tens of GB at a time
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -99,6 +123,8 @@ from lifelong_nnunet_tpu_torch.models.unet import (  # noqa: E402
     ConvNormAct, ds_scale_factors, unet_from_plans)
 from lifelong_nnunet_tpu_torch.models.vit_unet import vit_unet_from_plans  # noqa: E402
 from lifelong_nnunet_tpu_torch.ops.kernels import build  # noqa: E402
+from lifelong_nnunet_tpu_torch.ops.kernels import block_pack  # noqa: E402
+from lifelong_nnunet_tpu_torch.ops.kernels import interleave  # noqa: E402
 from lifelong_nnunet_tpu_torch.ops.kernels.attention import (  # noqa: E402
     flash_attention, flash_attention_bwd, flash_attention_fwd, plain_attention_bwd,
     plain_attention_fwd)
@@ -152,6 +178,20 @@ NO_JAX = ("lifelong_nnunet_tpu", "jax", "jaxlib", "flax", "optax", "msgpack", "s
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12           # CUDA cores, the InstanceNorm's elementwise math
 PEAK_BYTES = 3.35e12
+# the CT scale (phases 9-10): a synthetic volume that crops to 156^3, which
+# nnU-Net plans at patch 128^3 and serves as a 2x2x2 window grid
+CT_SHAPE = (160, 160, 160)
+CT_PLAN = {"patch_size": [128, 128, 128], "batch_size": 2,
+           "pool_op_kernel_sizes": [[2, 2, 2]] * 5}
+CT_WINDOWS = 8
+CT_SERVE_BATCH = WINDOW_BATCH * TTA
+CT_TRAIN_ITERS, CT_VAL_ITERS, CT_STEP_REPS = 20, 2, 5
+CT_ROUTES = {"blocked_conv": True, "upsample": "interleave"}
+DIRECT_ROUTES = {"blocked_conv": False, "upsample": "direct"}
+# f32 copies at the serving batch are checked where the kernel's input and
+# output fit in this many bytes (the largest, 64 x 64 x 128^3, would not fit
+# beside its plain version)
+CT_F32_BYTES = 40e9
 
 
 def _time_ms(fn, reps: int = 5) -> float:
@@ -199,7 +239,11 @@ COUNTED = {"conv3d_in_lrelu": conv3d_in_lrelu_cf,
            "conv3d_dx": conv3d_dx_cf,
            "instance_norm_leaky_bwd": instance_norm_leaky_bwd_cf,
            "flash_attention": flash_attention,
-           "flash_attention_bwd": flash_attention_bwd}
+           "flash_attention_bwd": flash_attention_bwd,
+           "pack_blocks": block_pack.pack_blocks,
+           "unpack_blocks": block_pack.unpack_blocks,
+           "interleave_up2": interleave.interleave_up2,
+           "deinterleave2": interleave.deinterleave2}
 
 
 def _reset_counts():
@@ -211,20 +255,31 @@ def _counts() -> dict:
     return {name: wrapper.launches for name, wrapper in COUNTED.items()}
 
 
-def _block_shapes(model, patch, device):
-    """(fused, in_shape, out_shape) of every ConvNormAct in forward order,
-    recorded by hooks on one batch-1 forward."""
+def _expect(**counts) -> dict:
+    """Every counter, 0 unless given."""
+    return {name: counts.get(name, 0) for name in COUNTED}
+
+
+def _named_blocks(model, patch, device):
+    """[(name, module, in_shape, out_shape)] of every ConvNormAct in forward
+    order (shapes without the batch), recorded by hooks on one batch-1
+    forward."""
     seen = []
     hooks = [m.register_forward_hook(
-        lambda m, inp, out: seen.append((m.fused, tuple(inp[0].shape[1:]),
-                                         tuple(out.shape[1:]))))
-        for m in model.modules() if isinstance(m, ConvNormAct)]
+        lambda m, inp, out, n=n: seen.append((n, m, tuple(inp[0].shape[1:]),
+                                              tuple(out.shape[1:]))))
+        for n, m in model.named_modules() if isinstance(m, ConvNormAct)]
     with torch.inference_mode():
         model(torch.zeros((1, model.enc0.block0.conv.in_channels) + tuple(patch),
                           device=device))
     for h in hooks:
         h.remove()
     return seen
+
+
+def _block_shapes(model, patch, device):
+    """(fused, in_shape, out_shape) of every ConvNormAct in forward order."""
+    return [(m.fused, i, o) for _, m, i, o in _named_blocks(model, patch, device)]
 
 
 def _flash_bound(shape, backward: bool):
@@ -315,24 +370,32 @@ def _step_check(make_model, batch, ds_factors, dev, dead=()) -> str:
     on any route.  Raises where a limit is missed; returns the readings."""
     torch.backends.cudnn.allow_tf32 = False
     grads = {}
+    # the biases of the convs whose kernels ignore them (the fused and the
+    # blocked route's), as the kernel route's forward takes them
+    fused_bias = set()
     for route, use_kernels, dtype in (("kernel", True, torch.float32),
                                       ("plain", False, torch.float32),
                                       ("kernel bf16", True, torch.bfloat16),
                                       ("plain f64", False, torch.float64)):
         m = make_model(dtype, use_kernels)
         m = m.to(dev, torch.float64 if dtype == torch.float64 else torch.float32)
+        hooks = [mod.register_forward_pre_hook(
+            lambda mod, inp, n=n: fused_bias.add(f"{n}.conv.bias")
+            if mod.route(inp[0].shape) in ("fused", "blocked") else None)
+            for n, mod in m.named_modules() if isinstance(mod, ConvNormAct)] \
+            if route == "kernel" else []
         loss = deep_supervision_loss(m(batch["data"]), batch["seg"].long(), ds_factors)
+        for h in hooks:
+            h.remove()
         loss.backward()
         assert all(p.grad is None for d in dead for p in getattr(m, d).parameters()), route
         # the coarsest head has loss weight 0 and no gradient
         grads[route] = (loss.item(), {
             k: torch.zeros_like(p) if p.grad is None else p.grad.double()
             for k, p in m.named_parameters()})
-    # a fused conv's bias: the InstanceNorm absorbs it, so its gradient is 0
-    # on the kernel route and roundoff of 0 on the plain route, held to 1e-3
-    # of its weight's gradient
-    fused_bias = {f"{n}.conv.bias" for n, mod in m.named_modules()
-                  if isinstance(mod, ConvNormAct) and mod.fused}
+    # such a bias: the InstanceNorm absorbs it, so its gradient is 0 on the
+    # kernel route and roundoff of 0 on the plain route, held to 1e-3 of its
+    # weight's gradient
     del m, loss
     (lk, gk), (lp, gp), (lb, gb), (l64, g64) = (
         grads[r] for r in ("kernel", "plain", "kernel bf16", "plain f64"))
@@ -356,18 +419,21 @@ def _step_check(make_model, batch, ds_factors, dev, dead=()) -> str:
             f"{abs(lb - l64):.3e}; worst gradient |diff| / (1e-5 + 1e-3 max|f64|): kernel "
             f"route {grad_err:.3f} ({worst_k}), plain route {plain_err:.3f} ({worst_p}), "
             f"limit {F32_GRAD_LIMIT}, kernel route in bf16 (control, must exceed it) "
-            f"{bf16_err:.3f} ({worst_b}); fused conv biases 0 vs plain <= {bias_err:.3e} "
-            f"of the weight's (limit 1e-3)")
+            f"{bf16_err:.3f} ({worst_b}); the {len(fused_bias)} fused and blocked convs' "
+            f"biases 0 vs plain <= {bias_err:.3e} of the weight's (limit 1e-3)")
 
 
-def _turns(make_model, batches, step_cfg, dev):
+def _turns(make_model, batches, step_cfg, dev, order=(False, True, True, False),
+           reps=STEP_REPS, profiled=(True, False)):
     """Warm seconds per train step (bf16, ``step_cfg``'s augmentation), the
-    routes in turns (plain, kernel, kernel, plain), and each route's device
-    time by kernel over PROFILE_STEPS more warm steps (torch.profiler).
-    Returns ({use_kernels: [s/step]}, {use_kernels: (wall s, [(ms, name)])})."""
+    routes in turns (``order``: by default plain, kernel, kernel, plain;
+    ``make_model(dtype, route)``), and the device time by kernel of each
+    route in ``profiled`` over PROFILE_STEPS more warm steps (torch.profiler).
+    Returns ({route: [s/step]}, {route: (wall s, [(ms, name)])})."""
     torch.backends.cudnn.allow_tf32 = True
-    step_s, profile = {True: [], False: []}, {}
-    for use_kernels in (False, True, True, False):
+    # the medians print in the reverse order of first turns: kernel, plain
+    step_s, profile = {r: [] for r in sorted(set(order), key=lambda r: -order.index(r))}, {}
+    for use_kernels in order:
         m = make_model(torch.bfloat16, use_kernels).to(dev)
         opt = PolySGD(m.parameters(), max_epochs=TRAIN_EPOCHS, iters_per_epoch=TRAIN_ITERS)
         train_step = make_train_step(
@@ -376,11 +442,11 @@ def _turns(make_model, batches, step_cfg, dev):
             train_step({}, batches[i % len(batches)])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for i in range(STEP_REPS):
+        for i in range(reps):
             train_step({}, batches[i % len(batches)])
         torch.cuda.synchronize()
-        step_s[use_kernels].append((time.perf_counter() - t0) / STEP_REPS)
-        if use_kernels not in profile:
+        step_s[use_kernels].append((time.perf_counter() - t0) / reps)
+        if use_kernels in profiled and use_kernels not in profile:
             with torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -395,26 +461,395 @@ def _turns(make_model, batches, step_cfg, dev):
                  if e.device_type == torch.autograd.DeviceType.CUDA
                  and e.self_device_time_total > 0), reverse=True)
         del m, opt, train_step
+        torch.cuda.empty_cache()
     return step_s, profile
 
 
+ROUTE_NAMES = {True: "kernel", False: "plain", "ct": "CT"}
+
+
 def _turns_text(step_s) -> str:
-    return (f"warm s/step, bf16, in turns: kernel route {statistics.median(step_s[True]):.4f} "
-            f"vs plain route {statistics.median(step_s[False]):.4f} (runs "
-            f"{[round(t, 4) for t in step_s[True]]} vs "
-            f"{[round(t, 4) for t in step_s[False]]})")
+    """The medians, the first-listed route first, and every run."""
+    return ("warm s/step, bf16, in turns: " + " vs ".join(
+        f"{ROUTE_NAMES.get(r, r)} route {statistics.median(t):.4f}" for r, t in step_s.items())
+        + " (runs " + " vs ".join(str([round(x, 4) for x in t]) for t in step_s.values())
+        + ")")
 
 
 def _print_profile(phase: int, what: str, profile) -> None:
-    for use_kernels in (True, False):
-        wall, kernels_ms = profile[use_kernels]
+    for route in sorted(profile, key=lambda r: r is False):
+        wall, kernels_ms = profile[route]
         busy = sum(t for t, _ in kernels_ms)
-        print(f"[phase {phase}] {'kernel' if use_kernels else 'plain'} route, device time "
+        print(f"[phase {phase}] {ROUTE_NAMES.get(route, route)} route, device time "
               f"per {what} (torch.profiler, {PROFILE_STEPS} warm steps): {busy:.3f} ms of "
               f"{1e3 * wall:.3f} ms wall under the profiler, busy share "
               f"{busy / (1e3 * wall):.3f}; {len(kernels_ms)} kernels, the top: "
               + "; ".join(f"{name[:60]} {t:.3f} ms" for t, name in kernels_ms[:12]),
               flush=True)
+
+
+def _ct_work(blocks, model, batch) -> dict:
+    """What the CT routes launch at ``batch``: the routes of the blocks, and
+    the copy kernels' shapes with their (forward, backward) counts per train
+    step, under "pack" ((x shape, bs)), "unpack" ((y shape, grid)) and
+    "ileave" ((upsample input shape, weight shape))."""
+    work = {"route": {}, "pack": {}, "unpack": {}, "ileave": {}}
+
+    def add(kind, key, fwd, bwd):
+        f, b = work[kind].get(key, (0, 0))
+        work[kind][key] = (f + fwd, b + bwd)
+
+    out_of = {}
+    for i, (name, m, in_shape, out_shape) in enumerate(blocks):
+        x_shape = (batch,) + in_shape
+        work["route"][name] = m.route(x_shape)
+        out_of[name] = out_shape
+        bs = m.packed_bs(x_shape)
+        if bs is None:
+            continue
+        grid = tuple(s // bs for s in in_shape[1:])
+        nb = batch * math.prod(grid)
+        add("pack", (x_shape, bs), 1, 0)
+        add("unpack", ((nb, out_shape[0]) + (out_shape[1] // grid[0],) * 3, grid), 1, 0)
+        if m.conv.stride == (1, 1, 1) and i > 0:    # the data gradient: dy in, dx out
+            add("pack", ((batch,) + out_shape, bs), 0, 1)
+            add("unpack", ((nb, in_shape[0]) + (bs,) * 3, grid), 0, 1)
+    for d in range(model.num_pool):
+        h_shape = (batch,) + out_of["bottleneck.block1" if d == 0 else f"dec{d - 1}.block1"]
+        if model.interleaved(d, h_shape):
+            add("ileave", (h_shape, tuple(getattr(model, f"up{d}").weight.shape)), 1, 1)
+    return work
+
+
+def _library_pack(x, bs):
+    """The halo'd windows through F.pad and Tensor.unfold, materialized: the
+    library time beside the pack kernel (never used by the port)."""
+    S, C = bs + 2, x.shape[1]
+    u = F.pad(x, (1,) * 6).unfold(2, S, bs).unfold(3, S, bs).unfold(4, S, bs)
+    return u.permute(0, 2, 3, 4, 1, 5, 6, 7).reshape(-1, C, S, S, S)
+
+
+def _library_unpack(y, batch, grid):
+    """The inverse permute of the unfold chain, materialized."""
+    nd, nh, nw = grid
+    C, s = y.shape[1], y.shape[2]
+    return y.view(batch, nd, nh, nw, C, s, s, s).permute(0, 4, 1, 5, 2, 6, 3, 7).reshape(
+        batch, C, nd * s, nh * s, nw * s)
+
+
+def _octants(x, w):
+    """The upsample's eight octant products, stacked [N, 8, Co D, H, W]: the
+    interleave kernel's input on the main path."""
+    N, Ci, D, H, W = x.shape
+    Co = w.shape[1]
+    w8 = w.to(x.dtype).permute(2, 3, 4, 1, 0).reshape(8 * Co, Ci)
+    return torch.bmm(w8.expand(N, -1, -1), x.reshape(N, Ci, -1)).view(N, 8, Co * D, H, W)
+
+
+def _grads_closure(fn, x, w, g):
+    """A closure timing the backward (x and w gradients) of ``fn(x, w)``
+    alone, its forward run once here."""
+    xs, ws = x.detach().requires_grad_(), w.detach().requires_grad_()
+    out = fn(xs, ws)
+    return lambda: torch.autograd.grad(out, (xs, ws), g, retain_graph=True)
+
+
+def _chunks(n, size=8):
+    return [(i, min(n, i + size)) for i in range(0, n, size)]
+
+
+def _ct_copy_phase(blocks, model, dev, gen) -> dict:
+    """Phase 9: the four copy kernels against their plain versions, bit for
+    bit, at every shape of the CT train step (B=2; bf16 and f32) and of CT
+    serving (B=64; bf16, and f32 where it fits CT_F32_BYTES), the plain
+    versions taken in batch chunks of 8 items at B=64; the octant route
+    against F.conv_transpose3d at the same shapes; bf16 medians per train
+    step of the kernel, its plain version, the library call and, for the
+    interleaves, the octant route beside F.conv_transpose3d.  Returns
+    {kernel: {"ms", "plain_ms", "library_ms", "route_ms", "bound", "err",
+    "shapes"}}."""
+    res = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "route_ms": 0.0, "bytes": 0,
+               "err": 0.0, "shapes": 0} for n in ("pack_blocks", "unpack_blocks",
+                                                  "interleave_up2", "deinterleave2")}
+    up_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    def add(name, n, nbytes, kernel, plain, library, route=None):
+        r = res[name]
+        r["ms"] += n * _time_ms(kernel)
+        r["plain_ms"] += n * _time_ms(plain)
+        r["library_ms"] += n * _time_ms(library)
+        r["route_ms"] += n * _time_ms(route) if route else 0.0
+        r["bytes"] += n * nbytes
+
+    for batch in (TRAIN_BATCH, CT_SERVE_BATCH):
+        work = _ct_work(blocks, model, batch)
+        timed = batch == TRAIN_BATCH
+        for (x_shape, bs), (f, b) in work["pack"].items():
+            grid = tuple(s // bs for s in x_shape[2:])
+            per_item = math.prod(grid)
+            out_numel = batch * per_item * x_shape[1] * (bs + 2) ** 3
+            for dtype in (torch.float32, torch.bfloat16):
+                if not timed and dtype == torch.float32 and \
+                        4 * (math.prod(x_shape) + out_numel) > CT_F32_BYTES:
+                    continue
+                x = rand(x_shape, dtype)
+                out = block_pack.pack_blocks(x, bs)
+                torch.cuda.synchronize()
+                for b0, b1 in _chunks(batch):
+                    assert torch.equal(out[b0 * per_item:b1 * per_item],
+                                       block_pack.plain_pack_blocks(x[b0:b1], bs)), \
+                        f"pack_blocks {dtype} {x_shape} bs {bs}"
+                res["pack_blocks"]["shapes"] += 1
+                if timed and dtype == torch.bfloat16:
+                    assert torch.equal(_library_pack(x, bs), out)
+                    add("pack_blocks", f + b, 2 * (x.numel() + out.numel()),
+                        lambda: block_pack.pack_blocks(x, bs),
+                        lambda: block_pack.plain_pack_blocks(x, bs),
+                        lambda: _library_pack(x, bs))
+                del x, out
+        for (y_shape, grid), (f, b) in work["unpack"].items():
+            per_item = math.prod(grid)
+            for dtype in (torch.float32, torch.bfloat16):
+                if not timed and dtype == torch.float32 and \
+                        8 * math.prod(y_shape) > CT_F32_BYTES:
+                    continue
+                y = rand(y_shape, dtype)
+                out = block_pack.unpack_blocks(y, batch, grid)
+                torch.cuda.synchronize()
+                for b0, b1 in _chunks(batch):
+                    assert torch.equal(out[b0:b1], block_pack.plain_unpack_blocks(
+                        y[b0 * per_item:b1 * per_item], b1 - b0, grid)), \
+                        f"unpack_blocks {dtype} {y_shape} grid {grid}"
+                res["unpack_blocks"]["shapes"] += 1
+                if timed and dtype == torch.bfloat16:
+                    assert torch.equal(_library_unpack(y, batch, grid), out)
+                    add("unpack_blocks", f + b, 2 * (y.numel() + out.numel()),
+                        lambda: block_pack.unpack_blocks(y, batch, grid),
+                        lambda: block_pack.plain_unpack_blocks(y, batch, grid),
+                        lambda: _library_unpack(y, batch, grid))
+                del y, out
+        for (h_shape, w_shape), (f, b) in work["ileave"].items():
+            for dtype, atol, rtol in ((torch.float32, 1e-4, 1e-4),
+                                      (torch.bfloat16, 2e-2, 1e-2)):
+                if not timed and dtype == torch.float32 and \
+                        4 * 3 * 8 * math.prod(h_shape) // h_shape[1] * w_shape[1] > CT_F32_BYTES:
+                    continue
+                x = rand(h_shape, dtype)
+                w = rand(w_shape, torch.float32) * math.sqrt(1.0 / w_shape[0])
+                y = _octants(x, w)
+                parts = y.unbind(1)
+                out = interleave._interleave(parts)
+                back = interleave._deinterleave(out, 2)
+                torch.cuda.synchronize()
+                assert torch.equal(back, y), f"deinterleave2 {dtype} {tuple(y.shape)}"
+                for b0, b1 in _chunks(batch):
+                    assert torch.equal(out[b0:b1], interleave.plain_interleave(
+                        [p[b0:b1] for p in parts])), f"interleave_up2 {dtype} {h_shape}"
+                    assert torch.equal(back[b0:b1], torch.stack(
+                        interleave.plain_deinterleave(out[b0:b1], 2), 1))
+                del back
+                # the octant route against the library's transposed conv
+                for b0, b1 in _chunks(batch):
+                    ref = F.conv_transpose3d(x[b0:b1], w.to(dtype), stride=2)
+                    up_err[dtype] = max(up_err[dtype], _compare(
+                        f"octant upsample {dtype} {h_shape}",
+                        out[b0:b1].view(ref.shape), ref, atol, rtol))
+                    del ref
+                for name in ("interleave_up2", "deinterleave2"):
+                    res[name]["shapes"] += 1
+                if timed and dtype == torch.bfloat16:
+                    wb = w.to(dtype)
+                    g = rand(out.shape, dtype).view(
+                        (batch, w_shape[1]) + tuple(2 * s for s in h_shape[2:]))
+                    add("interleave_up2", f, 2 * 2 * out.numel(),
+                        lambda: interleave._interleave(parts),
+                        lambda: interleave.plain_interleave(parts),
+                        lambda: F.conv_transpose3d(x, wb, stride=2),
+                        lambda: interleave.conv_transpose3d_interleave(x, w))
+                    lib_bwd = _grads_closure(lambda a, c: F.conv_transpose3d(a, c, stride=2),
+                                             x, wb, g)
+                    route_bwd = _grads_closure(interleave.conv_transpose3d_interleave, x, w, g)
+                    add("deinterleave2", b, 2 * 2 * out.numel(),
+                        lambda: interleave._deinterleave(out, 2),
+                        lambda: torch.stack(interleave.plain_deinterleave(out, 2), 1),
+                        lib_bwd, route_bwd)
+                    del g, lib_bwd, route_bwd, wb
+                del x, w, y, parts, out
+        torch.cuda.empty_cache()
+    for r in res.values():
+        r["bound"] = _bound(0, r.pop("bytes"))
+    res["up_err"] = up_err
+    return res
+
+
+def _ct_path(ct_dir, plans, blocks, model, work, pre, results, dev) -> dict:
+    """Phase 10: the CT path through its entry points (see the module
+    docstring).  Returns the launch counts of the two CLI runs."""
+    task = os.path.basename(ct_dir)
+    cfg = plans.config("3d_fullres")
+    patch = tuple(cfg.patch_size)
+    classes = plans.num_classes + 1
+    b2 = TRAIN_BATCH
+    plan = _ct_work(blocks, model, b2)
+    routes = plan["route"]
+    assert _ct_work(blocks, model, CT_SERVE_BATCH)["route"] == routes
+    n = {r: sum(v == r for v in routes.values()) for r in ("blocked", "fused", "conv")}
+    assert sum(n.values()) == len(routes), routes
+    # every stride-1 block but the first, whose input is the data, runs its
+    # data gradient through its route's kernels
+    later = [(name, m) for name, m, _, _ in blocks[1:]]
+    n_dx = {r: sum(routes[name] == r and m.conv.stride == (1, 1, 1) for name, m in later)
+            for r in ("blocked", "fused")}
+    n_up = sum(f for f, _ in plan["ileave"].values())
+    fwd = {"conv3d_in_lrelu": n["fused"], "instance_norm_leaky": n["conv"] + n["blocked"],
+           "pack_blocks": n["blocked"], "unpack_blocks": n["blocked"],
+           "interleave_up2": n_up}
+    bwd = {"conv3d_dx": n_dx["fused"], "instance_norm_leaky_bwd": len(routes),
+           "pack_blocks": n_dx["blocked"], "unpack_blocks": n_dx["blocked"],
+           "deinterleave2": n_up}
+
+    # -- training through the CLI, both switches on (set in phase 4)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run_training("base_v2", ["3d_fullres", "-t", task, "-f", "0", "-num_epochs", "1",
+                             "-num_iters", str(CT_TRAIN_ITERS), "-val_iters", str(CT_VAL_ITERS),
+                             "--device", "cuda"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = _counts()
+    train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps, vals = CT_TRAIN_ITERS, CT_VAL_ITERS
+    expect = _expect(**{k: fwd.get(k, 0) * (steps + vals) + bwd.get(k, 0) * steps
+                        for k in set(fwd) | set(bwd)})
+    assert train_launches == expect, (train_launches, expect)
+    trained = output_folder(os.path.join(results, "nnUNet_ext"), "3d_fullres", task,
+                            "base_v2", plans.plans_name, 0, transfer_heads=True)
+    with open(os.path.join(trained, "progress.json")) as f:
+        losses = json.load(f)["step_losses"]
+    assert len(losses) == steps and all(map(math.isfinite, losses)), losses
+    ckpt = os.path.join(trained, "model_final_checkpoint")
+
+    # -- serving one 156^3 case through the CLI: one batch of 8 windows x 8
+    # mirrors
+    images = os.path.join(work, "images_ct")
+    os.makedirs(images)
+    shutil.copy(os.path.join(ct_dir, "imagesTr", "synth_000_0000.nii.gz"), images)
+    ((case, files),) = case_files(images)
+    data, _ = preprocess_for_inference(files, plans, "3d_fullres")
+    n_win = len(window_grid(data.shape[:-1], patch)[2])
+    assert n_win == CT_WINDOWS, (data.shape, n_win)
+    forwards = math.ceil(n_win / WINDOW_BATCH)
+    served = os.path.join(work, "seg_ct")
+    torch.cuda.empty_cache()
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run_inference(["3d_fullres", "base_v2", "-i", images, "-o", served, "-trained_on", task,
+                   "-window_batch", str(WINDOW_BATCH), "--device", "cuda"])
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_launches = _counts()
+    serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expect = _expect(**{k: v * forwards for k, v in fwd.items()})
+    assert serve_launches == expect, (serve_launches, expect)
+
+    # the f32 overlap-added probabilities, CT routes against the ordinary
+    # kernel route (window batch 1: an f32 batch of 64 at 128^3 would not
+    # fit), and the CLI's segmentation against the plain route's
+    torch.backends.cudnn.allow_tf32 = False
+    probs = {}
+    for name, r in (("ct", CT_ROUTES), ("kernel", DIRECT_ROUTES)):
+        m, _, _ = restore_model(ckpt, dev, routes=r)
+        m.dtype = torch.float32
+        probs[name] = predict_sliding_window(m, data, patch, classes, device=dev,
+                                             window_batch=1, output="probs")
+        del m
+        torch.cuda.empty_cache()
+    pk = probs["ct"]
+    assert pk.shape == data.shape[:-1] + (classes,) and np.isfinite(pk).all()
+    assert np.allclose(pk.sum(-1), 1.0, atol=1e-4)
+    prob_err = float(np.abs(pk - probs["kernel"]).max())
+    assert prob_err <= 1e-3, prob_err
+    del probs, pk
+    m, _, _ = restore_model(ckpt, dev, use_kernels=False)
+    plain_dir = os.path.join(work, "seg_ct_plain")
+    predict_from_folder([m], plans, "3d_fullres", images, plain_dir, device=dev, window_batch=1)
+    del m
+    seg = np.asarray(read_image(os.path.join(served, f"{case}.nii.gz")).data)
+    plain = np.asarray(read_image(os.path.join(plain_dir, f"{case}.nii.gz")).data)
+    label = np.asarray(read_image(os.path.join(ct_dir, "labelsTr", f"{case}.nii.gz")).data)
+    assert seg.shape == plain.shape == label.shape and int(seg.max()) < classes
+    agree = float((seg == plain).mean())
+    assert agree >= 0.99, agree
+    dice = subject_metrics(seg, label, classes)["Dice"]
+
+    # s/volume of the device path, the two kernel routes in turns, each
+    # model warmed by one untimed volume (the first batch of 64 after the
+    # other route's maps its memory anew)
+    vol_s = {"ct": [], "kernel": []}
+    for name in ("kernel", "ct", "ct", "kernel"):
+        m, _, _ = restore_model(ckpt, dev, routes=CT_ROUTES if name == "ct" else DIRECT_ROUTES)
+        for timed in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            predict_sliding_window(m, data, patch, classes, device=dev,
+                                   window_batch=WINDOW_BATCH, output="probs_bf16")
+            torch.cuda.synchronize()
+            if timed:
+                vol_s[name].append(time.perf_counter() - t0)
+        del m
+
+    # one train step on four routes, then s/step in turns
+    stage = os.path.join(pre, task, "nnUNetData_plans_v2.1_3d_fullres")
+    dataset = PreprocessedDataset(stage)
+    sampler = PatchSampler(dataset, dataset.cases, patch, b2, seed=SEED)
+    batches = [{k: torch.from_numpy(b[k]).to(dev) for k in ("data", "seg")}
+               for b in (sampler.next_batch() for _ in range(2))]
+    ds_factors = tuple(ds_scale_factors(cfg.pool_op_kernel_sizes))
+    step_cfg = StepConfig(ds_factors=ds_factors, batch_dice=True, num_classes=classes,
+                          augment=AugmentConfig())
+
+    def ct_unet(dtype, route):
+        """``route``: True / "ct" (the CT routes), "kernel", or False / "plain"."""
+        return unet_from_plans(plans, "3d_fullres", dtype=dtype,
+                               use_kernels=route not in (False, "plain"),
+                               generator=torch.Generator().manual_seed(SEED),
+                               **(CT_ROUTES if route in (True, "ct") else DIRECT_ROUTES))
+
+    step_text = _step_check(ct_unet, batches[0], ds_factors, dev)
+    step_s, profile = _turns(ct_unet, batches, step_cfg, dev,
+                             order=("plain", "kernel", "ct", "ct", "kernel", "plain"),
+                             reps=CT_STEP_REPS, profiled=("ct",))
+    print(f"[phase 10] CT configuration {plans.num_modalities}->{classes}, patch {patch}, "
+          f"batch {b2}, pools {cfg.pool_op_kernel_sizes}, {cfg.base_num_features}->"
+          f"{cfg.max_num_features} features; routes per forward {n}, blocked "
+          f"{[name for name, r in routes.items() if r == 'blocked']}, interleaved upsamples "
+          f"{n_up}; nnUNet_torch_train_base_v2 --device cuda, LNN_BLOCKED_CONV=1 "
+          f"LNN_UPT_MODE=pallas, 1 epoch x {steps} steps + {vals} val batches: "
+          f"{train_s:.2f} s in all, peak {train_peak_gb:.2f} GB; launches {train_launches} == "
+          f"predicted per step {{forward {fwd}, backward {bwd}}} (+ the forward per val "
+          f"batch); loss first 5 steps {statistics.mean(losses[:5]):.4f} -> last 5 "
+          f"{statistics.mean(losses[-5:]):.4f}", flush=True)
+    print(f"[phase 10] nnUNet_torch_inference --device cuda on one {data.shape[:-1]} case "
+          f"({n_win} windows, {forwards} forward of {min(n_win, WINDOW_BATCH) * TTA}): "
+          f"{serve_s:.2f} s (first run), peak {serve_peak_gb:.2f} GB, launches "
+          f"{serve_launches} == predicted; f32 max |probs CT routes - kernel route| "
+          f"{prob_err:.3e} (limit 1e-3); seg agreement with the plain route {agree:.5f} "
+          f"(limit 0.99); Dice ({steps} steps, recorded) {[round(d, 4) for d in dice]}; "
+          f"s/volume of the sliding window, window batch {WINDOW_BATCH}, in turns: CT routes "
+          f"{statistics.median(vol_s['ct']):.3f} vs kernel route "
+          f"{statistics.median(vol_s['kernel']):.3f} (runs "
+          f"{[round(t, 4) for t in vol_s['ct']]} vs {[round(t, 4) for t in vol_s['kernel']]})",
+          flush=True)
+    print(f"[phase 10] {step_text}; " + _turns_text(step_s), flush=True)
+    _print_profile(10, "CT train step", profile)
+    return {"ct_train": train_launches, "ct_serve": serve_launches}
 
 
 def main() -> int:
@@ -596,8 +1031,11 @@ def main() -> int:
 
         # ---- phase 4: the serving path through the CLI entry point
         results = os.path.join(work, "results")
+        # the CT routes' switches stay on for every CLI from here on: at
+        # hippocampus scale their gates admit no conv and no upsample
         os.environ.update({"nnUNet_raw_data_base": os.path.join(work, "raw"),
-                           "nnUNet_preprocessed": pre, "RESULTS_FOLDER": results})
+                           "nnUNet_preprocessed": pre, "RESULTS_FOLDER": results,
+                           "LNN_BLOCKED_CONV": "1", "LNN_UPT_MODE": "pallas"})
         model = unet_from_plans(plans, "3d_fullres",
                                 generator=torch.Generator().manual_seed(SEED))
         base = os.path.join(results, "nnUNet_ext", "3d_fullres", task,
@@ -615,10 +1053,8 @@ def main() -> int:
         torch.cuda.synchronize()
         main_s = time.perf_counter() - t0
         launches = _counts()
-        expect = {"conv3d_in_lrelu": n_fused * forwards,
-                  "instance_norm_leaky": n_strided * forwards,
-                  "conv3d_dx": 0, "instance_norm_leaky_bwd": 0,
-                  "flash_attention": 0, "flash_attention_bwd": 0}
+        expect = _expect(conv3d_in_lrelu=n_fused * forwards,
+                         instance_norm_leaky=n_strided * forwards)
         assert launches == expect, (launches, expect)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -797,11 +1233,10 @@ def main() -> int:
         train_launches = _counts()
         train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
         steps, val_steps = TRAIN_EPOCHS * TRAIN_ITERS, TRAIN_EPOCHS * VAL_ITERS
-        expect = {"conv3d_in_lrelu": n_fused * (steps + val_steps),
-                  "instance_norm_leaky": n_strided * (steps + val_steps),
-                  "conv3d_dx": (n_fused - 1) * steps,
-                  "instance_norm_leaky_bwd": (n_fused + n_strided) * steps,
-                  "flash_attention": 0, "flash_attention_bwd": 0}
+        expect = _expect(conv3d_in_lrelu=n_fused * (steps + val_steps),
+                         instance_norm_leaky=n_strided * (steps + val_steps),
+                         conv3d_dx=(n_fused - 1) * steps,
+                         instance_norm_leaky_bwd=(n_fused + n_strided) * steps)
         assert train_launches == expect, (train_launches, expect)
         trained = output_folder(os.path.join(results, "nnUNet_ext"), "3d_fullres", task,
                                 "base_v2", plans.plans_name, 0, transfer_heads=True)
@@ -882,12 +1317,12 @@ def main() -> int:
         vit_train_s = time.perf_counter() - t0
         vit_train_launches = _counts()
         vit_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        expect = {"conv3d_in_lrelu": v_fused * (steps + val_steps),
-                  "instance_norm_leaky": v_strided * (steps + val_steps),
-                  "conv3d_dx": (v_fused - 1) * steps,
-                  "instance_norm_leaky_bwd": (v_fused + v_strided) * steps,
-                  "flash_attention": n_attn * (steps + val_steps),
-                  "flash_attention_bwd": n_attn * steps}
+        expect = _expect(conv3d_in_lrelu=v_fused * (steps + val_steps),
+                         instance_norm_leaky=v_strided * (steps + val_steps),
+                         conv3d_dx=(v_fused - 1) * steps,
+                         instance_norm_leaky_bwd=(v_fused + v_strided) * steps,
+                         flash_attention=n_attn * (steps + val_steps),
+                         flash_attention_bwd=n_attn * steps)
         assert vit_train_launches == expect, (vit_train_launches, expect)
         vit_fold = os.path.join(results, "nnUNet_ext", "3d_fullres", task,
                                 f"nnViTUNetTrainer__{plans.plans_name}",
@@ -911,10 +1346,9 @@ def main() -> int:
         per_case = dict(zip((c for c, _ in cases), windows))
         vit_forwards = sum(math.ceil(per_case[c] / WINDOW_BATCH)
                            for c, _ in case_files(os.path.join(task_dir, "imagesTr")))
-        expect = {"conv3d_in_lrelu": v_fused * vit_forwards,
-                  "instance_norm_leaky": v_strided * vit_forwards,
-                  "conv3d_dx": 0, "instance_norm_leaky_bwd": 0,
-                  "flash_attention": n_attn * vit_forwards, "flash_attention_bwd": 0}
+        expect = _expect(conv3d_in_lrelu=v_fused * vit_forwards,
+                         instance_norm_leaky=v_strided * vit_forwards,
+                         flash_attention=n_attn * vit_forwards)
         assert vit_serve_launches == expect, (vit_serve_launches, expect)
         vit_dice = []
         for case, _ in case_files(os.path.join(task_dir, "imagesTr")):
@@ -952,6 +1386,46 @@ def main() -> int:
               f"{[[round(d, 4) for d in ds] for ds in vit_dice]}; {vit_step_text}; "
               + _turns_text(vit_step_s), flush=True)
         _print_profile(8, "ViT-U-Net train step", vit_profile)
+        del vit_batches, dev_batches
+
+        # ---- phases 9-10: the CT scale; the task and its plan (set-up)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.empty_cache()
+        ct_dir = make_synthetic_task(os.path.join(work, "raw", "nnUNet_raw_data"),
+                                     task_name="Task096_CT", shape=CT_SHAPE, num_cases=4,
+                                     seed=SEED)
+        plan_and_preprocess([ct_dir], pre, configs=("3d_fullres",), verbose=False)
+        ct_plans = Plans.load(plans_path(os.path.join(pre, os.path.basename(ct_dir))))
+        ct_cfg = ct_plans.config("3d_fullres")
+        got = {"patch_size": list(ct_cfg.patch_size), "batch_size": ct_cfg.batch_size,
+               "pool_op_kernel_sizes": [list(k) for k in ct_cfg.pool_op_kernel_sizes]}
+        assert got == CT_PLAN and (ct_cfg.base_num_features, ct_cfg.max_num_features) == (
+            32, 320), got
+        model_ct = unet_from_plans(ct_plans, "3d_fullres", dtype=torch.bfloat16,
+                                   deep_supervision=False,
+                                   generator=torch.Generator().manual_seed(SEED),
+                                   **CT_ROUTES).to(dev).eval()
+        ct_blocks = _named_blocks(model_ct, ct_cfg.patch_size, dev)
+
+        # ---- phase 9: the copy kernels at the CT shapes
+        copies = _ct_copy_phase(ct_blocks, model_ct, dev, gen)
+        for name, c in copies.items():
+            if name != "up_err":
+                print(f"[phase 9]   {name}: {c['shapes']} shape-dtype cases equal bit for bit; "
+                      f"per CT train step (B={TRAIN_BATCH}), bf16: kernel {c['ms']:.3f} ms "
+                      f"({c['bound'][0] / c['ms']:.3f} of the bound {c['bound'][0]:.3f} ms, "
+                      f"{c['bound'][1]}), plain {c['plain_ms']:.3f} ms, library "
+                      f"{c['library_ms']:.3f} ms" + (f", octant route {c['route_ms']:.3f} ms"
+                                                     if c["route_ms"] else ""), flush=True)
+        print(f"[phase 9] copy kernels at the CT shapes (B={TRAIN_BATCH} and B={CT_SERVE_BATCH}, "
+              f"bf16 and f32) equal to their plain versions bit for bit; the octant upsample "
+              f"against F.conv_transpose3d: max err "
+              + ", ".join(f"{d} {e:.3e}".replace("torch.", "")
+                          for d, e in copies["up_err"].items())
+              + " (f32 atol 1e-4 + rtol 1e-4, bf16 atol 2e-2 + rtol 1e-2)", flush=True)
+
+        # ---- phase 10: the CT path through its entry points
+        ct_paths = _ct_path(ct_dir, ct_plans, ct_blocks, model_ct, work, pre, results, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -960,11 +1434,11 @@ def main() -> int:
     assert not loaded, f"the port imported {loaded}"
     csrc = os.path.relpath(build.CSRC, ROOT)
     pallas = "lifelong_nnunet_tpu/ops/pallas"
-    def per_step(p):
-        """phase 7's (ms, plain, bound, SDPA) at the train step's shape, times
-        the ViT's blocks: per train step"""
-        ms, plain_ms, lib_ms, (bound, by) = flash["train"][p]
-        return n_attn * ms, n_attn * plain_ms, (n_attn * bound, by), n_attn * lib_ms
+    def scaled(timing, n=1):
+        """(ms, plain, bound, library) of a measured (ms, plain, library,
+        (bound, by)), times n"""
+        ms, plain_ms, lib_ms, (bound, by) = timing
+        return n * ms, n * plain_ms, (n * bound, by), n * lib_ms
 
     rows = [  # name, source, replaces, err, ms, plain, bound, library, per
         ("conv3d_in_lrelu", "conv3d_in_lrelu.cu", f"{pallas}/conv3d.py:225", conv_err,
@@ -978,11 +1452,18 @@ def main() -> int:
          inb_ms, inb_plain_ms, inb_bound, None, f"train step at B={TRAIN_BATCH}"),
     ] + [(name, "flash_attention.cu", "lifelong_nnunet_tpu/models/vit.py:172",
           max(flash["err"][p].values()),
-          *per_step(p),
+          *scaled(flash["train"][p], n_attn),
           f"ViT-U-Net train step at B=1 ({n_attn} blocks)")
-         for name, p in (("flash_attention", "fwd"), ("flash_attention_bwd", "bwd"))]
+         for name, p in (("flash_attention", "fwd"), ("flash_attention_bwd", "bwd"))
+    ] + [(name, src, f"{pallas}/{where}", copies[name]["err"],
+          *scaled(tuple(copies[name][k] for k in ("ms", "plain_ms", "library_ms", "bound"))),
+          f"CT train step at B={TRAIN_BATCH}")
+         for name, src, where in (("pack_blocks", "block_pack.cu", "block_pack.py:137"),
+                                  ("unpack_blocks", "block_pack.cu", "block_pack.py:197"),
+                                  ("interleave_up2", "interleave.cu", "interleave.py:58"),
+                                  ("deinterleave2", "interleave.cu", "interleave.py:73"))]
     paths = {"serve": launches, "train": train_launches, "vit_train": vit_train_launches,
-             "vit_serve": vit_serve_launches}
+             "vit_serve": vit_serve_launches, **ct_paths}
     kernels = [
         {"name": name, "route": "cuda", "source": f"{csrc}/{src}",
          "replaces": where,
@@ -991,6 +1472,10 @@ def main() -> int:
          "library_ms": lib_ms, "per": per,
          "launches_by_path": {path: c[name] for path, c in paths.items()}}
         for name, src, where, err, ms, plain_ms, bound, lib_ms, per in rows]
+    for k in kernels:
+        if k["name"] in ("interleave_up2", "deinterleave2"):
+            # the whole upsample on the octant route, beside the library's
+            k["route_ms"] = copies[k["name"]]["route_ms"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

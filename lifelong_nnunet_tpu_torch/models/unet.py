@@ -8,8 +8,15 @@ stages hold ``block0`` (maybe strided) and ``block1``.  Tensors are
 channels-first (``[B, C, *spatial]``), PyTorch's layout.  Parameters stay
 float32; activations run in ``dtype`` (see ``device.compute_dtype``).
 
-ConvNormAct routes (``use_kernels=True``):
+ConvNormAct routes (``use_kernels=True``), in this order:
 
+* with ``blocked_conv``, a 3x3x3 conv of stride 1 or 2 that the JAX gate
+  ``_packed_bs`` admits (``lifelong_nnunet_tpu/models/unet.py:248-276``:
+  max(Cin, Cout) <= 64, a cubic block of 32 or 16 dividing every spatial
+  axis, at least 16 blocks over the batch) -> the blocked conv of
+  ``ops/kernels/block_pack.py`` (pack -> cuDNN VALID conv -> unpack), then
+  the InstanceNorm + LeakyReLU kernel.  That gate fires at CT scale (a
+  128^3 patch), not at hippocampus scale;
 * 3x3x3 stride-1 conv -> the fused conv + InstanceNorm + LeakyReLU kernel
   (``ops/kernels/conv3d.py``).  Unlike the JAX package, whose TPU kernel
   only takes lane-aligned widths, every such conv takes it.  The conv bias
@@ -19,13 +26,24 @@ ConvNormAct routes (``use_kernels=True``):
   symmetric ``k//2`` padding, then the InstanceNorm + LeakyReLU kernel
   (``ops/kernels/instance_norm.py``).
 
-Both routes are differentiable: where autograd records, the kernels'
+With ``upsample="interleave"``, each 3D (2, 2, 2) transposed conv that the
+JAX gate ``upsample_eligible`` admits (>= 2^18 output voxels per item, N * D
+>= 32) runs as octant products plus the interleave kernel
+(``ops/kernels/interleave.py``); every other level stays on
+``F.conv_transpose3d``.  The JAX package reads the two switches behind
+these routes (``LNN_BLOCKED_CONV=1``, ``LNN_UPT_MODE=pallas``) where it
+builds its model; the port reads them there too (``training/trainer.py``,
+``training/restore.py``) and passes them in as arguments.  The parameters
+are the same on every route.
+
+Every route is differentiable: where autograd records, the kernels'
 ``autograd.Function``s run their backward kernels (the data gradient of a
-fused conv only when its input needs one).  On the CPU both kernels'
-wrappers run their plain PyTorch versions.
+fused or stride-1 blocked conv only when its input needs one).  On the CPU
+every kernel's wrapper runs its plain PyTorch version.
 ``use_kernels=False`` is the plain route: the JAX package's XLA
-composition (conv with bias, :class:`InstanceNorm`, LeakyReLU), kept to
-measure the kernels against.
+composition (conv with bias, :class:`InstanceNorm`, LeakyReLU, the direct
+transposed conv), kept to measure the kernels against; it ignores both
+switches.
 """
 
 from __future__ import annotations
@@ -38,13 +56,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.kernels.block_pack import packed_conv_in_lrelu, pick_bs
 from ..ops.kernels.conv3d import conv3d_in_lrelu_cf
 from ..ops.kernels.instance_norm import instance_norm_leaky_cf
+from ..ops.kernels.interleave import conv_transpose3d_interleave, upsample_eligible
 
 _CONV = {2: nn.Conv2d, 3: nn.Conv3d}
 _CONV_T = {2: nn.ConvTranspose2d, 3: nn.ConvTranspose3d}
 _CONV_FN = {2: F.conv2d, 3: F.conv3d}
 _CONV_T_FN = {2: F.conv_transpose2d, 3: F.conv_transpose3d}
+UPSAMPLE = ("direct", "interleave")
 
 
 def _he_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
@@ -93,17 +114,45 @@ class ConvNormAct(nn.Module):
 
     def __init__(self, cin: int, cout: int, kernel: Sequence[int],
                  stride: Sequence[int], use_kernels: bool = True,
-                 negative_slope: float = 0.01):
+                 negative_slope: float = 0.01, blocked_conv: bool = False):
         super().__init__()
         self.dim = len(kernel)
         self.conv = _CONV[self.dim](cin, cout, tuple(kernel), tuple(stride),
                                     padding=tuple(k // 2 for k in kernel))
         self.norm = InstanceNorm(cout)
         self.use_kernels = use_kernels
+        self.blocked_conv = blocked_conv
         self.negative_slope = negative_slope
         self.fused = tuple(kernel) == (3, 3, 3) and tuple(stride) == (1, 1, 1)
 
+    def packed_bs(self, x_shape) -> int | None:
+        """The block size of the blocked route for an input of ``x_shape [B,
+        Cin, *spatial]``, or None: the JAX gate ``_packed_bs`` without its TPU
+        test and lane rule."""
+        conv = self.conv
+        if not (self.use_kernels and self.blocked_conv and len(x_shape) == 5
+                and conv.kernel_size == (3, 3, 3)
+                and conv.stride in ((1, 1, 1), (2, 2, 2))
+                and max(conv.in_channels, conv.out_channels) <= 64):
+            return None
+        return pick_bs(x_shape[2:], prefer=(32, 16), batch=x_shape[0], min_blocks=16)
+
+    def route(self, x_shape) -> str:
+        """``"blocked"``, ``"fused"``, ``"conv"`` (cuDNN, then the
+        InstanceNorm kernel) or ``"plain"``: the route an input of
+        ``x_shape`` takes."""
+        if not self.use_kernels:
+            return "plain"
+        if self.packed_bs(x_shape) is not None:
+            return "blocked"
+        return "fused" if self.fused else "conv"
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bs = self.packed_bs(x.shape)
+        if bs is not None:
+            return packed_conv_in_lrelu(x, self.conv.weight, self.norm.weight,
+                                        self.norm.bias, self.negative_slope, bs=bs,
+                                        strides=self.conv.stride, bias=self.conv.bias)
         if self.use_kernels and self.fused:
             return conv3d_in_lrelu_cf(x, self.conv.weight, self.norm.weight,
                                       self.norm.bias, self.negative_slope,
@@ -119,11 +168,14 @@ class ConvStage(nn.Module):
     """Two ConvNormAct blocks; the first may be strided (downsampling)."""
 
     def __init__(self, cin: int, cout: int, kernel: Sequence[int],
-                 first_stride: Sequence[int], use_kernels: bool = True):
+                 first_stride: Sequence[int], use_kernels: bool = True,
+                 blocked_conv: bool = False):
         super().__init__()
         ones = (1,) * len(kernel)
-        self.block0 = ConvNormAct(cin, cout, kernel, first_stride, use_kernels)
-        self.block1 = ConvNormAct(cout, cout, kernel, ones, use_kernels)
+        self.block0 = ConvNormAct(cin, cout, kernel, first_stride, use_kernels,
+                                  blocked_conv=blocked_conv)
+        self.block1 = ConvNormAct(cout, cout, kernel, ones, use_kernels,
+                                  blocked_conv=blocked_conv)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.block1(self.block0(x))
@@ -134,15 +186,19 @@ class GenericUNet(nn.Module):
     deep-supervision logits, highest resolution first, each
     ``[B, num_classes, *spatial_i]`` float32 (float64 for an f64 model);
     with ``deep_supervision=False`` only the full-resolution head runs and
-    the list has one entry."""
+    the list has one entry.  ``blocked_conv`` and ``upsample`` (one of
+    ``UPSAMPLE``) pick the CT-scale routes (module docstring)."""
 
     def __init__(self, in_channels: int, num_classes: int,
                  pool_op_kernel_sizes, conv_kernel_sizes,
                  base_num_features: int = 32, max_num_features: int = 320,
                  dtype: torch.dtype = torch.float32,
                  deep_supervision: bool = True, use_kernels: bool = True,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 blocked_conv: bool = False, upsample: str = "direct"):
         super().__init__()
+        if upsample not in UPSAMPLE:
+            raise ValueError(f"upsample must be one of {UPSAMPLE}, got {upsample!r}")
         self.pool_op_kernel_sizes = tuple(tuple(k) for k in pool_op_kernel_sizes)
         self.conv_kernel_sizes = tuple(tuple(k) for k in conv_kernel_sizes)
         self.num_classes = num_classes
@@ -150,6 +206,8 @@ class GenericUNet(nn.Module):
         self.max_num_features = max_num_features
         self.dtype = dtype
         self.deep_supervision = deep_supervision
+        self.use_kernels = use_kernels
+        self.upsample = upsample
         self.dim = len(self.conv_kernel_sizes[0])
         dim, num_pool = self.dim, self.num_pool
         # registration order IS module_order(): named_children() follows it
@@ -158,11 +216,11 @@ class GenericUNet(nn.Module):
             stride = (1,) * dim if s == 0 else self.pool_op_kernel_sizes[s - 1]
             self.add_module(f"enc{s}", ConvStage(
                 cin, self.stage_features(s), self.conv_kernel_sizes[s], stride,
-                use_kernels))
+                use_kernels, blocked_conv))
             cin = self.stage_features(s)
         self.bottleneck = ConvStage(
             cin, self.stage_features(num_pool), self.conv_kernel_sizes[num_pool],
-            self.pool_op_kernel_sizes[-1], use_kernels)
+            self.pool_op_kernel_sizes[-1], use_kernels, blocked_conv)
         cin = self.stage_features(num_pool)
         for d in range(num_pool):
             feats = self.stage_features(num_pool - 1 - d)
@@ -170,7 +228,7 @@ class GenericUNet(nn.Module):
             self.add_module(f"up{d}", _CONV_T[dim](cin, feats, up, stride=up))
             self.add_module(f"dec{d}", ConvStage(
                 2 * feats, feats, self.conv_kernel_sizes[num_pool - 1 - d],
-                (1,) * dim, use_kernels))
+                (1,) * dim, use_kernels, blocked_conv))
             cin = feats
         for d in range(num_pool):
             self.add_module(f"seg{d}", _CONV[dim](
@@ -230,9 +288,19 @@ class GenericUNet(nn.Module):
                 outputs.append(self._seg(d, h))
         return outputs[::-1]
 
+    def interleaved(self, d: int, h_shape) -> bool:
+        """Whether ``up{d}`` takes the interleave route for an input of
+        ``h_shape``."""
+        up = getattr(self, f"up{d}")
+        return (self.use_kernels and self.upsample == "interleave"
+                and up.stride == (2, 2, 2)
+                and upsample_eligible(h_shape, up.kernel_size, up.stride))
+
     def _up(self, d: int, h: torch.Tensor) -> torch.Tensor:
         """The transposed conv ``up{d}`` in h's dtype."""
         up = getattr(self, f"up{d}")
+        if self.interleaved(d, h.shape):
+            return conv_transpose3d_interleave(h, up.weight, up.bias)
         return _CONV_T_FN[self.dim](h, up.weight.to(h.dtype), up.bias.to(h.dtype), up.stride)
 
     def _seg(self, d: int, h: torch.Tensor) -> torch.Tensor:
@@ -245,10 +313,12 @@ def unet_from_plans(plans, config_name: str, dtype: torch.dtype = torch.float32,
                     deep_supervision: bool = True, use_kernels: bool = True,
                     generator: torch.Generator | None = None,
                     base_num_features: int | None = None,
-                    max_num_features: int | None = None) -> GenericUNet:
+                    max_num_features: int | None = None,
+                    blocked_conv: bool = False, upsample: str = "direct") -> GenericUNet:
     """The U-Net a plans configuration describes.  ``base_num_features`` /
     ``max_num_features`` override the plans' widths, as a checkpoint
-    manifest may (``training/restore.py``)."""
+    manifest may (``training/restore.py``); ``blocked_conv`` / ``upsample``
+    pick the CT-scale routes."""
     cfg = plans.config(config_name)
     return GenericUNet(
         in_channels=plans.num_modalities,
@@ -258,7 +328,8 @@ def unet_from_plans(plans, config_name: str, dtype: torch.dtype = torch.float32,
         base_num_features=base_num_features or cfg.base_num_features,
         max_num_features=max_num_features or cfg.max_num_features,
         dtype=dtype, deep_supervision=deep_supervision,
-        use_kernels=use_kernels, generator=generator)
+        use_kernels=use_kernels, generator=generator, blocked_conv=blocked_conv,
+        upsample=upsample)
 
 
 def ds_scale_factors(pool_op_kernel_sizes) -> list:

@@ -71,7 +71,8 @@ class GenericViTUNet(GenericUNet):
     """``GenericUNet`` with the ViT ``vit`` (see the module docstring).
     ``vit_embed_dim`` / ``vit_depth`` / ``vit_heads`` override the
     ``vit_type`` preset.  The generator initializes the U-Net, then the
-    ViT."""
+    ViT.  ``blocked_conv`` / ``upsample`` go to the U-Net body, as the JAX
+    model forwards its conv routes (``vit_unet.py:66-72, 120``)."""
 
     def __init__(self, in_channels: int, num_classes: int, pool_op_kernel_sizes,
                  conv_kernel_sizes, patch_size, base_num_features: int = 32,
@@ -80,13 +81,14 @@ class GenericViTUNet(GenericUNet):
                  generator: torch.Generator | None = None, vit_version: str = "V1",
                  vit_type: str = "base", lsa: bool = False, spt: bool = False,
                  vit_embed_dim: int | None = None, vit_depth: int | None = None,
-                 vit_heads: int | None = None):
+                 vit_heads: int | None = None, blocked_conv: bool = False,
+                 upsample: str = "direct"):
         if vit_version not in VERSIONS:
             raise ValueError(f"unknown vit_version {vit_version!r}; options {VERSIONS}")
         gen = generator or torch.Generator().manual_seed(0)
         super().__init__(in_channels, num_classes, pool_op_kernel_sizes, conv_kernel_sizes,
                          base_num_features, max_num_features, dtype, deep_supervision,
-                         use_kernels, gen)
+                         use_kernels, gen, blocked_conv, upsample)
         self.vit_version, self.vit_type, self.lsa, self.spt = vit_version, vit_type, lsa, spt
         self.patch_size = tuple(patch_size)
         sizes = vit_kwargs_for_type(vit_type)
@@ -173,8 +175,8 @@ def vit_unet_from_plans(plans, config_name: str, patch_size=None,
                         deep_supervision: bool = True, use_kernels: bool = True,
                         generator: torch.Generator | None = None,
                         base_num_features: int | None = None,
-                        max_num_features: int | None = None, **overrides
-                        ) -> GenericViTUNet:
+                        max_num_features: int | None = None, blocked_conv: bool = False,
+                        upsample: str = "direct", **overrides) -> GenericViTUNet:
     """The ViT-U-Net a plans configuration describes, for inputs of
     ``patch_size`` (default the plans'); ``overrides``: ``vit_embed_dim``,
     ``vit_depth``, ``vit_heads`` (see :func:`vit_overrides`)."""
@@ -188,4 +190,4 @@ def vit_unet_from_plans(plans, config_name: str, patch_size=None,
         max_num_features=max_num_features or cfg.max_num_features,
         dtype=dtype, deep_supervision=deep_supervision, use_kernels=use_kernels,
         generator=generator, vit_version=vit_version, vit_type=vit_type, lsa=lsa,
-        spt=spt, **overrides)
+        spt=spt, blocked_conv=blocked_conv, upsample=upsample, **overrides)

@@ -6,6 +6,8 @@
 #include <torch/extension.h>
 
 #include <array>
+#include <cstdint>
+#include <vector>
 
 #include <c10/cuda/CUDAException.h>
 #include <c10/cuda/CUDAGuard.h>
@@ -235,6 +237,93 @@ void flash_attention_bwd(const torch::Tensor& q, const torch::Tensor& k,
       c10::cuda::getCurrentCUDAStream().stream()));
 }
 
+// x: [B, C, D, H, W]; out: [nb, C, bs + 2, bs + 2, bs + 2] in x's dtype.
+void pack_blocks(const torch::Tensor& x, const torch::Tensor& out, int64_t bs) {
+  check(x, x, "x");
+  TORCH_CHECK(x.dim() == 5, "x must be [B, C, D, H, W]");
+  const int B = as_int(x.size(0), "B"), C = as_int(x.size(1), "C");
+  const int D = as_int(x.size(2), "D"), H = as_int(x.size(3), "H"), W = as_int(x.size(4), "W");
+  const int b = as_int(bs, "bs");
+  TORCH_CHECK(D % b == 0 && H % b == 0 && W % b == 0, "bs ", b, " must divide D, H and W");
+  check(out, x, "out");
+  TORCH_CHECK(out.scalar_type() == x.scalar_type() && out.dim() == 5 &&
+                  out.size(0) == int64_t(B) * (D / b) * (H / b) * (W / b) &&
+                  out.size(1) == C && out.size(2) == b + 2 && out.size(3) == b + 2 &&
+                  out.size(4) == b + 2,
+              "out must be [nb, C, bs + 2, bs + 2, bs + 2] in x's dtype");
+  const c10::cuda::CUDAGuard guard(x.device());
+  C10_CUDA_CHECK(lnn_pack_blocks(x.data_ptr(), out.data_ptr(), B, C, D, H, W, b, dtype_of(x),
+                                 c10::cuda::getCurrentCUDAStream().stream()));
+}
+
+// y: [nb, C, s, s, s]; out: [B, C, nd s, nh s, nw s] in y's dtype, nb = B nd nh nw.
+void unpack_blocks(const torch::Tensor& y, const torch::Tensor& out) {
+  check(y, y, "y");
+  TORCH_CHECK(y.dim() == 5 && y.size(2) == y.size(3) && y.size(2) == y.size(4),
+              "y must be [nb, C, s, s, s]");
+  const int C = as_int(y.size(1), "C"), s = as_int(y.size(2), "s");
+  check(out, y, "out");
+  TORCH_CHECK(out.scalar_type() == y.scalar_type() && out.dim() == 5 && out.size(1) == C &&
+                  out.size(2) % s == 0 && out.size(3) % s == 0 && out.size(4) % s == 0,
+              "out must be [B, C, nd s, nh s, nw s] in y's dtype");
+  const int B = as_int(out.size(0), "B"), nd = as_int(out.size(2) / s, "nd"),
+            nh = as_int(out.size(3) / s, "nh"), nw = as_int(out.size(4) / s, "nw");
+  TORCH_CHECK(y.size(0) == int64_t(B) * nd * nh * nw, "y holds ", y.size(0),
+              " blocks, out's grid ", int64_t(B) * nd * nh * nw);
+  const c10::cuda::CUDAGuard guard(y.device());
+  C10_CUDA_CHECK(lnn_unpack_blocks(y.data_ptr(), out.data_ptr(), B, C, s, nd, nh, nw,
+                                   dtype_of(y), c10::cuda::getCurrentCUDAStream().stream()));
+}
+
+// The 4 K separate arrays of an interleave, each [N, R, H, Wm] with the same
+// strides (the batch stride free, the rest contiguous), and the interleaved
+// one, [N, R, 2, 2H, K Wm] contiguous.  Returns {N, R, H, Wm, K, sN} and
+// fills ptrs.
+std::array<int64_t, 6> check_interleave(const std::vector<torch::Tensor>& parts,
+                                        const torch::Tensor& dense, void** ptrs) {
+  const int64_t K = int64_t(parts.size()) / 4;
+  TORCH_CHECK(parts.size() == 4 || parts.size() == 8, "4 or 8 arrays, got ", parts.size());
+  const torch::Tensor& a = parts[0];
+  TORCH_CHECK(a.dim() == 4, "the arrays must be [N, R, H, Wm]");
+  const int64_t N = a.size(0), R = a.size(1), H = a.size(2), Wm = a.size(3);
+  for (size_t p = 0; p < parts.size(); ++p) {
+    const torch::Tensor& t = parts[p];
+    TORCH_CHECK(t.is_cuda() && t.device() == dense.device() &&
+                    t.scalar_type() == dense.scalar_type() && t.sizes() == a.sizes() &&
+                    t.strides() == a.strides(),
+                "the arrays must share one shape, strides, dtype and the device");
+    ptrs[p] = t.data_ptr();
+  }
+  TORCH_CHECK(a.stride(3) == 1 && a.stride(2) == Wm && a.stride(1) == H * Wm,
+              "each array must be contiguous after its batch dim");
+  check(dense, dense, "the interleaved array");
+  TORCH_CHECK(dense.dim() == 5 && dense.size(0) == N && dense.size(1) == R &&
+                  dense.size(2) == 2 && dense.size(3) == 2 * H && dense.size(4) == K * Wm,
+              "the interleaved array must be [N, R, 2, 2H, K Wm]");
+  TORCH_CHECK(K == 1 || reinterpret_cast<uintptr_t>(dense.data_ptr()) %
+                                (2 * dense.element_size()) == 0,
+              "the interleaved array must be aligned to an element pair");
+  return {N, R, H, Wm, K, a.stride(0)};
+}
+
+void interleave_up2(const std::vector<torch::Tensor>& srcs, const torch::Tensor& out) {
+  void* ptrs[8] = {};
+  const auto d = check_interleave(srcs, out, ptrs);
+  const c10::cuda::CUDAGuard guard(out.device());
+  C10_CUDA_CHECK(lnn_interleave_up2(ptrs, d[5], out.data_ptr(), as_int(d[0], "N"), d[1],
+                                    as_int(d[2], "H"), as_int(d[3], "Wm"), int(d[4]),
+                                    dtype_of(out), c10::cuda::getCurrentCUDAStream().stream()));
+}
+
+void deinterleave2(const torch::Tensor& x, const std::vector<torch::Tensor>& dsts) {
+  void* ptrs[8] = {};
+  const auto d = check_interleave(dsts, x, ptrs);
+  const c10::cuda::CUDAGuard guard(x.device());
+  C10_CUDA_CHECK(lnn_deinterleave2(x.data_ptr(), ptrs, d[5], as_int(d[0], "N"), d[1],
+                                   as_int(d[2], "H"), as_int(d[3], "Wm"), int(d[4]),
+                                   dtype_of(x), c10::cuda::getCurrentCUDAStream().stream()));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -255,4 +344,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "the fused forward keeping ycf, mean and inv for the backward");
   m.def("conv3d_fwd", &conv3d_fwd,
         "3x3x3 stride-1 SAME conv alone, the fused op's data gradient");
+  m.def("pack_blocks", &pack_blocks, "halo'd block pack (block_pack.cu)");
+  m.def("unpack_blocks", &unpack_blocks, "its inverse scatter (block_pack.cu)");
+  m.def("interleave_up2", &interleave_up2, "2x up-interleave (interleave.cu)");
+  m.def("deinterleave2", &deinterleave2, "its inverse gather (interleave.cu)");
 }

@@ -79,3 +79,28 @@ cudaError_t lnn_flash_attention_bwd(const void* q, const void* k, const void* v,
                                     const void* o, const void* dout, const float* lse,
                                     float* delta, void* dq, void* dk, void* dv, int BH, int N,
                                     int HD, float scale, LnnDtype dtype, cudaStream_t stream);
+
+// Halo'd block pack: x [B, C, D, H, W] of `dtype` -> out [nb, C, bs+2, bs+2,
+// bs+2], nb = B (D/bs) (H/bs) (W/bs) in row-major (b, d, h, w) block order,
+// zeros where a window leaves the volume.  bs divides D, H and W.
+cudaError_t lnn_pack_blocks(const void* x, void* out, int B, int C, int D, int H, int W,
+                            int bs, LnnDtype dtype, cudaStream_t stream);
+
+// Its inverse scatter: y [nb, C, s, s, s] -> out [B, C, nd s, nh s, nw s],
+// nb = B nd nh nw in the same block order.
+cudaError_t lnn_unpack_blocks(const void* y, void* out, int B, int C, int s, int nd, int nh,
+                              int nw, LnnDtype dtype, cudaStream_t stream);
+
+// 2x up-interleave of 4 K sources (K = 1 or 2), each [N, R, H, Wm] with
+// batch stride sN elements and the rest contiguous, into out [N, R, 2, 2H,
+// K Wm] contiguous: out[n, r, i, 2h + j, K w + k] = srcs[(2i + j) K + k][n,
+// r, h, w].  N R H Wm < 2^31.
+cudaError_t lnn_interleave_up2(const void* const* srcs, long long sN, void* out, int N,
+                               long long R, int H, int Wm, int K, LnnDtype dtype,
+                               cudaStream_t stream);
+
+// Its inverse gather: x [N, R, 2, 2H, K Wm] -> the 4 K arrays dsts, laid out
+// as the sources above.
+cudaError_t lnn_deinterleave2(const void* x, void* const* dsts, long long sN, int N,
+                              long long R, int H, int Wm, int K, LnnDtype dtype,
+                              cudaStream_t stream);

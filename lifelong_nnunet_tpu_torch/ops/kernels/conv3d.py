@@ -89,9 +89,11 @@ def plain_conv3d_dx(dy: torch.Tensor, w: torch.Tensor, out_dtype=None) -> torch.
     return F.conv3d(dy, _dx_weight(w).to(dy.dtype), padding=1).to(_out_dtype(dy, out_dtype))
 
 
-def conv3d_weight_grad(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """dw of the 3x3x3 SAME conv (``_fused_bwd``'s XLA weight-grad,
-    ``conv3d.py:351-360``), accumulated in f32 and returned in w's dtype: the
+def conv3d_weight_grad(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                       stride=_ONES) -> torch.Tensor:
+    """dw of the 3x3x3 SAME conv at ``stride`` (``_fused_bwd``'s XLA
+    weight-grad, ``conv3d.py:351-360``; the blocked route's, ``block_pack.py:
+    334-341``), accumulated in f32 and returned in w's dtype: the
     library's weight gradient on x and dy cast to f32.  On the card cuDNN
     rounds those inputs to TF32 where ``torch.backends.cudnn.allow_tf32``
     lets it (PyTorch's default).  With bf16 activations, the training dtype,
@@ -99,7 +101,7 @@ def conv3d_weight_grad(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor) -> to
     result; with f32 activations it is TF32's, as XLA's default precision
     for an f32 conv on a TPU is not full f32 either."""
     return torch.ops.aten.convolution_backward(
-        dy.float(), x.float(), w.float(), None, _ONES, _ONES, _ONES, False,
+        dy.float(), x.float(), w.float(), None, tuple(stride), _ONES, _ONES, False,
         (0, 0, 0), 1, (False, True, False))[1].to(w.dtype)
 
 

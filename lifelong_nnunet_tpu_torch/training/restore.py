@@ -6,6 +6,12 @@ reshape the network), the network widths and, for a ViT-U-Net, its
 ``vit`` options and the patch size its position embeddings were sized for;
 ``restore_model`` rebuilds the U-Net or the ViT-U-Net from them and loads
 one task's head.
+
+:func:`route_switches` reads the JAX package's two switches for the
+CT-scale routes, as its ``maybe_pallas_conv`` does for served models and
+its trainer for trained ones: ``LNN_BLOCKED_CONV=1`` (the blocked conv) and
+``LNN_UPT_MODE=pallas`` (the interleave upsample).  Nothing under
+``models/`` or ``ops/`` reads the environment.
 """
 
 from __future__ import annotations
@@ -30,6 +36,15 @@ def plans_from_manifest(manifest: dict) -> Plans:
     return Plans(**d)
 
 
+def route_switches() -> dict:
+    """``blocked_conv`` / ``upsample`` from ``LNN_BLOCKED_CONV`` and
+    ``LNN_UPT_MODE`` (off unless set to ``1`` / ``pallas``; the JAX package's
+    other upsample modes have no route in the port)."""
+    return {"blocked_conv": os.environ.get("LNN_BLOCKED_CONV", "0") == "1",
+            "upsample": "interleave" if os.environ.get("LNN_UPT_MODE") == "pallas"
+            else "direct"}
+
+
 def find_checkpoint(folder: str, prefer: str = "model_final_checkpoint") -> str | None:
     for name in (prefer, "model_latest", "model_best"):
         base = os.path.join(folder, name)
@@ -41,7 +56,7 @@ def find_checkpoint(folder: str, prefer: str = "model_final_checkpoint") -> str 
 def model_from_manifest(manifest: dict, plans: Plans, **kwargs) -> GenericUNet:
     """The network a manifest describes (the JAX ``restore_trainer``'s model
     rules, ``restore.py:45-66``), built with ``kwargs`` (dtype, deep
-    supervision, route, generator)."""
+    supervision, routes, generator)."""
     widths = dict(base_num_features=manifest.get("base_num_features"),
                   max_num_features=manifest.get("max_num_features"), **kwargs)
     vit = manifest.get("vit")
@@ -56,18 +71,21 @@ def model_from_manifest(manifest: dict, plans: Plans, **kwargs) -> GenericUNet:
 
 
 def restore_model(checkpoint_base: str, device: torch.device, head: str | None = None,
-                  use_kernels: bool = True):
+                  use_kernels: bool = True, routes: dict | None = None):
     """checkpoint_base: path WITHOUT extension.  Returns (GenericUNet or
     GenericViTUNet on ``device`` in eval mode with ``head`` loaded — default
     the last task —, plans, config_name).  The activation dtype follows the
     device; only the full-resolution head runs (inference).
-    ``use_kernels=False`` gives the plain route (``models/unet.py``)."""
+    ``use_kernels=False`` gives the plain route (``models/unet.py``);
+    ``routes`` (``blocked_conv`` / ``upsample``) default to
+    :func:`route_switches`."""
     heads, manifest = load_checkpoint(checkpoint_base, device)
     plans = plans_from_manifest(manifest)
     head = head or manifest["meta"]["task_order"][-1]
     if head not in heads:
         raise KeyError(f"no head {head!r} in {checkpoint_base}: {list(heads)}")
     model = model_from_manifest(manifest, plans, dtype=compute_dtype(device),
-                                deep_supervision=False, use_kernels=use_kernels)
+                                deep_supervision=False, use_kernels=use_kernels,
+                                **(route_switches() if routes is None else routes))
     model.load_state_dict(heads[head])
     return model.to(device).eval(), plans, manifest["config_name"]

@@ -42,6 +42,7 @@ from ..models.unet import ds_scale_factors, unet_from_plans
 from ..models.vit_unet import vit_overrides, vit_unet_from_plans
 from ..utilities.logging_utils import RunLogger
 from . import checkpoints
+from .restore import route_switches
 from .optimizer import PolySGD
 from .train_step import StepConfig, make_eval_step, make_train_step
 
@@ -97,10 +98,12 @@ class MultiHeadTrainer:
             and self.device.type == "cuda" else torch.float32
         self.patch_size = tuple(self.opts.patch_size or self.cfg.patch_size)
         self.batch_size = int(self.opts.batch_size or self.cfg.batch_size)
+        # the CT-scale routes' switches, read where the JAX trainer reads them
+        # (trainer.py:151-156, LNN_UPT_MODE through its model)
         widths = dict(dtype=dtype, use_kernels=self.opts.use_kernels,
                       generator=torch.Generator().manual_seed(SEED),
                       base_num_features=self.opts.base_num_features,
-                      max_num_features=self.opts.max_num_features)
+                      max_num_features=self.opts.max_num_features, **route_switches())
         if self.opts.use_vit:
             self.model = vit_unet_from_plans(
                 plans, config_name, self.patch_size, vit_version=self.opts.vit_version,

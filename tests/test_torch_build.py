@@ -10,9 +10,12 @@ import torch
 
 from lifelong_nnunet_tpu_torch.ops.kernels import build
 from lifelong_nnunet_tpu_torch.ops.kernels.attention import flash_attention, flash_attention_bwd
+from lifelong_nnunet_tpu_torch.ops.kernels.block_pack import pack_blocks, unpack_blocks
 from lifelong_nnunet_tpu_torch.ops.kernels.conv3d import conv3d_dx_cf, conv3d_in_lrelu_cf
 from lifelong_nnunet_tpu_torch.ops.kernels.instance_norm import (
     instance_norm_leaky_bwd_cf, instance_norm_leaky_cf)
+from lifelong_nnunet_tpu_torch.ops.kernels.interleave import (
+    conv_transpose3d_interleave, deinterleave2, interleave_up2)
 
 TORCH_INCLUDE = re.compile(r'#include\s*[<"](torch|ATen|c10|pybind11)/')
 CSRC_FILES = sorted(p.name for p in build.CSRC.iterdir())
@@ -25,8 +28,8 @@ def _launchers() -> list:
 
 def test_one_load_builds_every_source_for_sm_90a():
     names = [p.name for p in build.sources()]
-    assert names == ["binding.cpp", "conv3d_in_lrelu.cu", "flash_attention.cu",
-                     "instance_norm.cu"]
+    assert names == ["binding.cpp", "block_pack.cu", "conv3d_in_lrelu.cu",
+                     "flash_attention.cu", "instance_norm.cu", "interleave.cu"]
     assert "-gencode=arch=compute_90a,code=sm_90a" in build.CUDA_FLAGS
 
 
@@ -44,7 +47,9 @@ def test_the_header_declares_the_launchers():
     assert _launchers() == ["lnn_instance_norm_leaky_fwd", "lnn_instance_norm_leaky_bwd",
                             "lnn_conv3d_partials_len", "lnn_conv3d_in_lrelu_fwd",
                             "lnn_conv3d_in_lrelu_train_fwd", "lnn_conv3d_fwd",
-                            "lnn_flash_attention_fwd", "lnn_flash_attention_bwd"]
+                            "lnn_flash_attention_fwd", "lnn_flash_attention_bwd",
+                            "lnn_pack_blocks", "lnn_unpack_blocks", "lnn_interleave_up2",
+                            "lnn_deinterleave2"]
 
 
 @pytest.mark.parametrize("launcher", _launchers())
@@ -89,16 +94,24 @@ def test_installed_copy_builds_under_the_user_cache(tmp_path, monkeypatch):
     lambda x: flash_attention(x[0], x[0], x[0]),
     lambda x: flash_attention(x[0].requires_grad_(), x[0], x[0]),
     lambda x: flash_attention_bwd(x[0], x[0], x[0], x[0], x[0, :, :, :, 0], x[0]),
+    lambda x: pack_blocks(x, 4),
+    lambda x: unpack_blocks(x, 1, (1, 1, 1)),
+    lambda x: interleave_up2(*[x[0, 0]] * 4),
+    lambda x: deinterleave2(x.view(4, 2, 4, 4)),
+    lambda x: conv_transpose3d_interleave(x.requires_grad_(),
+                                          torch.ones(2, 3, 2, 2, 2, device="meta")),
 ], ids=["conv3d_in_lrelu", "instance_norm_leaky", "conv3d_in_lrelu_train",
         "instance_norm_leaky_train", "conv3d_dx", "instance_norm_leaky_bwd",
-        "flash_attention", "flash_attention_train", "flash_attention_bwd"])
+        "flash_attention", "flash_attention_train", "flash_attention_bwd", "pack_blocks",
+        "unpack_blocks", "interleave_up2", "deinterleave2", "conv_transpose3d_interleave"])
 def test_wrappers_take_the_plain_version_only_for_cpu_tensors(call, monkeypatch):
     """A tensor off the CPU goes to the kernel or raises, forward or
     backward, with autograd recording or not: here (a meta tensor) it
     raises before any build, and the launch counts stay."""
     monkeypatch.setattr(build, "load_extension", lambda: pytest.fail("built"))
     counted = (conv3d_in_lrelu_cf, instance_norm_leaky_cf, conv3d_dx_cf,
-               instance_norm_leaky_bwd_cf, flash_attention, flash_attention_bwd)
+               instance_norm_leaky_bwd_cf, flash_attention, flash_attention_bwd,
+               pack_blocks, unpack_blocks, interleave_up2, deinterleave2)
     before = [f.launches for f in counted]
     with pytest.raises(ValueError, match="CUDA"):
         call(torch.ones(1, 2, 4, 4, 4, device="meta"))

@@ -2,8 +2,11 @@
 installed (the GPU host has none of them), and imports nothing of the JAX
 package ``lifelong_nnunet_tpu``, not even its jax-free modules: a fresh
 interpreter whose ``sys.meta_path`` refuses those imports loads every module
-of ``lifelong_nnunet_tpu_torch`` and ``chip_smoke.py``, runs one tiny CPU
-forward through the model and the sliding window, and one CPU training run
+of ``lifelong_nnunet_tpu_torch`` (the CT routes' ``ops/kernels/block_pack.py``
+and ``ops/kernels/interleave.py`` among them) and ``chip_smoke.py``, runs one
+tiny CPU forward through the model and the sliding window and one through
+the CT routes (the blocked conv and the interleave upsample), and one CPU
+training run
 of a single step through ``run/run_training.py`` and one through
 ``run/run_training_vit.py``."""
 
@@ -49,6 +52,8 @@ SCRIPT = BLOCKER + textwrap.dedent("""
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
     for name in names:
         importlib.import_module(name)
+    new = {"lifelong_nnunet_tpu_torch.ops.kernels." + m for m in ("block_pack", "interleave")}
+    assert new <= set(names), new - set(names)
     import chip_smoke
     from lifelong_nnunet_tpu_torch.inference.sliding_window import predict_sliding_window
     from lifelong_nnunet_tpu_torch.models.unet import GenericUNet
@@ -57,6 +62,13 @@ SCRIPT = BLOCKER + textwrap.dedent("""
     probs = predict_sliding_window(model, np.ones((10, 9, 8, 1), np.float32), (8, 8, 8), 3,
                                    device=torch.device("cpu"), window_batch=2)
     assert probs.shape == (10, 9, 8, 3) and np.isfinite(probs).all()
+    ct = GenericUNet(1, 3, ((2, 2, 2),), ((3, 3, 3),) * 2, 2, 4, blocked_conv=True,
+                     upsample="interleave").eval()
+    assert ct.enc0.block0.route((2, 1, 64, 64, 64)) == "blocked"
+    assert ct.interleaved(0, (2, 4, 32, 32, 32))
+    with torch.no_grad():
+        (out,) = ct(torch.ones((2, 1, 64, 64, 64)))
+    assert out.shape == (2, 3, 64, 64, 64) and bool(torch.isfinite(out).all())
     loaded = {m.split(".")[0] for m in sys.modules} & set(Refuse.BLOCKED)
     assert not loaded, loaded
     print("imported", len(names), "modules")
