@@ -11,9 +11,12 @@ Phases (one line each; any failure raises, so the exit code is not 0):
      post-stride shapes of the planned U-Net, at the serving path's largest
      batch, with both medians at each batch of the serving path and at the
      train batch;
-  2. the fused conv + InstanceNorm + LeakyReLU kernel against its plain
-     version at every stride-1 (Cin, Cout, spatial) of the planned U-Net,
-     likewise;
+  2. the fused conv + InstanceNorm + LeakyReLU against its plain version at
+     every stride-1 (Cin, Cout, spatial) of the planned U-Net: bf16 input on
+     the tensor-core kernel (per shape its time, TFLOP/s, share of its
+     bound and cuDNN's F.conv3d beside it, at each batch as phase 1), f32
+     input on the FMA kernel (timed at the largest batch, cuDNN in f32
+     beside it), each launch counted on the kernel its dtype selects;
   3. the full-width U-Net, kernel route against plain route, same weights,
      one window batch (f32 and bf16);
   4. the serving path: a hippocampus-scale synthetic task is planned and
@@ -26,8 +29,10 @@ Phases (one line each; any failure raises, so the exit code is not 0):
   5. the backward kernels (InstanceNorm + LeakyReLU backward, the fused
      conv's data gradient) against their plain versions at every stride-1
      and post-stride shape of the train step, at the train batch (2), in
-     f32 and bf16, with medians per train step (kernel, plain, and cuDNN's
-     data gradient as the library time);
+     f32 (the data gradient on the FMA kernel) and bf16 (on the
+     tensor-core kernel, per shape its TFLOP/s and share of its bound),
+     with medians per train step (kernel, plain, and cuDNN's data gradient
+     as the library time);
   6. the training path: ``nnUNet_torch_train_base_v2 --device cuda`` trains
      the full-width U-Net for 2 epochs of 60 steps with augmentation; the
      launch counters of all four kernels must equal what the route predicts
@@ -59,7 +64,12 @@ Phases (one line each; any failure raises, so the exit code is not 0):
      batch 8: a batch of 64) give them, bf16 and f32, with the kernel, plain
      and library medians per train step (the library: the F.pad +
      Tensor.unfold chain, its inverse permute, and F.conv_transpose3d
-     forward and backward beside the octant route);
+     forward and backward beside the octant route); then the fused conv's
+     tensor-core kernel against its plain version at every stride-1 shape
+     of the CT U-Net (B=2 and B=64) and its data gradient (B=2), bf16, with
+     phases 2 and 5's limits, per shape at B=64 its time, cuDNN's F.conv3d
+     beside it and its device time by kernel (the conv, the split-K reduce,
+     the finish);
   10. the CT path: a 160^3 synthetic task planned to nnU-Net's CT
      configuration (patch 128^3, batch 2, five pools, 32 -> 320 features) is
      trained by ``nnUNet_torch_train_base_v2 --device cuda`` with
@@ -75,12 +85,20 @@ Phases (one line each; any failure raises, so the exit code is not 0):
      device time by kernel.
 Phases 4, 6 and 8 run with both switches set: at hippocampus scale the
 gates admit nothing, so their launch counts are those of the ordinary
-routes.  The line before the last is the kernels' JSON record (the U-Net's
-forward kernels per forward at the serving path's largest batch, its
-backward kernels per train step, the flash kernels per ViT-U-Net train
-step, the copy kernels per CT train step; ``launches`` summed over the six
-paths' runs, and per path under ``launches_by_path``: ``serve``, ``train``,
-``vit_train``, ``vit_serve``, ``ct_train``, ``ct_serve``); the last line is ``{"ok": true, "device": {...}}``.  Work files go to build/chip_smoke/ and are removed at the end.
+routes.  The fused conv and its data gradient count every launch and, apart,
+those on the tensor-core kernel: on the six main paths (bf16) every one
+must take it, in the f32 checks of phases 4, 6, 8 and 10 none.  The line
+before the last is the kernels' JSON record (the U-Net's forward kernels
+per forward at the serving path's largest batch, its backward kernels per
+train step, the flash kernels per ViT-U-Net train step, the copy kernels
+per CT train step; ``launches`` summed over the six paths' runs, and per
+path under ``launches_by_path``: ``serve``, ``train``, ``vit_train``,
+``vit_serve``, ``ct_train``, ``ct_serve``; the fused conv's two kernels
+as ``conv3d_in_lrelu_tc`` / ``conv3d_dx_tc`` (the tensor-core kernel) and
+``conv3d_in_lrelu_f32`` / ``conv3d_dx_f32`` (the f32 FMA kernel, which no
+bf16 path runs: 0 launches on the paths, the f32 checks' launches under
+``check_launches``)); the last line is ``{"ok": true,
+"device": {...}}``.  Work files go to build/chip_smoke/ and are removed at the end.
 The script imports only the port, never the JAX package, and fails if any
 of lifelong_nnunet_tpu, jax, flax, optax, msgpack or sklearn was imported
 by the end of the run.
@@ -246,18 +264,47 @@ COUNTED = {"conv3d_in_lrelu": conv3d_in_lrelu_cf,
            "deinterleave2": interleave.deinterleave2}
 
 
+# the fused conv's two kernels, chosen by the input dtype: its wrapper's
+# launches on the tensor-core kernel (bf16 input, its ``tc_launches``) and
+# on the f32 FMA kernel (the rest), counted apart beside the total
+SPLIT = {"conv3d_in_lrelu": ("conv3d_in_lrelu_tc", "conv3d_in_lrelu_f32"),
+         "conv3d_dx": ("conv3d_dx_tc", "conv3d_dx_f32")}
+
+
 def _reset_counts():
     for wrapper in COUNTED.values():
         wrapper.launches = 0
+    for name in SPLIT:
+        COUNTED[name].tc_launches = 0
 
 
 def _counts() -> dict:
-    return {name: wrapper.launches for name, wrapper in COUNTED.items()}
+    counts = {name: wrapper.launches for name, wrapper in COUNTED.items()}
+    for name, (tc, f32) in SPLIT.items():
+        counts[tc] = COUNTED[name].tc_launches
+        counts[f32] = counts[name] - counts[tc]
+    return counts
 
 
 def _expect(**counts) -> dict:
-    """Every counter, 0 unless given."""
-    return {name: counts.get(name, 0) for name in COUNTED}
+    """Every counter, 0 unless given; the tensor-core counts default to
+    their wrapper's total and the FMA counts to 0, as on a bf16 path."""
+    expect = {name: counts.get(name, 0) for name in COUNTED}
+    for name, (tc, f32) in SPLIT.items():
+        expect[tc] = counts.get(tc, expect[name])
+        expect[f32] = counts.get(f32, expect[name] - expect[tc])
+    return expect
+
+
+def _fma_launches(before: dict, after: dict) -> dict:
+    """The fused conv's f32 FMA launches between two readings, by FMA
+    counter; raises if any launch between them took the tensor-core
+    kernel."""
+    fma = {}
+    for name, (tc, f32) in SPLIT.items():
+        assert after[tc] == before[tc], (name, before, after)
+        fma[f32] = after[f32] - before[f32]
+    return fma
 
 
 def _named_blocks(model, patch, device):
@@ -367,9 +414,11 @@ def _step_check(make_model, batch, ds_factors, dev, dead=()) -> str:
     be too large), and the plain route in f64 (f64 statistics and logits),
     which the other three are held to.  ``make_model(dtype, use_kernels)``
     builds the seeded model; the modules named in ``dead`` get no gradient
-    on any route.  Raises where a limit is missed; returns the readings."""
+    on any route.  The f32 kernel route's fused convs must run the FMA
+    kernel, the bf16 control's the tensor-core kernel.  Raises where a
+    limit is missed; returns the readings and the f32 route's FMA launches."""
     torch.backends.cudnn.allow_tf32 = False
-    grads = {}
+    grads, fma = {}, None
     # the biases of the convs whose kernels ignore them (the fused and the
     # blocked route's), as the kernel route's forward takes them
     fused_bias = set()
@@ -384,10 +433,20 @@ def _step_check(make_model, batch, ds_factors, dev, dead=()) -> str:
             if mod.route(inp[0].shape) in ("fused", "blocked") else None)
             for n, mod in m.named_modules() if isinstance(mod, ConvNormAct)] \
             if route == "kernel" else []
+        before = _counts()
         loss = deep_supervision_loss(m(batch["data"]), batch["seg"].long(), ds_factors)
         for h in hooks:
             h.remove()
         loss.backward()
+        after = _counts()
+        if route == "kernel":
+            fma = _fma_launches(before, after)
+            assert min(fma.values()) > 0, fma
+        elif route == "kernel bf16":
+            assert all(after[tc] - before[tc] == after[name] - before[name] > 0
+                       for name, (tc, _) in SPLIT.items()), (before, after)
+        else:
+            assert all(after[n] == before[n] for n in SPLIT), (route, before, after)
         assert all(p.grad is None for d in dead for p in getattr(m, d).parameters()), route
         # the coarsest head has loss weight 0 and no gradient
         grads[route] = (loss.item(), {
@@ -414,13 +473,15 @@ def _step_check(make_model, batch, ds_factors, dev, dead=()) -> str:
     readings = (lk, lp, lb, l64, grad_err, worst_k, plain_err, worst_p, bf16_err, worst_b)
     assert math.isfinite(lk) and abs(lk - l64) <= 1e-4, readings
     assert max(grad_err, plain_err) <= F32_GRAD_LIMIT < bf16_err, readings
-    return (f"f32 step against the plain route in f64: |loss diff| kernel "
+    return fma, (f"f32 step against the plain route in f64: |loss diff| kernel "
             f"{abs(lk - l64):.3e} (limit 1e-4), plain {abs(lp - l64):.3e}, bf16 control "
             f"{abs(lb - l64):.3e}; worst gradient |diff| / (1e-5 + 1e-3 max|f64|): kernel "
             f"route {grad_err:.3f} ({worst_k}), plain route {plain_err:.3f} ({worst_p}), "
             f"limit {F32_GRAD_LIMIT}, kernel route in bf16 (control, must exceed it) "
             f"{bf16_err:.3f} ({worst_b}); the {len(fused_bias)} fused and blocked convs' "
-            f"biases 0 vs plain <= {bias_err:.3e} of the weight's (limit 1e-3)")
+            f"biases 0 vs plain <= {bias_err:.3e} of the weight's (limit 1e-3); fused conv "
+            f"launches of the f32 kernel route on the FMA kernel {fma}, of the bf16 control "
+            f"on the tensor-core kernel")
 
 
 def _turns(make_model, batches, step_cfg, dev, order=(False, True, True, False),
@@ -685,9 +746,87 @@ def _ct_copy_phase(blocks, model, dev, gen) -> dict:
     return res
 
 
+# the fused conv's device time by kernel at the CT serving batch, in a
+# process of its own (a fresh profiler: one started late in this long run
+# has recorded no device events on the card)
+FINISH_PROBE = os.path.join(ROOT, "lifelong_nnunet_tpu_torch", "tools", "conv_finish_probe.py")
+
+
+def _ct_conv_phase(blocks, dev, gen) -> dict:
+    """Phase 9, the tensor-core conv at CT scale: the fused forward at every
+    stride-1 (Cin, Cout, spatial) of the CT U-Net (the ordinary kernel
+    route runs all of them) at the train batch (2) and the serving batch
+    (64), and its data gradient at the train batch for every block but the
+    first, bf16, against the plain versions with phases 2 and 5's limits
+    (atol 5e-2 + rtol 1e-2; at B=64 the plain version per 8 batch items:
+    the statistics are per item), each launch counted on the tensor-core
+    kernel.  Per shape at B=64: the kernel's and cuDNN's F.conv3d medians.
+    Returns per-forward sums at B=64 (counts of the kernel route) and the
+    largest errors."""
+    fwd, dx = {}, {}
+    for i, (_, m, in_shape, out_shape) in enumerate(blocks):
+        if m.conv.stride == (1, 1, 1):
+            key = (in_shape[0], out_shape[0], in_shape[1:])
+            fwd[key] = fwd.get(key, 0) + 1
+            if i > 0:
+                dx[key] = dx.get(key, 0) + 1
+    res = {"shapes": sum(fwd.values()), "err": 0.0, "dx_err": 0.0, "ms": 0.0, "lib_ms": 0.0,
+           "flops": 0, "bytes": 0}
+
+    def rand(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    def counted(name, fn):
+        before = _counts()
+        out = fn()
+        after = _counts()
+        assert after[name] == before[name] + 1 and \
+            after[SPLIT[name][0]] == before[SPLIT[name][0]] + 1, (name, before, after)
+        return out
+
+    for (cin, cout, sp), count in fwd.items():
+        w = rand((cout, cin, 3, 3, 3)) * math.sqrt(2.0 / (27 * cin))
+        scale, off = rand(cout) * 0.1 + 1, rand(cout) * 0.1
+        for batch in (TRAIN_BATCH, CT_SERVE_BATCH):
+            x = rand((batch, cin) + sp, torch.bfloat16)
+            out = counted("conv3d_in_lrelu", lambda: conv3d_in_lrelu_cf(x, w, scale, off))
+            for b0, b1 in _chunks(batch):
+                res["err"] = max(res["err"], _compare(
+                    f"CT conv bf16 B={batch} [{b0}:{b1}] {cin}->{cout} {sp}", out[b0:b1],
+                    plain_conv3d_in_lrelu(x[b0:b1], w, scale, off), 5e-2, 1e-2))
+            del out
+            if batch == CT_SERVE_BATCH:
+                wb = w.to(torch.bfloat16)
+                k_ms = _time_ms(lambda: conv3d_in_lrelu_cf(x, w, scale, off), reps=3)
+                l_ms = _time_ms(lambda: F.conv3d(x, wb, padding=1), reps=3)
+                flops = 2 * 27 * cin * cout * batch * math.prod(sp)
+                nbytes = 2 * (batch * math.prod(sp) * (cin + cout) + 27 * cin * cout)
+                for k, v in (("ms", k_ms), ("lib_ms", l_ms), ("flops", flops),
+                             ("bytes", nbytes)):
+                    res[k] += count * v
+                print(f"[phase 9]   CT conv {cin:>3}->{cout:<3} {'x'.join(map(str, sp)):>11} "
+                      f"B={batch} bf16 x{count}: tensor-core kernel {k_ms:8.3f} ms "
+                      f"({flops / 1e9 / k_ms:.1f} TFLOP/s), cuDNN F.conv3d {l_ms:8.3f} ms",
+                      flush=True)
+                del wb
+            del x
+            torch.cuda.empty_cache()
+        if (cin, cout, sp) in dx:
+            dy = rand((TRAIN_BATCH, cout) + sp, torch.bfloat16)
+            out = counted("conv3d_dx", lambda: conv3d_dx_cf(dy, w))
+            res["dx_err"] = max(res["dx_err"], _compare(
+                f"CT conv dx bf16 B={TRAIN_BATCH} {cin}<-{cout} {sp}", out,
+                plain_conv3d_dx(dy, w), 5e-2, 1e-2))
+            del dy, out
+    res["dx_shapes"] = sum(dx.values())
+    res["bound"] = _bound(res["flops"], res.pop("bytes"))
+    return res
+
+
 def _ct_path(ct_dir, plans, blocks, model, work, pre, results, dev) -> dict:
     """Phase 10: the CT path through its entry points (see the module
-    docstring).  Returns the launch counts of the two CLI runs."""
+    docstring).  Returns the launch counts of the two CLI runs, and the
+    fused conv's FMA launches of the f32 checks (serving, the train step)."""
     task = os.path.basename(ct_dir)
     cfg = plans.config("3d_fullres")
     patch = tuple(cfg.patch_size)
@@ -764,6 +903,7 @@ def _ct_path(ct_dir, plans, blocks, model, work, pre, results, dev) -> dict:
     # fit), and the CLI's segmentation against the plain route's
     torch.backends.cudnn.allow_tf32 = False
     probs = {}
+    before = _counts()
     for name, r in (("ct", CT_ROUTES), ("kernel", DIRECT_ROUTES)):
         m, _, _ = restore_model(ckpt, dev, routes=r)
         m.dtype = torch.float32
@@ -771,6 +911,8 @@ def _ct_path(ct_dir, plans, blocks, model, work, pre, results, dev) -> dict:
                                              window_batch=1, output="probs")
         del m
         torch.cuda.empty_cache()
+    fma_serve = _fma_launches(before, _counts())
+    assert fma_serve["conv3d_in_lrelu_f32"] > 0, fma_serve
     pk = probs["ct"]
     assert pk.shape == data.shape[:-1] + (classes,) and np.isfinite(pk).all()
     assert np.allclose(pk.sum(-1), 1.0, atol=1e-4)
@@ -822,7 +964,7 @@ def _ct_path(ct_dir, plans, blocks, model, work, pre, results, dev) -> dict:
                                generator=torch.Generator().manual_seed(SEED),
                                **(CT_ROUTES if route in (True, "ct") else DIRECT_ROUTES))
 
-    step_text = _step_check(ct_unet, batches[0], ds_factors, dev)
+    fma_step, step_text = _step_check(ct_unet, batches[0], ds_factors, dev)
     step_s, profile = _turns(ct_unet, batches, step_cfg, dev,
                              order=("plain", "kernel", "ct", "ct", "kernel", "plain"),
                              reps=CT_STEP_REPS, profiled=("ct",))
@@ -840,7 +982,8 @@ def _ct_path(ct_dir, plans, blocks, model, work, pre, results, dev) -> dict:
           f"({n_win} windows, {forwards} forward of {min(n_win, WINDOW_BATCH) * TTA}): "
           f"{serve_s:.2f} s (first run), peak {serve_peak_gb:.2f} GB, launches "
           f"{serve_launches} == predicted; f32 max |probs CT routes - kernel route| "
-          f"{prob_err:.3e} (limit 1e-3); seg agreement with the plain route {agree:.5f} "
+          f"{prob_err:.3e} (limit 1e-3; fused convs on the FMA kernel {fma_serve}); seg "
+          f"agreement with the plain route {agree:.5f} "
           f"(limit 0.99); Dice ({steps} steps, recorded) {[round(d, 4) for d in dice]}; "
           f"s/volume of the sliding window, window batch {WINDOW_BATCH}, in turns: CT routes "
           f"{statistics.median(vol_s['ct']):.3f} vs kernel route "
@@ -849,7 +992,8 @@ def _ct_path(ct_dir, plans, blocks, model, work, pre, results, dev) -> dict:
           flush=True)
     print(f"[phase 10] {step_text}; " + _turns_text(step_s), flush=True)
     _print_profile(10, "CT train step", profile)
-    return {"ct_train": train_launches, "ct_serve": serve_launches}
+    return ({"ct_train": train_launches, "ct_serve": serve_launches},
+            {"ct_serve_f32": fma_serve, "ct_train_f32_step": fma_step})
 
 
 def main() -> int:
@@ -959,14 +1103,19 @@ def main() -> int:
               + f"; B={batch} bound {in_bound[0]:.3f} ms ({in_bound[1]})", flush=True)
 
         # ---- phase 2: fused conv kernel at every stride-1 shape
+        # bf16 input runs the tensor-core kernel (timed at every batch of
+        # the serving path and the train step, cuDNN's F.conv3d beside it),
+        # f32 input the FMA kernel (timed at the largest batch, cuDNN in f32)
         fused = {}
         for f, in_shape, out_shape in shapes:
             if f:
                 key = (in_shape[0], out_shape[0], in_shape[1:])
                 fused[key] = fused.get(key, 0) + 1
-        conv_err = 0.0
+        conv_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
         conv_ms, conv_plain_ms = dict.fromkeys(timed, 0.0), dict.fromkeys(timed, 0.0)
-        conv_lib_ms, conv_flops, conv_bytes = 0.0, 0, 0
+        conv_lib_ms = dict.fromkeys(timed, 0.0)
+        fma_ms = fma_plain_ms = fma_lib_ms = 0.0
+        conv_flops, conv_bytes = 0, 0
         for (cin, cout, sp), count in fused.items():
             vox = batch * math.prod(sp)
             conv_flops += count * 2 * 27 * cin * cout * vox
@@ -976,34 +1125,54 @@ def main() -> int:
             for dtype, atol, rtol in ((torch.float32, 1e-3, 0.0),
                                       (torch.bfloat16, 5e-2, 1e-2)):
                 x = randn(batch, cin, *sp, dtype=dtype)
+                before = _counts()
                 out = conv3d_in_lrelu_cf(x, w, scale, off)
+                after = _counts()
                 ref = plain_conv3d_in_lrelu(x, w, scale, off)
                 torch.cuda.synchronize()
-                conv_err = max(conv_err, _compare(
+                assert after["conv3d_in_lrelu"] == before["conv3d_in_lrelu"] + 1 and \
+                    after["conv3d_in_lrelu_tc"] == before["conv3d_in_lrelu_tc"] + (
+                        dtype == torch.bfloat16), (dtype, before, after)
+                conv_err[dtype] = max(conv_err[dtype], _compare(
                     f"conv {dtype} B={batch} {cin}->{cout} {sp}", out, ref, atol, rtol))
+                if dtype == torch.float32:
+                    fma_ms += count * _time_ms(lambda: conv3d_in_lrelu_cf(x, w, scale, off))
+                    fma_plain_ms += count * _time_ms(
+                        lambda: plain_conv3d_in_lrelu(x, w, scale, off))
+                    fma_lib_ms += count * _time_ms(lambda: F.conv3d(x, w, padding=1))
             del out, ref
             wb = w.to(torch.bfloat16)
-            conv_lib_ms += count * _time_ms(lambda: F.conv3d(x, wb, padding=1))
             for b in timed:
                 xb = x[:b]
                 p_ms = _time_ms(lambda: plain_conv3d_in_lrelu(xb, w, scale, off))
                 k_ms = _time_ms(lambda: conv3d_in_lrelu_cf(xb, w, scale, off))
+                l_ms = _time_ms(lambda: F.conv3d(xb, wb, padding=1))
                 conv_ms[b] += count * k_ms
                 conv_plain_ms[b] += count * p_ms
-                tflops = 2 * 27 * cin * cout * b * math.prod(sp) / 1e9
+                conv_lib_ms[b] += count * l_ms
+                flops = 2 * 27 * cin * cout * b * math.prod(sp)
+                bound = _bound(flops, 2 * (b * math.prod(sp) * (cin + cout) + 27 * cin * cout))
                 print(f"[phase 2]   conv {cin:>3}->{cout:<3} "
-                      f"{'x'.join(map(str, sp)):>9} B={b:<2} bf16 x{count}: kernel "
-                      f"{k_ms:8.3f} ms ({tflops / k_ms:.1f} TFLOP/s), plain "
-                      f"{p_ms:8.3f} ms", flush=True)
+                      f"{'x'.join(map(str, sp)):>9} B={b:<2} bf16 x{count}: tensor-core kernel "
+                      f"{k_ms:8.3f} ms ({flops / 1e9 / k_ms:.1f} TFLOP/s, "
+                      f"{bound[0] / k_ms:.3f} of its bound), plain {p_ms:8.3f} ms, cuDNN "
+                      f"F.conv3d {l_ms:8.3f} ms", flush=True)
             del x, xb, wb
         conv_bound = _bound(conv_flops, conv_bytes)
+        # the same work in f32 on the CUDA cores, f32 read and written
+        fma_bound = _bound(conv_flops, 2 * conv_bytes, PEAK_F32_FLOPS)
         print(f"[phase 2] conv3d_in_lrelu: {len(fused)} stride-1 shapes ok (B={batch}: "
-              f"f32 atol 1e-3; bf16 atol 5e-2 + rtol 1e-2), max err "
-              f"{conv_err:.3e}; per forward, kernel vs plain: "
-              + "; ".join(f"B={b} {conv_ms[b]:.3f} vs {conv_plain_ms[b]:.3f} ms"
-                          for b in timed)
-              + f"; B={batch}: cuDNN F.conv3d alone {conv_lib_ms:.3f} ms, bound "
-              f"{conv_bound[0]:.3f} ms ({conv_bound[1]})", flush=True)
+              f"f32 on the FMA kernel, atol 1e-3, max err {conv_err[torch.float32]:.3e}; bf16 "
+              f"on the tensor-core kernel, atol 5e-2 + rtol 1e-2, max err "
+              f"{conv_err[torch.bfloat16]:.3e}); per forward, bf16, tensor-core kernel vs "
+              f"plain vs cuDNN F.conv3d alone: "
+              + "; ".join(f"B={b} {conv_ms[b]:.3f} vs {conv_plain_ms[b]:.3f} vs "
+                          f"{conv_lib_ms[b]:.3f} ms" for b in timed)
+              + f"; B={batch} {conv_flops / 1e9 / conv_ms[batch]:.1f} TFLOP/s, "
+              f"{conv_bound[0] / conv_ms[batch]:.3f} of the bound {conv_bound[0]:.3f} ms "
+              f"({conv_bound[1]}); f32 FMA kernel {fma_ms:.3f} ms vs plain {fma_plain_ms:.3f} "
+              f"vs cuDNN f32 {fma_lib_ms:.3f} ms, bound {fma_bound[0]:.3f} ms "
+              f"({fma_bound[1]})", flush=True)
 
         # ---- phase 3: the full-width model, kernel route vs plain route
         model_p = unet_from_plans(plans, "3d_fullres", dtype=torch.bfloat16,
@@ -1087,6 +1256,7 @@ def main() -> int:
         # Gaussian overlap-add of the port's accumulation path
         big = windows.index(max(windows))
         probs_f32 = {}
+        before = _counts()
         for use_kernels in (True, False):
             m, _, _ = restore_model(base, dev, use_kernels=use_kernels)
             m.dtype = torch.float32
@@ -1094,6 +1264,8 @@ def main() -> int:
                 m, volumes[big], patch, plans.num_classes + 1, device=dev,
                 window_batch=WINDOW_BATCH, output="probs")
             del m
+        fma_serve = _fma_launches(before, _counts())
+        assert fma_serve["conv3d_in_lrelu_f32"] > 0, fma_serve
         pk, pp = probs_f32[True], probs_f32[False]
         assert pk.shape == volumes[big].shape[:-1] + (plans.num_classes + 1,), pk.shape
         assert np.isfinite(pk).all() and np.allclose(pk.sum(-1), 1.0, atol=1e-4)
@@ -1134,7 +1306,9 @@ def main() -> int:
               f"{window_ms(False, True):.1f} ms, 8-window volume "
               f"{window_ms(True, False):.1f} vs {window_ms(False, False):.1f} ms; "
               f"8-window volume f32 max |probs kernel - plain| {multi_err:.3e} "
-              f"(limit 1e-3); launches {launches} == predicted; seg agreement with "
+              f"(limit 1e-3; its fused convs on the FMA kernel: {fma_serve}); launches "
+              f"{launches} == predicted, bf16 fused convs all on the tensor-core kernel; "
+              f"seg agreement with "
               f"the plain route {min(agree):.5f}; Dice (random weights, recorded) "
               f"{[[round(d, 4) for d in ds] for ds in dice]}", flush=True)
 
@@ -1184,39 +1358,56 @@ def main() -> int:
               f"{inb_plain_ms:.3f} ms, bound {inb_bound[0]:.3f} ms ({inb_bound[1]})",
               flush=True)
 
-        dx_err = dx_ms = dx_plain_ms = dx_lib_ms = 0.0
+        dx_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+        dx_ms = dx_plain_ms = dx_lib_ms = 0.0
+        dxf_ms = dxf_plain_ms = dxf_lib_ms = 0.0
         dx_flops = dx_bytes = 0
         for (cin, cout, sp), count in dx_convs.items():
             vox = b2 * math.prod(sp)
-            dx_flops += count * 2 * 27 * cin * cout * vox
-            dx_bytes += count * 2 * (vox * (cin + cout) + 27 * cin * cout)
+            flops, nbytes = 2 * 27 * cin * cout * vox, 2 * (vox * (cin + cout) + 27 * cin * cout)
+            dx_flops += count * flops
+            dx_bytes += count * nbytes
             w = randn(cout, cin, 3, 3, 3) * math.sqrt(2.0 / (27 * cin))
             for dtype, atol, rtol in ((torch.float32, 1e-3, 0.0),
                                       (torch.bfloat16, 5e-2, 1e-2)):
                 dy = randn(b2, cout, *sp, dtype=dtype)
+                before = _counts()
                 out = conv3d_dx_cf(dy, w)
+                after = _counts()
                 ref = plain_conv3d_dx(dy, w)
                 torch.cuda.synchronize()
-                dx_err = max(dx_err, _compare(f"conv dx {dtype} B={b2} {cin}<-{cout} {sp}",
-                                              out, ref, atol, rtol))
-            xs = torch.empty((b2, cin) + sp, dtype=dy.dtype, device=dev)
-            wb = w.to(dy.dtype)
-            k_ms = _time_ms(lambda: conv3d_dx_cf(dy, w))
-            p_ms = _time_ms(lambda: plain_conv3d_dx(dy, w))
-            l_ms = _time_ms(lambda: _library_dgrad(dy, xs, wb))
+                assert after["conv3d_dx"] == before["conv3d_dx"] + 1 and \
+                    after["conv3d_dx_tc"] == before["conv3d_dx_tc"] + (
+                        dtype == torch.bfloat16), (dtype, before, after)
+                dx_err[dtype] = max(dx_err[dtype], _compare(
+                    f"conv dx {dtype} B={b2} {cin}<-{cout} {sp}", out, ref, atol, rtol))
+                xs = torch.empty((b2, cin) + sp, dtype=dtype, device=dev)
+                wd = w.to(dtype)
+                k_ms = _time_ms(lambda: conv3d_dx_cf(dy, w))
+                p_ms = _time_ms(lambda: plain_conv3d_dx(dy, w))
+                l_ms = _time_ms(lambda: _library_dgrad(dy, xs, wd))
+                if dtype == torch.float32:
+                    dxf_ms, dxf_plain_ms, dxf_lib_ms = (dxf_ms + count * k_ms,
+                                                        dxf_plain_ms + count * p_ms,
+                                                        dxf_lib_ms + count * l_ms)
             dx_ms, dx_plain_ms, dx_lib_ms = (dx_ms + count * k_ms, dx_plain_ms + count * p_ms,
                                              dx_lib_ms + count * l_ms)
             print(f"[phase 5]   conv dx {cin:>3}<-{cout:<3} {'x'.join(map(str, sp)):>9} "
-                  f"B={b2} bf16 x{count}: kernel {k_ms:7.3f} ms "
-                  f"({2 * 27 * cin * cout * vox / 1e9 / k_ms:.1f} TFLOP/s), plain "
-                  f"{p_ms:7.3f} ms, cuDNN dgrad {l_ms:7.3f} ms", flush=True)
-            del dy, out, ref, xs, wb
+                  f"B={b2} bf16 x{count}: tensor-core kernel {k_ms:7.3f} ms "
+                  f"({flops / 1e9 / k_ms:.1f} TFLOP/s, {_bound(flops, nbytes)[0] / k_ms:.3f} "
+                  f"of its bound), plain {p_ms:7.3f} ms, cuDNN dgrad {l_ms:7.3f} ms", flush=True)
+            del dy, out, ref, xs, wd
         dx_bound = _bound(dx_flops, dx_bytes)
+        dxf_bound = _bound(dx_flops, 2 * dx_bytes, PEAK_F32_FLOPS)
         print(f"[phase 5] conv3d_dx: {len(dx_convs)} shapes ({n_dx} per step) ok "
-              f"(B={b2}: f32 atol 1e-3; bf16 atol 5e-2 + rtol 1e-2), max err "
-              f"{dx_err:.3e}; per train step, bf16: kernel {dx_ms:.3f} ms vs plain "
-              f"{dx_plain_ms:.3f} ms vs cuDNN dgrad {dx_lib_ms:.3f} ms, bound "
-              f"{dx_bound[0]:.3f} ms ({dx_bound[1]})", flush=True)
+              f"(B={b2}: f32 on the FMA kernel, atol 1e-3, max err "
+              f"{dx_err[torch.float32]:.3e}; bf16 on the tensor-core kernel, atol 5e-2 + "
+              f"rtol 1e-2, max err {dx_err[torch.bfloat16]:.3e}); per train step, bf16: "
+              f"tensor-core kernel {dx_ms:.3f} ms ({dx_flops / 1e9 / dx_ms:.1f} TFLOP/s, "
+              f"{dx_bound[0] / dx_ms:.3f} of the bound {dx_bound[0]:.3f} ms, {dx_bound[1]}) vs "
+              f"plain {dx_plain_ms:.3f} ms vs cuDNN dgrad {dx_lib_ms:.3f} ms; f32: FMA "
+              f"kernel {dxf_ms:.3f} ms vs plain {dxf_plain_ms:.3f} ms vs cuDNN dgrad "
+              f"{dxf_lib_ms:.3f} ms, bound {dxf_bound[0]:.3f} ms ({dxf_bound[1]})", flush=True)
 
         # ---- phase 6: the training path through its entry point
         # the library's defaults (TF32 in cuDNN's f32 weight gradient) while
@@ -1272,7 +1463,7 @@ def main() -> int:
             return unet_from_plans(plans, "3d_fullres", dtype=dtype, use_kernels=use_kernels,
                                    generator=torch.Generator().manual_seed(SEED))
 
-        step_text = _step_check(unet, dev_batches[0], ds_factors, dev)
+        fma_train, step_text = _step_check(unet, dev_batches[0], ds_factors, dev)
         step_s, profile = _turns(unet, dev_batches, step_cfg, dev)
         print(f"[phase 6] nnUNet_torch_train_base_v2 --device cuda, full width "
               f"{plans.num_modalities}->{plans.num_classes + 1}, patch {patch}, batch {b2}, "
@@ -1367,8 +1558,8 @@ def main() -> int:
                                        use_kernels=use_kernels,
                                        generator=torch.Generator().manual_seed(SEED))
 
-        vit_step_text = _step_check(vit_unet, vit_batches[0], ds_factors, dev,
-                                    dead=("bottleneck",))
+        fma_vit, vit_step_text = _step_check(vit_unet, vit_batches[0], ds_factors, dev,
+                                             dead=("bottleneck",))
         vit_step_s, vit_profile = _turns(vit_unet, vit_batches, step_cfg, dev)
         print(f"[phase 8] nnUNet_torch_train_vit 3d_fullres --device cuda: V1 ViT-U-Net, "
               f"ViT base (embed 768, depth {n_attn}, 12 heads, {tokens} tokens), U-Net "
@@ -1424,8 +1615,31 @@ def main() -> int:
                           for d, e in copies["up_err"].items())
               + " (f32 atol 1e-4 + rtol 1e-4, bf16 atol 2e-2 + rtol 1e-2)", flush=True)
 
+        ct_conv = _ct_conv_phase(ct_blocks, dev, gen)
+        torch.cuda.empty_cache()
+        probe = subprocess.run([sys.executable, FINISH_PROBE, "--root", ROOT,
+                                "--batch", str(CT_SERVE_BATCH)], capture_output=True, text=True)
+        assert probe.returncode == 0, probe.stderr[-3000:]
+        finish = json.loads(probe.stdout.strip().splitlines()[-1])["per_forward"]
+        assert finish["conv"] > 0 and finish["finish"] > 0, probe.stdout
+        print(f"[phase 9] tensor-core conv at the CT shapes: {ct_conv['shapes']} fused convs "
+              f"(B={TRAIN_BATCH} and B={CT_SERVE_BATCH}) and {ct_conv['dx_shapes']} data "
+              f"gradients (B={TRAIN_BATCH}) ok, bf16 atol 5e-2 + rtol 1e-2, max err "
+              f"{ct_conv['err']:.3e} / {ct_conv['dx_err']:.3e}, every launch on the "
+              f"tensor-core kernel; per CT serving forward (B={CT_SERVE_BATCH}, the kernel "
+              f"route's {ct_conv['shapes']} convs): kernel {ct_conv['ms']:.3f} ms "
+              f"({ct_conv['flops'] / 1e9 / ct_conv['ms']:.1f} TFLOP/s, "
+              f"{ct_conv['bound'][0] / ct_conv['ms']:.3f} of the bound "
+              f"{ct_conv['bound'][0]:.3f} ms, {ct_conv['bound'][1]}) vs cuDNN F.conv3d "
+              f"{ct_conv['lib_ms']:.3f} ms; the 128^3 and 64^3 convs of that forward by "
+              f"kernel (torch.profiler, {os.path.relpath(FINISH_PROBE, ROOT)}): conv "
+              f"{finish['conv']:.3f} ms, split-K reduce {finish['reduce']:.3f} ms, finish "
+              f"(statistics + normalize) {finish['finish']:.3f} ms of {finish['ms']:.3f} ms",
+              flush=True)
+
         # ---- phase 10: the CT path through its entry points
-        ct_paths = _ct_path(ct_dir, ct_plans, ct_blocks, model_ct, work, pre, results, dev)
+        ct_paths, fma_ct = _ct_path(ct_dir, ct_plans, ct_blocks, model_ct, work, pre,
+                                    results, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1441,13 +1655,21 @@ def main() -> int:
         return n * ms, n * plain_ms, (n * bound, by), n * lib_ms
 
     rows = [  # name, source, replaces, err, ms, plain, bound, library, per
-        ("conv3d_in_lrelu", "conv3d_in_lrelu.cu", f"{pallas}/conv3d.py:225", conv_err,
-         conv_ms[batch], conv_plain_ms[batch], conv_bound, conv_lib_ms,
-         f"forward at B={batch}"),
+        ("conv3d_in_lrelu_tc", "conv3d_in_lrelu.cu", f"{pallas}/conv3d.py:225",
+         conv_err[torch.bfloat16], conv_ms[batch], conv_plain_ms[batch], conv_bound,
+         conv_lib_ms[batch], f"forward at B={batch}, bf16, tensor cores"),
+        ("conv3d_in_lrelu_f32", "conv3d_in_lrelu.cu", f"{pallas}/conv3d.py:225",
+         conv_err[torch.float32], fma_ms, fma_plain_ms, fma_bound, fma_lib_ms,
+         f"forward at B={batch}, f32 input, FMA kernel"),
         ("instance_norm_leaky", "instance_norm.cu", f"{pallas}/instance_norm.py:82", in_err,
          in_ms[batch], in_plain_ms[batch], in_bound, None, f"forward at B={batch}"),
-        ("conv3d_dx", "conv3d_in_lrelu.cu", f"{pallas}/conv3d.py:343", dx_err, dx_ms,
-         dx_plain_ms, dx_bound, dx_lib_ms, f"train step at B={TRAIN_BATCH}"),
+        ("conv3d_dx_tc", "conv3d_in_lrelu.cu", f"{pallas}/conv3d.py:343",
+         dx_err[torch.bfloat16], dx_ms, dx_plain_ms, dx_bound, dx_lib_ms,
+         f"train step at B={TRAIN_BATCH}, bf16, tensor cores"),
+        ("conv3d_dx_f32", "conv3d_in_lrelu.cu", f"{pallas}/conv3d.py:343",
+         dx_err[torch.float32],
+         dxf_ms, dxf_plain_ms, dxf_bound, dxf_lib_ms,
+         f"train step at B={TRAIN_BATCH}, f32 input, FMA kernel"),
         ("instance_norm_leaky_bwd", "instance_norm.cu", f"{pallas}/instance_norm.py:122", inb_err,
          inb_ms, inb_plain_ms, inb_bound, None, f"train step at B={TRAIN_BATCH}"),
     ] + [(name, "flash_attention.cu", "lifelong_nnunet_tpu/models/vit.py:172",
@@ -1464,18 +1686,25 @@ def main() -> int:
                                   ("deinterleave2", "interleave.cu", "interleave.py:73"))]
     paths = {"serve": launches, "train": train_launches, "vit_train": vit_train_launches,
              "vit_serve": vit_serve_launches, **ct_paths}
-    kernels = [
-        {"name": name, "route": "cuda", "source": f"{csrc}/{src}",
-         "replaces": where,
-         "launches": sum(c[name] for c in paths.values()), "max_abs_err": err,
-         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
-         "library_ms": lib_ms, "per": per,
-         "launches_by_path": {path: c[name] for path, c in paths.items()}}
-        for name, src, where, err, ms, plain_ms, bound, lib_ms, per in rows]
-    for k in kernels:
-        if k["name"] in ("interleave_up2", "deinterleave2"):
+    # the FMA kernel runs f32 input only, off the bf16 main paths (0
+    # launches there, asserted above); its launches in the f32 checks of
+    # phases 4, 6, 8 and 10 are kept apart, under ``check_launches``
+    f32_checks = {"serve_f32": fma_serve, "train_f32_step": fma_train,
+                  "vit_train_f32_step": fma_vit, **fma_ct}
+    kernels = []
+    for name, src, where, err, ms, plain_ms, bound, lib_ms, per in rows:
+        kernels.append(
+            {"name": name, "route": "cuda", "source": f"{csrc}/{src}",
+             "replaces": where,
+             "launches": sum(c[name] for c in paths.values()), "max_abs_err": err,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+             "library_ms": lib_ms, "per": per,
+             "launches_by_path": {path: c[name] for path, c in paths.items()}})
+        if name.endswith("_f32"):
+            kernels[-1]["check_launches"] = {check: c[name] for check, c in f32_checks.items()}
+        if name in ("interleave_up2", "deinterleave2"):
             # the whole upsample on the octant route, beside the library's
-            k["route_ms"] = copies[k["name"]]["route_ms"]
+            kernels[-1]["route_ms"] = copies[name]["route_ms"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -102,8 +102,8 @@ int64_t conv3d_partials_len(int64_t B, int64_t cout, int64_t D, int64_t H, int64
                                  as_int(H, "H"), as_int(W, "W"));
 }
 
-// The dims of a conv call: x [B, Cin, D, H, W], w [Cin, 27, Cout] in x's
-// dtype, y [B, Cout, D, H, W] (any of the two dtypes).
+// The dims of an FMA conv call: x [B, Cin, D, H, W] f32, w [Cin, 27, Cout]
+// in x's dtype, y [B, Cout, D, H, W] (any of the two dtypes).
 struct ConvDims {
   int B, cin, cout, D, H, W;
 };
@@ -111,7 +111,8 @@ struct ConvDims {
 ConvDims check_conv(const torch::Tensor& x, const torch::Tensor& w,
                     const torch::Tensor& y) {
   check(x, x, "x");
-  TORCH_CHECK(x.dim() == 5, "x must be [B, Cin, D, H, W]");
+  TORCH_CHECK(x.dim() == 5 && x.scalar_type() == torch::kFloat32,
+              "x must be [B, Cin, D, H, W] float32 (bfloat16 takes conv3d_tc_fwd)");
   ConvDims d{as_int(x.size(0), "B"), as_int(x.size(1), "Cin"), 0,
              as_int(x.size(2), "D"), as_int(x.size(3), "H"), as_int(x.size(4), "W")};
   check(w, x, "w");
@@ -176,6 +177,107 @@ void conv3d_fwd(const torch::Tensor& x, const torch::Tensor& w, const torch::Ten
   C10_CUDA_CHECK(lnn_conv3d_fwd(x.data_ptr(), w.data_ptr(), y.data_ptr(), d.B, d.cin,
                                 d.cout, d.D, d.H, d.W, dtype_of(x), dtype_of(y),
                                 c10::cuda::getCurrentCUDAStream().stream()));
+}
+
+// The tensor-core conv: x [B, Cin, D, H, W] bf16, w the packed [chunks,
+// 27, Cout_pad, 16] bf16, y [B, Cout, D, H, W] (either dtype), workspace
+// conv3d_tc_workspace_len floats (any tensor when splits == 1).
+ConvDims check_conv_tc(const torch::Tensor& x, const torch::Tensor& w, const torch::Tensor& y,
+                       const torch::Tensor& workspace, int64_t splits) {
+  check(x, x, "x");
+  TORCH_CHECK(x.dim() == 5 && x.scalar_type() == torch::kBFloat16,
+              "x must be [B, Cin, D, H, W] bfloat16 (float32 takes conv3d_fwd)");
+  check(y, x, "y");
+  TORCH_CHECK(y.dim() == 5 && y.size(0) == x.size(0) && y.size(2) == x.size(2) &&
+                  y.size(3) == x.size(3) && y.size(4) == x.size(4),
+              "y must be [B, Cout, D, H, W]");
+  const ConvDims d{as_int(x.size(0), "B"), as_int(x.size(1), "Cin"), as_int(y.size(1), "Cout"),
+                   as_int(x.size(2), "D"), as_int(x.size(3), "H"), as_int(x.size(4), "W")};
+  check(w, x, "w");
+  TORCH_CHECK(w.scalar_type() == torch::kBFloat16 &&
+                  w.numel() == lnn_conv3d_tc_weight_len(d.cin, d.cout),
+              "w must be the packed bfloat16 weights of ", d.cin, " -> ", d.cout, " channels");
+  if (splits > 1)
+    check_f32(workspace, x,
+              lnn_conv3d_tc_workspace_len(d.B, d.cout, d.D, d.H, d.W, as_int(splits, "splits")),
+              "workspace");
+  return d;
+}
+
+float* ws_ptr(const torch::Tensor& workspace, int64_t splits) {
+  return splits > 1 ? workspace.data_ptr<float>() : nullptr;
+}
+
+int64_t conv3d_tc_partials_len(int64_t B, int64_t cout, int64_t D, int64_t H, int64_t W,
+                               int64_t splits) {
+  return lnn_conv3d_tc_partials_len(as_int(B, "B"), as_int(cout, "Cout"), as_int(D, "D"),
+                                    as_int(H, "H"), as_int(W, "W"), as_int(splits, "splits"));
+}
+
+int64_t conv3d_tc_workspace_len(int64_t B, int64_t cout, int64_t D, int64_t H, int64_t W,
+                                int64_t splits) {
+  return lnn_conv3d_tc_workspace_len(as_int(B, "B"), as_int(cout, "Cout"), as_int(D, "D"),
+                                     as_int(H, "H"), as_int(W, "W"), as_int(splits, "splits"));
+}
+
+// The fused forward on the tensor cores, normalized in place into y.
+void conv3d_tc_in_lrelu_fwd(const torch::Tensor& x, const torch::Tensor& w,
+                            const torch::Tensor& scale, const torch::Tensor& offset,
+                            const torch::Tensor& y, const torch::Tensor& partials,
+                            const torch::Tensor& workspace, int64_t splits, double slope,
+                            double eps) {
+  const ConvDims d = check_conv_tc(x, w, y, workspace, splits);
+  check_f32(scale, x, d.cout, "scale");
+  check_f32(offset, x, d.cout, "offset");
+  check_f32(partials, x, conv3d_tc_partials_len(d.B, d.cout, d.D, d.H, d.W, splits),
+            "partials");
+  const c10::cuda::CUDAGuard guard(x.device());
+  C10_CUDA_CHECK(lnn_conv3d_tc(
+      x.data_ptr(), w.data_ptr(), scale.data_ptr<float>(), offset.data_ptr<float>(),
+      y.data_ptr(), y.data_ptr(), nullptr, nullptr, partials.data_ptr<float>(),
+      ws_ptr(workspace, splits), d.B, d.cin, d.cout, d.D, d.H, d.W, static_cast<int>(splits),
+      static_cast<float>(slope), static_cast<float>(eps), dtype_of(y),
+      c10::cuda::getCurrentCUDAStream().stream()));
+}
+
+// The training forward on the tensor cores: ycf raw, out normalized, mean
+// and inv [B, Cout] f32.
+void conv3d_tc_in_lrelu_train_fwd(const torch::Tensor& x, const torch::Tensor& w,
+                                  const torch::Tensor& scale, const torch::Tensor& offset,
+                                  const torch::Tensor& ycf, const torch::Tensor& out,
+                                  const torch::Tensor& mean, const torch::Tensor& inv,
+                                  const torch::Tensor& partials,
+                                  const torch::Tensor& workspace, int64_t splits,
+                                  double slope, double eps) {
+  const ConvDims d = check_conv_tc(x, w, ycf, workspace, splits);
+  check(out, x, "out");
+  TORCH_CHECK(out.sizes() == ycf.sizes() && out.scalar_type() == ycf.scalar_type(),
+              "out must match ycf");
+  check_f32(scale, x, d.cout, "scale");
+  check_f32(offset, x, d.cout, "offset");
+  check_f32(mean, x, int64_t(d.B) * d.cout, "mean");
+  check_f32(inv, x, int64_t(d.B) * d.cout, "inv");
+  check_f32(partials, x, conv3d_tc_partials_len(d.B, d.cout, d.D, d.H, d.W, splits),
+            "partials");
+  const c10::cuda::CUDAGuard guard(x.device());
+  C10_CUDA_CHECK(lnn_conv3d_tc(
+      x.data_ptr(), w.data_ptr(), scale.data_ptr<float>(), offset.data_ptr<float>(),
+      ycf.data_ptr(), out.data_ptr(), mean.data_ptr<float>(), inv.data_ptr<float>(),
+      partials.data_ptr<float>(), ws_ptr(workspace, splits), d.B, d.cin, d.cout, d.D, d.H,
+      d.W, static_cast<int>(splits), static_cast<float>(slope), static_cast<float>(eps),
+      dtype_of(ycf), c10::cuda::getCurrentCUDAStream().stream()));
+}
+
+// The conv alone on the tensor cores (the data gradient's).
+void conv3d_tc_fwd(const torch::Tensor& x, const torch::Tensor& w, const torch::Tensor& y,
+                   const torch::Tensor& workspace, int64_t splits) {
+  const ConvDims d = check_conv_tc(x, w, y, workspace, splits);
+  const c10::cuda::CUDAGuard guard(x.device());
+  C10_CUDA_CHECK(lnn_conv3d_tc(x.data_ptr(), w.data_ptr(), nullptr, nullptr, y.data_ptr(),
+                               nullptr, nullptr, nullptr, nullptr, ws_ptr(workspace, splits),
+                               d.B, d.cin, d.cout, d.D, d.H, d.W, static_cast<int>(splits),
+                               0.f, 0.f, dtype_of(y),
+                               c10::cuda::getCurrentCUDAStream().stream()));
 }
 
 // t: on q's device, contiguous, q's shape and dtype
@@ -344,6 +446,16 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "the fused forward keeping ycf, mean and inv for the backward");
   m.def("conv3d_fwd", &conv3d_fwd,
         "3x3x3 stride-1 SAME conv alone, the fused op's data gradient");
+  m.def("conv3d_tc_partials_len", &conv3d_tc_partials_len,
+        "floats of partial-statistics scratch for one tensor-core fused call");
+  m.def("conv3d_tc_workspace_len", &conv3d_tc_workspace_len,
+        "floats of split-K workspace for one tensor-core call (0 without a split)");
+  m.def("conv3d_tc_in_lrelu_fwd", &conv3d_tc_in_lrelu_fwd,
+        "the fused forward on the tensor cores, bf16 input (conv3d_in_lrelu.cu)");
+  m.def("conv3d_tc_in_lrelu_train_fwd", &conv3d_tc_in_lrelu_train_fwd,
+        "the tensor-core fused forward keeping ycf, mean and inv for the backward");
+  m.def("conv3d_tc_fwd", &conv3d_tc_fwd,
+        "the conv alone on the tensor cores, the data gradient of bf16 input");
   m.def("pack_blocks", &pack_blocks, "halo'd block pack (block_pack.cu)");
   m.def("unpack_blocks", &unpack_blocks, "its inverse scatter (block_pack.cu)");
   m.def("interleave_up2", &interleave_up2, "2x up-interleave (interleave.cu)");

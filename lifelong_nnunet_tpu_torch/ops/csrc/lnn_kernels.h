@@ -33,10 +33,12 @@ cudaError_t lnn_instance_norm_leaky_bwd(const void* x, const void* g, const floa
                                         long long N, float alpha, LnnDtype dtype,
                                         LnnDtype dx_dtype, cudaStream_t stream);
 
-// Length in floats of the partial-statistics scratch of one conv call.
+// Length in floats of the partial-statistics scratch of one f32-input conv
+// call (the FMA entries below).
 long long lnn_conv3d_partials_len(int B, int Cout, int D, int H, int W);
 
-// Fused 3x3x3 stride-1 SAME conv + InstanceNorm + LeakyReLU forward.
+// Fused 3x3x3 stride-1 SAME conv + InstanceNorm + LeakyReLU forward, f32
+// FMA on the CUDA cores: the entry of f32 input (`in_dtype` LNN_F32).
 // x: [B, Cin, D, H, W] of `in_dtype`; w: [Cin, 27, Cout] of `in_dtype`;
 // scale, offset: [Cout] f32; y: [B, Cout, D, H, W] of `out_dtype`, written
 // with the activated result; partials: lnn_conv3d_partials_len floats of
@@ -64,6 +66,27 @@ cudaError_t lnn_conv3d_in_lrelu_train_fwd(const void* x, const void* w,
 cudaError_t lnn_conv3d_fwd(const void* x, const void* w, void* y, int B, int Cin,
                            int Cout, int D, int H, int W, LnnDtype in_dtype,
                            LnnDtype out_dtype, cudaStream_t stream);
+
+// The tensor-core entry (bf16 x): elements of the packed weights, floats of
+// the partial statistics and of the split-K workspace, for a call with
+// `splits` splits of the input-channel chunks.
+long long lnn_conv3d_tc_weight_len(int Cin, int Cout);
+long long lnn_conv3d_tc_partials_len(int B, int Cout, int D, int H, int W, int splits);
+long long lnn_conv3d_tc_workspace_len(int B, int Cout, int D, int H, int W, int splits);
+
+// The same conv on the tensor cores (bf16 x bf16 -> f32): x [B, Cin, D, H,
+// W] bf16; w packed [ceil(Cin / 16), 27, Cout_pad, 16] bf16 (Cout_pad =
+// Cout rounded up to 32 when Cout <= 32, else to 64; zeros past Cin and
+// Cout; with Cin 1, [1, 3, Cout_pad, 16]: tap kd, channel 3 kh + kw); y
+// [B, Cout, D, H, W] of `out_dtype`.  With scale (and offset,
+// partials) y is normalized: in place when out == y, else into out, with
+// mean and inv kept when they are non-null; without, y is the raw conv.
+// workspace: lnn_conv3d_tc_workspace_len floats (null when splits == 1).
+cudaError_t lnn_conv3d_tc(const void* x, const void* w, const float* scale,
+                          const float* offset, void* y, void* out, float* mean, float* inv,
+                          float* partials, float* workspace, int B, int Cin, int Cout, int D,
+                          int H, int W, int splits, float slope, float eps,
+                          LnnDtype out_dtype, cudaStream_t stream);
 
 // Non-causal flash attention forward: q, k, v, o [BH, N, HD] of `dtype`,
 // contiguous, HD 64 or 80; o = softmax(q k^T * scale) v; lse [BH, N] f32,

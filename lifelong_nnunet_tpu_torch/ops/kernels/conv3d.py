@@ -7,7 +7,13 @@ statistics and the normalizing finish; the conv alone for the data
 gradient) and ``ops/csrc/instance_norm.cu`` (the InstanceNorm backward).  A
 tensor on the CPU goes through the plain PyTorch versions beside them
 (:func:`plain_conv3d_in_lrelu`, :func:`plain_conv3d_in_lrelu_bwd`); a CUDA
-tensor launches the kernels or raises, whatever its shape.
+tensor launches the kernels or raises, whatever its shape.  The conv has
+two kernels, chosen by the input dtype: bf16 (training and serving) runs
+the implicit GEMM on the tensor cores, on weights packed by
+:func:`tc_weight` and split as :func:`tc_splits` says; f32 runs the f32 FMA
+kernel on the CUDA cores, so an f32 check is not rounded to bf16 or TF32.
+The wrappers count every launch in ``launches`` and the tensor-core ones
+again in ``tc_launches``.
 
 Where autograd records the call, :class:`Conv3dINLReLU` runs the training
 forward (the raw conv output ``ycf`` and the f32 mean / inv kept beside the
@@ -29,6 +35,8 @@ parameter does in the JAX package, so the optimizer still decays it.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -133,42 +141,106 @@ def _check(x, w, scale, offset, dt) -> None:
 
 def _kernel_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """[Cout, Cin, kd, kh, kw] -> [Cin, 27, Cout], in the input dtype as the
-    TPU kernel casts its weights (conv3d.py:220)."""
+    TPU kernel casts its weights (conv3d.py:220): the FMA kernel's layout."""
     return w.to(dtype).permute(1, 2, 3, 4, 0).contiguous().view(w.shape[1], 27, w.shape[0])
+
+
+# the tensor-core kernel's tiling (conv3d_in_lrelu.cu, namespace tc): a block
+# owns a TC_BOX of output voxels of one batch item and 32 or 64 output
+# channels; K runs over chunks of TC_CHUNK input channels, split over
+# several blocks when the grid would not fill the card's SMs (an H100 SXM
+# has 132).  The kernel sizes its scratch itself (the extension's
+# ``conv3d_tc_partials_len`` / ``conv3d_tc_workspace_len``); the wrapper
+# chooses the split and packs the weights.
+TC_BOX = (4, 8, 8)
+TC_CHUNK = 16
+TC_SMS = 132
+
+
+def tc_n_tile(cout: int) -> int:
+    """Output channels a block: 32 when Cout <= 32, else 64."""
+    return 32 if cout <= 32 else 64
+
+
+def tc_splits(batch: int, cin: int, cout: int, spatial) -> int:
+    """The blocks the input-channel chunks of one tensor-core conv are split
+    over, a pure function of its shape: the fewest that fill the SMs (1 once
+    the grid has TC_SMS blocks), with none left empty (split s takes chunks
+    [s * ceil(chunks / splits), (s + 1) * ceil(chunks / splits)))."""
+    m_tiles = math.prod(-(-s // t) for s, t in zip(spatial, TC_BOX))
+    blocks = batch * m_tiles * -(-cout // tc_n_tile(cout))
+    chunks = -(-cin // TC_CHUNK)
+    if blocks >= TC_SMS:
+        return 1
+    want = min(chunks, -(-TC_SMS // blocks))   # splits that fill the SMs
+    return -(-chunks // -(-chunks // want))   # ... with none left empty
+
+
+def tc_weight(w: torch.Tensor) -> torch.Tensor:
+    """[Cout, Cin, kd, kh, kw] -> the tensor-core kernel's packed bf16
+    weights ``[chunks, 27, Cout_pad, TC_CHUNK]`` (tap = 9 kd + 3 kh + kw;
+    Cin padded with zeros to the chunk, Cout to the channel tile).  With one
+    input channel the kernel folds (kh, kw) into the chunk: ``[1, 3,
+    Cout_pad, TC_CHUNK]``, tap kd, channel 3 kh + kw (9 of 16 used)."""
+    cout, cin = w.shape[:2]
+    nt = tc_n_tile(cout)
+    cout_pad, chunks = -(-cout // nt) * nt, -(-cin // TC_CHUNK)
+    if cin == 1:
+        wp = torch.zeros((cout_pad, 3, TC_CHUNK), dtype=torch.bfloat16, device=w.device)
+        wp[:cout, :, :9] = w.reshape(cout, 3, 9)
+        return wp.permute(1, 0, 2).unsqueeze(0).contiguous()
+    wp = torch.zeros((cout_pad, chunks * TC_CHUNK, 27), dtype=torch.bfloat16, device=w.device)
+    wp[:cout, :cin] = w.reshape(cout, cin, 27)
+    return wp.view(cout_pad, chunks, TC_CHUNK, 27).permute(1, 3, 0, 2).contiguous()
 
 
 def _kernel_forward(x, w, scale, offset, negative_slope, epsilon, out_dtype, train):
     """One launch of the fused forward: ``out`` (normalized in place) or,
-    for training, (out, ycf, mean, inv)."""
+    for training, (out, ycf, mean, inv).  bf16 x runs the tensor-core
+    kernel, f32 x the FMA kernel."""
     dev = build.require_cuda(x, w, scale, offset)
     dt = _out_dtype(x, out_dtype)
     _check(x, w, scale, offset, dt)
-    B, _, D, H, W = x.shape
+    B, cin, D, H, W = x.shape
     cout = w.shape[0]
     ext = build.load_extension()
-    args = (x.contiguous(), _kernel_weight(w, x.dtype), scale.float().contiguous(),
-            offset.float().contiguous())
+    tc = x.dtype == torch.bfloat16
     y = torch.empty((B, cout, D, H, W), dtype=dt, device=dev)
-    partials = torch.empty(ext.conv3d_partials_len(B, cout, D, H, W),
-                           dtype=torch.float32, device=dev)
+    if tc:
+        splits = tc_splits(B, cin, cout, (D, H, W))
+        partials = torch.empty(ext.conv3d_tc_partials_len(B, cout, D, H, W, splits),
+                               dtype=torch.float32, device=dev)
+        tail = (torch.empty(ext.conv3d_tc_workspace_len(B, cout, D, H, W, splits),
+                            dtype=torch.float32, device=dev), splits)
+        args = (x.contiguous(), tc_weight(w))
+    else:
+        partials = torch.empty(ext.conv3d_partials_len(B, cout, D, H, W),
+                               dtype=torch.float32, device=dev)
+        tail = ()
+        args = (x.contiguous(), _kernel_weight(w, x.dtype))
+    args += (scale.float().contiguous(), offset.float().contiguous())
+    finish = (float(negative_slope), float(epsilon))
     if train:
         out = torch.empty_like(y)
         mean = torch.empty((B, cout), dtype=torch.float32, device=dev)
         inv = torch.empty_like(mean)
-        ext.conv3d_in_lrelu_train_fwd(*args, y, out, mean, inv, partials,
-                                      float(negative_slope), float(epsilon))
+        fn = ext.conv3d_tc_in_lrelu_train_fwd if tc else ext.conv3d_in_lrelu_train_fwd
+        fn(*args, y, out, mean, inv, partials, *tail, *finish)
         result = (out, y, mean, inv)
     else:
-        ext.conv3d_in_lrelu_fwd(*args, y, partials, float(negative_slope), float(epsilon))
+        fn = ext.conv3d_tc_in_lrelu_fwd if tc else ext.conv3d_in_lrelu_fwd
+        fn(*args, y, partials, *tail, *finish)
         result = y
     conv3d_in_lrelu_cf.launches += 1
+    conv3d_in_lrelu_cf.tc_launches += tc
     return result
 
 
 def conv3d_dx_cf(dy: torch.Tensor, w: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """The fused op's data gradient: ``dy [B, Cout, D, H, W]``, ``w [Cout,
     Cin, 3, 3, 3]`` -> ``dx [B, Cin, D, H, W]`` in ``out_dtype`` (default
-    dy's).  One launch of the conv kernel for a CUDA tensor."""
+    dy's).  One launch of the conv for a CUDA tensor: on the tensor cores
+    for bf16 dy, the FMA kernel for f32."""
     if dy.device.type == "cpu":
         return plain_conv3d_dx(dy, w, out_dtype)
     dev = build.require_cuda(dy, w)
@@ -179,15 +251,24 @@ def conv3d_dx_cf(dy: torch.Tensor, w: torch.Tensor, out_dtype=None) -> torch.Ten
             or tuple(w.shape[2:]) != (3, 3, 3):
         raise ValueError(f"conv3d_dx takes dy [B, Cout, D, H, W] and w [Cout, Cin, 3, "
                          f"3, 3]; got {tuple(dy.shape)}, {tuple(w.shape)}")
-    B, _, D, H, W = dy.shape
+    B, cout, D, H, W = dy.shape
+    cin = w.shape[1]
     ext = build.load_extension()
-    dx = torch.empty((B, w.shape[1], D, H, W), dtype=dt, device=dev)
-    ext.conv3d_fwd(dy.contiguous(), _kernel_weight(_dx_weight(w), dy.dtype), dx)
+    dx = torch.empty((B, cin, D, H, W), dtype=dt, device=dev)
+    tc = dy.dtype == torch.bfloat16
+    if tc:
+        splits = tc_splits(B, cout, cin, (D, H, W))
+        ext.conv3d_tc_fwd(dy.contiguous(), tc_weight(_dx_weight(w)), dx,
+                          torch.empty(ext.conv3d_tc_workspace_len(B, cin, D, H, W, splits),
+                                      dtype=torch.float32, device=dev), splits)
+    else:
+        ext.conv3d_fwd(dy.contiguous(), _kernel_weight(_dx_weight(w), dy.dtype), dx)
     conv3d_dx_cf.launches += 1
+    conv3d_dx_cf.tc_launches += tc
     return dx
 
 
-conv3d_dx_cf.launches = 0
+conv3d_dx_cf.launches = conv3d_dx_cf.tc_launches = 0
 
 
 class Conv3dINLReLU(torch.autograd.Function):
@@ -245,7 +326,7 @@ def conv3d_in_lrelu_cf(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                            train=False)
 
 
-conv3d_in_lrelu_cf.launches = 0
+conv3d_in_lrelu_cf.launches = conv3d_in_lrelu_cf.tc_launches = 0
 
 
 def conv3d_in_lrelu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,

@@ -22,8 +22,8 @@ from lifelong_nnunet_tpu.ops.pallas.instance_norm import (
     instance_norm_leaky as jax_instance_norm_leaky, reference_instance_norm_leaky)
 from lifelong_nnunet_tpu_torch.models.unet import ConvNormAct
 from lifelong_nnunet_tpu_torch.ops.kernels.conv3d import (
-    conv3d_dx_cf, conv3d_in_lrelu, conv3d_in_lrelu_cf, plain_conv3d_dx,
-    plain_conv3d_in_lrelu_bwd, plain_conv3d_in_lrelu_train)
+    TC_CHUNK, _dx_weight, conv3d_dx_cf, conv3d_in_lrelu, conv3d_in_lrelu_cf, plain_conv3d_dx,
+    plain_conv3d_in_lrelu_bwd, plain_conv3d_in_lrelu_train, tc_n_tile, tc_weight)
 from lifelong_nnunet_tpu_torch.ops.kernels.instance_norm import (
     instance_norm_leaky, instance_norm_leaky_bwd_cf, instance_norm_leaky_cf,
     plain_instance_norm_leaky_bwd)
@@ -229,3 +229,48 @@ def test_backward_kernels_match_plain_on_cuda(cuda_device, dtype, atol):
             torch.testing.assert_close(a.float(), e.float(), atol=atol, rtol=1e-2)
     assert (conv3d_dx_cf.launches, instance_norm_leaky_bwd_cf.launches) == (
         before[0] + 3, before[1] + 3)
+
+
+@pytest.mark.parametrize("cin,cout", [(1, 32), (3, 5), (32, 64), (320, 320)])
+def test_dx_tc_weight_flips_the_taps_and_swaps_the_channels(cin, cout):
+    """The data gradient's packed weights: the conv of dy [B, Cout, ...]
+    into Cin channels, tap t holding the forward's tap 26 - t; they unpack
+    to the flipped, transposed bf16 weights."""
+    w = torch.from_numpy(np.random.RandomState(cin).randn(cout, cin, 3, 3, 3)
+                         .astype(np.float32))
+    wp = tc_weight(_dx_weight(w))
+    chunks, nt = -(-cout // TC_CHUNK), tc_n_tile(cin)
+    assert wp.shape == (chunks, 27, -(-cin // nt) * nt, TC_CHUNK)
+    wb = w.to(torch.bfloat16)
+    for co, ci, tap in [(0, 0, 0), (cout - 1, cin - 1, 5), (cout // 2, cin // 2, 26)]:
+        kd, kh, kw = tap // 9, tap // 3 % 3, tap % 3
+        assert wp[co // TC_CHUNK, 26 - tap, ci, co % TC_CHUNK] == wb[co, ci, kd, kh, kw]
+    unpacked = wp.permute(2, 0, 3, 1).reshape(wp.shape[2], chunks * TC_CHUNK, 3, 3, 3)
+    assert torch.equal(unpacked[:cin, :cout], _dx_weight(wb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,cin,cout,sp", [
+    (1, 7, 40, (5, 9, 13)),       # ragged: 40 -> 7 channels
+    (2, 1, 32, (56, 80, 56)),     # into Cin 1
+    (2, 3, 5, (6, 10, 12)),       # into Cin 3 from 5
+    (2, 512, 256, (7, 10, 7)),    # 256 -> 512: Cout 512 of the dx conv
+    (2, 320, 320, (7, 5, 7)),     # split K
+    (2, 32, 64, (56, 80, 56))])   # 64 -> 32, no split
+def test_dx_tc_kernel_matches_plain_on_cuda(cuda_device, b, cin, cout, sp, out_dtype):
+    """bf16 dy on the tensor cores, bf16 or f32 dx, against the plain data
+    gradient (atol 5e-2 + rtol 1e-2, as chip_smoke.py), counted on the
+    tensor-core kernel; two launches equal bit for bit."""
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    w = torch.randn((cout, cin, 3, 3, 3), generator=gen, device=cuda_device) \
+        * (2.0 / (27 * cin)) ** 0.5
+    dy = torch.randn((b, cout) + sp, generator=gen, device=cuda_device).to(torch.bfloat16)
+    before = (conv3d_dx_cf.launches, conv3d_dx_cf.tc_launches)
+    dx = conv3d_dx_cf(dy, w, out_dtype)
+    assert dx.dtype == out_dtype and dx.shape == (b, cin) + sp
+    torch.testing.assert_close(dx.float(), plain_conv3d_dx(dy, w, out_dtype).float(),
+                               atol=5e-2, rtol=1e-2)
+    assert torch.equal(dx, conv3d_dx_cf(dy, w, out_dtype))
+    assert (conv3d_dx_cf.launches, conv3d_dx_cf.tc_launches) == (before[0] + 2, before[1] + 2)

@@ -47,6 +47,8 @@ def test_the_header_declares_the_launchers():
     assert _launchers() == ["lnn_instance_norm_leaky_fwd", "lnn_instance_norm_leaky_bwd",
                             "lnn_conv3d_partials_len", "lnn_conv3d_in_lrelu_fwd",
                             "lnn_conv3d_in_lrelu_train_fwd", "lnn_conv3d_fwd",
+                            "lnn_conv3d_tc_weight_len", "lnn_conv3d_tc_partials_len",
+                            "lnn_conv3d_tc_workspace_len", "lnn_conv3d_tc",
                             "lnn_flash_attention_fwd", "lnn_flash_attention_bwd",
                             "lnn_pack_blocks", "lnn_unpack_blocks", "lnn_interleave_up2",
                             "lnn_deinterleave2"]
