@@ -46,9 +46,13 @@ Phases (one line each; any failure raises, so the exit code is not 0):
   7. the flash-attention kernels (forward, and the backward's three
      kernels) against their plain versions at the ViT train step's
      (1, 12, 490, 64), serving's (8, 12, 490, 64), CT scale's
-     (1, 12, 512, 64) and hd 80's (1, 16, 512, 80), f32 and bf16, with
-     bf16 medians of the kernel, the plain version and SDPA (the library
-     time, never used by the port);
+     (1, 12, 512, 64) and hd 80's (1, 16, 512, 80), f32 (on the FMA
+     kernels) and bf16 (on the tensor-core kernels), a second run equal
+     bit for bit; per shape in bf16, and at the train shape in f32, the
+     device time of one launch (torch.profiler), its TFLOP/s and share of
+     its bound, the kernel and SDPA (the library time, never used by the
+     port) timed in turns (kernel, SDPA, SDPA, kernel), the plain version
+     beside them;
   8. the ViT-U-Net path: ``nnUNet_torch_train_vit 3d_fullres <task> 0
      --device cuda`` trains V1 with ViT-base at full width (batch 1, the
      plan's halved) as phase 6 trains the U-Net; the launch counters of all
@@ -56,8 +60,10 @@ Phases (one line each; any failure raises, so the exit code is not 0):
      forwards and backwards per step), a finite loss, ``nnUNet_torch_inference
      nnViTUNetTrainer --use_vit --device cuda`` serving the checkpoint (12
      flash launches per forward, Dice recorded), the f32 step check of
-     phase 6 on the ViT-U-Net, warm s/step of both routes in turns, peak
-     memory and the kernel route's device time by kernel;
+     phase 6 on the ViT-U-Net (its 12 flash forwards and backwards on the
+     FMA kernels, the bf16 control's on the tensor-core kernels), warm
+     s/step of both routes in turns, peak memory and the kernel route's
+     device time by kernel;
   9. the CT-scale route's copy kernels (block pack and unpack, the 2x
      interleave and de-interleave) against their plain versions, bit for
      bit, at every shape the CT train step (batch 2) and CT serving (window
@@ -85,19 +91,22 @@ Phases (one line each; any failure raises, so the exit code is not 0):
      device time by kernel.
 Phases 4, 6 and 8 run with both switches set: at hippocampus scale the
 gates admit nothing, so their launch counts are those of the ordinary
-routes.  The fused conv and its data gradient count every launch and, apart,
-those on the tensor-core kernel: on the six main paths (bf16) every one
-must take it, in the f32 checks of phases 4, 6, 8 and 10 none.  The line
+routes.  The fused conv, its data gradient and flash attention (forward
+and backward) count every launch and, apart, those on the tensor-core
+kernels: on the six main paths (bf16) every one must take them, in the f32
+checks of phases 4, 6, 8 and 10 none.  The line
 before the last is the kernels' JSON record (the U-Net's forward kernels
 per forward at the serving path's largest batch, its backward kernels per
 train step, the flash kernels per ViT-U-Net train step, the copy kernels
 per CT train step; ``launches`` summed over the six paths' runs, and per
 path under ``launches_by_path``: ``serve``, ``train``, ``vit_train``,
-``vit_serve``, ``ct_train``, ``ct_serve``; the fused conv's two kernels
-as ``conv3d_in_lrelu_tc`` / ``conv3d_dx_tc`` (the tensor-core kernel) and
-``conv3d_in_lrelu_f32`` / ``conv3d_dx_f32`` (the f32 FMA kernel, which no
-bf16 path runs: 0 launches on the paths, the f32 checks' launches under
-``check_launches``)); the last line is ``{"ok": true,
+``vit_serve``, ``ct_train``, ``ct_serve``; the two kernels of the fused
+conv, its data gradient and flash attention as ``conv3d_in_lrelu_tc`` /
+``conv3d_dx_tc`` / ``flash_attention_tc`` / ``flash_attention_bwd_tc``
+(the tensor-core kernels) and ``conv3d_in_lrelu_f32`` / ``conv3d_dx_f32``
+/ ``flash_attention_f32`` / ``flash_attention_bwd_f32`` (the f32 FMA
+kernels, which no bf16 path runs: 0 launches on the paths, the f32 checks'
+launches under ``check_launches``)); the last line is ``{"ok": true,
 "device": {...}}``.  Work files go to build/chip_smoke/ and are removed at the end.
 The script imports only the port, never the JAX package, and fails if any
 of lifelong_nnunet_tpu, jax, flax, optax, msgpack or sklearn was imported
@@ -158,6 +167,7 @@ from lifelong_nnunet_tpu_torch.run.run_inference import run_inference  # noqa: E
 from lifelong_nnunet_tpu_torch.run.run_training import (  # noqa: E402
     output_folder, run_training)
 from lifelong_nnunet_tpu_torch.run.run_training_vit import run_training_vit  # noqa: E402
+from lifelong_nnunet_tpu_torch.tools.flash_probe import device_ms  # noqa: E402
 from lifelong_nnunet_tpu_torch.training.checkpoints import (  # noqa: E402
     base_manifest, save_checkpoint)
 from lifelong_nnunet_tpu_torch.training.optimizer import PolySGD  # noqa: E402
@@ -264,11 +274,16 @@ COUNTED = {"conv3d_in_lrelu": conv3d_in_lrelu_cf,
            "deinterleave2": interleave.deinterleave2}
 
 
-# the fused conv's two kernels, chosen by the input dtype: its wrapper's
-# launches on the tensor-core kernel (bf16 input, its ``tc_launches``) and
+# the wrappers with two kernels, chosen by the input dtype (the fused conv,
+# its data gradient, flash attention forward and backward): their launches
+# on the tensor-core kernel (bf16 input, the wrapper's ``tc_launches``) and
 # on the f32 FMA kernel (the rest), counted apart beside the total
 SPLIT = {"conv3d_in_lrelu": ("conv3d_in_lrelu_tc", "conv3d_in_lrelu_f32"),
-         "conv3d_dx": ("conv3d_dx_tc", "conv3d_dx_f32")}
+         "conv3d_dx": ("conv3d_dx_tc", "conv3d_dx_f32"),
+         "flash_attention": ("flash_attention_tc", "flash_attention_f32"),
+         "flash_attention_bwd": ("flash_attention_bwd_tc", "flash_attention_bwd_f32")}
+CONV_SPLIT = ("conv3d_in_lrelu", "conv3d_dx")
+FLASH_SPLIT = ("flash_attention", "flash_attention_bwd")
 
 
 def _reset_counts():
@@ -297,8 +312,8 @@ def _expect(**counts) -> dict:
 
 
 def _fma_launches(before: dict, after: dict) -> dict:
-    """The fused conv's f32 FMA launches between two readings, by FMA
-    counter; raises if any launch between them took the tensor-core
+    """The f32 FMA launches of the wrappers in SPLIT between two readings,
+    by FMA counter; raises if any launch between them took a tensor-core
     kernel."""
     fma = {}
     for name, (tc, f32) in SPLIT.items():
@@ -329,17 +344,21 @@ def _block_shapes(model, patch, device):
     return [(m.fused, i, o) for _, m, i, o in _named_blocks(model, patch, device)]
 
 
-def _flash_bound(shape, backward: bool):
-    """The bound of one flash-attention launch on bf16 ``[B, H, N, hd]``:
-    the forward's two products (4 B H N^2 hd flops) on q, k, v read and out
-    written, plus the f32 lse written; the backward's five (10 B H N^2 hd:
-    the logits again, dV, dP, dQ, dK) on q, k, v, out, dout and the lse read
-    and dq, dk, dv written."""
+def _flash_bound(shape, backward: bool, dtype=torch.bfloat16):
+    """(flops, (bound ms, by)) of one flash-attention launch on ``[B, H, N,
+    hd]`` of ``dtype``: the forward's two products (4 B H N^2 hd flops) on
+    q, k, v read and out written, plus the f32 lse written; the backward's
+    five (10 B H N^2 hd: the logits again, dV, dP, dQ, dK) on q, k, v, out,
+    dout and the lse read and dq, dk, dv written.  bf16 at the tensor
+    cores' peak, f32 at the CUDA cores' (the FMA kernels)."""
     b, h, n, hd = shape
-    elems = b * h * n * hd
+    elems, size = b * h * n * hd, dtype.itemsize
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     if backward:
-        return _bound(10 * b * h * n * n * hd, 2 * 8 * elems + 4 * b * h * n)
-    return _bound(4 * b * h * n * n * hd, 2 * 4 * elems + 4 * b * h * n)
+        flops = 10 * b * h * n * n * hd
+        return flops, _bound(flops, 8 * size * elems + 4 * b * h * n, peak)
+    flops = 4 * b * h * n * n * hd
+    return flops, _bound(flops, 4 * size * elems + 4 * b * h * n, peak)
 
 
 def _sdpa_grads(q, k, v, g):
@@ -350,19 +369,43 @@ def _sdpa_grads(q, k, v, g):
     return lambda: torch.autograd.grad(out, (qs, ks, vs), g, retain_graph=True)
 
 
+def _flash_timing(shape, dtype, kernel, library, plain, backward):
+    """{"ms", "plain_ms", "library_ms", "turns", "call_ms", "flops",
+    "bound"} of one launch: the kernel and the library call in turns
+    (kernel, library, library, kernel) by device time, the plain version
+    once, and the kernel's CUDA-event time per call beside them."""
+    turns = [device_ms(fn) for fn in (kernel, library, library, kernel)]
+    flops, bound = _flash_bound(shape, backward, dtype)
+    return {"ms": (turns[0] + turns[3]) / 2, "library_ms": (turns[1] + turns[2]) / 2,
+            "plain_ms": device_ms(plain, 5), "turns": turns,
+            "call_ms": _time_ms(kernel, 10), "flops": flops, "bound": bound}
+
+
+def _flash_text(t) -> str:
+    return (f"kernel {t['ms']:.4f} ms ({t['flops'] / t['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{t['bound'][0] / t['ms']:.3f} of the bound {t['bound'][0]:.4f} ms, "
+            f"{t['bound'][1]}), SDPA {t['library_ms']:.4f} ms (turns "
+            f"{[round(x, 4) for x in t['turns']]}), plain {t['plain_ms']:.4f} ms; "
+            f"CUDA-event time of one kernel call {t['call_ms']:.4f} ms")
+
+
 def _flash_phase(randn) -> dict:
     """Phase 7: the flash-attention kernels against their plain versions at
     FLASH_SHAPES, forward (out and lse) and backward (dq, dk, dv from the
     plain forward's out and lse), f32 and bf16, and a second run of each
-    kernel equal bit for bit to the first; bf16 medians of one launch for
-    the kernel, the plain version and SDPA (forward; backward alone).
-    Returns {shape name: {"fwd" | "bwd": (ms, plain_ms, sdpa_ms, bound)}}
-    and the largest errors under "err" ({"fwd" | "bwd": {dtype: err}})."""
+    kernel equal bit for bit to the first; bf16 on the tensor-core kernels
+    and f32 on the FMA kernels (the split counters).  Timed by device time
+    per launch (torch.profiler), the kernel and SDPA in turns, the plain
+    version beside them: bf16 at every shape, f32 at the train shape.
+    Returns {shape name: {"fwd" | "bwd": timing}} for bf16, the f32
+    timings under "f32", and the largest errors under "err" ({"fwd" |
+    "bwd": {dtype: err}})."""
     res = {}
     err = {p: dict.fromkeys(FLASH_TOL, 0.0) for p in ("fwd", "bwd")}
     for name, shape in FLASH_SHAPES.items():
         for dtype, (atol, rtol) in FLASH_TOL.items():
             q, k, v, g = (randn(*shape, dtype=dtype) for _ in range(4))
+            before = _counts()
             out, lse = flash_attention_fwd(q, k, v)
             ref, ref_lse = plain_attention_fwd(q, k, v)
             torch.cuda.synchronize()
@@ -380,42 +423,48 @@ def _flash_phase(randn) -> dict:
                      *flash_attention_bwd(q, k, v, ref, ref_lse, g))
             assert all(torch.equal(a, b) for a, b in zip(again, (out, lse, *got))), \
                 f"{what}: a second run differs"
-            del out, lse, got, want, again
-        # timed in bf16, the dtype of the card's routes
-        sdpa_bwd = _sdpa_grads(q, k, v, g)
-        res[name] = {
-            "fwd": (_time_ms(lambda: flash_attention_fwd(q, k, v), 10),
-                    _time_ms(lambda: plain_attention_fwd(q, k, v), 10),
-                    _time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10),
-                    _flash_bound(shape, False)),
-            "bwd": (_time_ms(lambda: flash_attention_bwd(q, k, v, ref, ref_lse, g), 10),
-                    _time_ms(lambda: plain_attention_bwd(q, k, v, ref, ref_lse, g), 10),
-                    _time_ms(sdpa_bwd, 10), _flash_bound(shape, True))}
-        del q, k, v, g, ref, ref_lse, sdpa_bwd
-        print(f"[phase 7]   flash {name} {shape} bf16, one launch: " + "; ".join(
-            f"{p} kernel {ms:.4f} ms ({b[0] / ms:.3f} of the bound {b[0]:.4f} ms, {b[1]}), "
-            f"plain {pl:.4f} ms, SDPA {lib:.4f} ms"
-            for p, (ms, pl, lib, b) in res[name].items()), flush=True)
+            after = _counts()
+            tc = dtype == torch.bfloat16
+            assert all(after[n] - before[n] == 2 and after[SPLIT[n][0]] - before[SPLIT[n][0]]
+                       == 2 * tc for n in FLASH_SPLIT), (what, before, after)
+            if name == "train" or tc:
+                key = name if tc else "f32"
+                res[key] = {
+                    "fwd": _flash_timing(shape, dtype, lambda: flash_attention_fwd(q, k, v),
+                                         lambda: F.scaled_dot_product_attention(q, k, v),
+                                         lambda: plain_attention_fwd(q, k, v), False),
+                    "bwd": _flash_timing(
+                        shape, dtype, lambda: flash_attention_bwd(q, k, v, ref, ref_lse, g),
+                        _sdpa_grads(q, k, v, g),
+                        lambda: plain_attention_bwd(q, k, v, ref, ref_lse, g), True)}
+                print(f"[phase 7]   flash {name} {shape} {dtype}, one launch, device time: "
+                      .replace("torch.", "")
+                      + "; ".join(f"{p} {_flash_text(t)}" for p, t in res[key].items()),
+                      flush=True)
+            del q, k, v, g, out, lse, ref, ref_lse, got, want, again
     print(f"[phase 7] flash attention: {len(FLASH_SHAPES)} shapes ok, forward (out; lse "
           f"atol 1e-4 + rtol 1e-5) and backward (dq, dk, dv) against the plain versions, "
           + ", ".join(f"{d} atol {a} + rtol {r}" for d, (a, r) in
                       zip(("f32", "bf16"), FLASH_TOL.values()))
           + "; max err " + ", ".join(f"{p} {d} {e:.3e}".replace("torch.", "")
                                      for p, by in err.items() for d, e in by.items())
-          + "; second runs equal bit for bit", flush=True)
+          + "; second runs equal bit for bit; bf16 launches on the tensor-core kernels, "
+            "f32 on the FMA kernels", flush=True)
     res["err"] = err
     return res
 
 
-def _step_check(make_model, batch, ds_factors, dev, dead=()) -> str:
+def _step_check(make_model, batch, ds_factors, dev, dead=(), attention=0) -> str:
     """One train step from the same weights and batch, its loss and every
     parameter's gradient, on four routes: kernel and plain in f32, the
     kernel route in bf16 (the control: a route whose roundoff is known to
     be too large), and the plain route in f64 (f64 statistics and logits),
     which the other three are held to.  ``make_model(dtype, use_kernels)``
     builds the seeded model; the modules named in ``dead`` get no gradient
-    on any route.  The f32 kernel route's fused convs must run the FMA
-    kernel, the bf16 control's the tensor-core kernel.  Raises where a
+    on any route; ``attention`` is the model's number of attention blocks
+    (one flash forward and backward each on the kernel routes).  The f32
+    kernel route's fused convs and flash attention must run the FMA
+    kernels, the bf16 control's the tensor-core kernels.  Raises where a
     limit is missed; returns the readings and the f32 route's FMA launches."""
     torch.backends.cudnn.allow_tf32 = False
     grads, fma = {}, None
@@ -439,11 +488,13 @@ def _step_check(make_model, batch, ds_factors, dev, dead=()) -> str:
             h.remove()
         loss.backward()
         after = _counts()
+        launched = {name: after[name] - before[name] for name in SPLIT}
+        assert not use_kernels or all(launched[n] > 0 for n in CONV_SPLIT) and all(
+            launched[n] == attention for n in FLASH_SPLIT), (route, launched)
         if route == "kernel":
             fma = _fma_launches(before, after)
-            assert min(fma.values()) > 0, fma
         elif route == "kernel bf16":
-            assert all(after[tc] - before[tc] == after[name] - before[name] > 0
+            assert all(after[tc] - before[tc] == launched[name]
                        for name, (tc, _) in SPLIT.items()), (before, after)
         else:
             assert all(after[n] == before[n] for n in SPLIT), (route, before, after)
@@ -479,9 +530,9 @@ def _step_check(make_model, batch, ds_factors, dev, dead=()) -> str:
             f"route {grad_err:.3f} ({worst_k}), plain route {plain_err:.3f} ({worst_p}), "
             f"limit {F32_GRAD_LIMIT}, kernel route in bf16 (control, must exceed it) "
             f"{bf16_err:.3f} ({worst_b}); the {len(fused_bias)} fused and blocked convs' "
-            f"biases 0 vs plain <= {bias_err:.3e} of the weight's (limit 1e-3); fused conv "
-            f"launches of the f32 kernel route on the FMA kernel {fma}, of the bf16 control "
-            f"on the tensor-core kernel")
+            f"biases 0 vs plain <= {bias_err:.3e} of the weight's (limit 1e-3); launches "
+            f"of the f32 kernel route on the FMA kernels {fma}, of the bf16 control on the "
+            f"tensor-core kernels")
 
 
 def _turns(make_model, batches, step_cfg, dev, order=(False, True, True, False),
@@ -1559,7 +1610,7 @@ def main() -> int:
                                        generator=torch.Generator().manual_seed(SEED))
 
         fma_vit, vit_step_text = _step_check(vit_unet, vit_batches[0], ds_factors, dev,
-                                             dead=("bottleneck",))
+                                             dead=("bottleneck",), attention=n_attn)
         vit_step_s, vit_profile = _turns(vit_unet, vit_batches, step_cfg, dev)
         print(f"[phase 8] nnUNet_torch_train_vit 3d_fullres --device cuda: V1 ViT-U-Net, "
               f"ViT base (embed 768, depth {n_attn}, 12 heads, {tokens} tokens), U-Net "
@@ -1672,11 +1723,15 @@ def main() -> int:
          f"train step at B={TRAIN_BATCH}, f32 input, FMA kernel"),
         ("instance_norm_leaky_bwd", "instance_norm.cu", f"{pallas}/instance_norm.py:122", inb_err,
          inb_ms, inb_plain_ms, inb_bound, None, f"train step at B={TRAIN_BATCH}"),
-    ] + [(name, "flash_attention.cu", "lifelong_nnunet_tpu/models/vit.py:172",
-          max(flash["err"][p].values()),
-          *scaled(flash["train"][p], n_attn),
-          f"ViT-U-Net train step at B=1 ({n_attn} blocks)")
+    ] + [(f"{name}_{kind}", "flash_attention.cu", "lifelong_nnunet_tpu/models/vit.py:172",
+          flash["err"][p][dtype],
+          *scaled(tuple(flash[key][p][k] for k in ("ms", "plain_ms", "library_ms", "bound")),
+                  n_attn),
+          f"ViT-U-Net train step at B=1 ({n_attn} blocks), {what}, device time")
          for name, p in (("flash_attention", "fwd"), ("flash_attention_bwd", "bwd"))
+         for kind, key, dtype, what in (
+             ("tc", "train", torch.bfloat16, "bf16, tensor cores"),
+             ("f32", "f32", torch.float32, "f32 input, FMA kernel"))
     ] + [(name, src, f"{pallas}/{where}", copies[name]["err"],
           *scaled(tuple(copies[name][k] for k in ("ms", "plain_ms", "library_ms", "bound"))),
           f"CT train step at B={TRAIN_BATCH}")

@@ -280,18 +280,25 @@ void conv3d_tc_fwd(const torch::Tensor& x, const torch::Tensor& w, const torch::
                                c10::cuda::getCurrentCUDAStream().stream()));
 }
 
-// t: on q's device, contiguous, q's shape and dtype
-void check_like(const torch::Tensor& t, const torch::Tensor& q, const char* what) {
+// t: on q's device, contiguous, q's shape and dtype; 16-byte aligned for
+// the tensor-core kernels, which copy it 16 bytes at a time
+void check_like(const torch::Tensor& t, const torch::Tensor& q, const char* what, bool tc) {
   check(t, q, what);
   TORCH_CHECK(t.sizes() == q.sizes() && t.scalar_type() == q.scalar_type(), what,
               " must have q's shape and dtype");
+  TORCH_CHECK(!tc || reinterpret_cast<uintptr_t>(t.data_ptr()) % 16 == 0, what,
+              " must be 16-byte aligned");
 }
 
-// The dims of an attention call: q [B, H, N, hd]; returns {B * H, N, hd}.
-std::array<int, 3> check_attention(const torch::Tensor& q, const torch::Tensor& lse) {
-  check(q, q, "q");
+// The dims of an attention call: q [B, H, N, hd] of the entry's dtype
+// (bf16 for the tensor-core kernels, f32 for the FMA kernels); returns
+// {B * H, N, hd}.
+std::array<int, 3> check_attention(const torch::Tensor& q, const torch::Tensor& lse, bool tc) {
+  check_like(q, q, "q", tc);
   TORCH_CHECK(q.dim() == 4, "q must be [B, H, N, hd]");
-  dtype_of(q);
+  const auto want = tc ? torch::kBFloat16 : torch::kFloat32;
+  TORCH_CHECK(q.scalar_type() == want, "this flash-attention entry takes ", want, ", got ",
+              q.scalar_type());
   const int BH = as_int(q.size(0) * q.size(1), "B * H");
   const int N = as_int(q.size(2), "N"), hd = as_int(q.size(3), "hd");
   TORCH_CHECK(hd == 64 || hd == 80, "the flash-attention kernel takes head dim 64 or 80, got ",
@@ -301,42 +308,83 @@ std::array<int, 3> check_attention(const torch::Tensor& q, const torch::Tensor& 
 }
 
 // q, k, v, o: [B, H, N, hd] of one dtype; lse: [B, H, N] f32.
-void flash_attention_fwd(const torch::Tensor& q, const torch::Tensor& k,
-                         const torch::Tensor& v, const torch::Tensor& o,
-                         const torch::Tensor& lse, double scale) {
-  const auto d = check_attention(q, lse);
-  check_like(k, q, "k");
-  check_like(v, q, "v");
-  check_like(o, q, "o");
+void flash_attention_fwd_entry(const torch::Tensor& q, const torch::Tensor& k,
+                               const torch::Tensor& v, const torch::Tensor& o,
+                               const torch::Tensor& lse, double scale, bool tc) {
+  const auto d = check_attention(q, lse, tc);
+  check_like(k, q, "k", tc);
+  check_like(v, q, "v", tc);
+  check_like(o, q, "o", tc);
   const c10::cuda::CUDAGuard guard(q.device());
-  C10_CUDA_CHECK(lnn_flash_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                         o.data_ptr(), lse.data_ptr<float>(), d[0], d[1], d[2],
-                                         static_cast<float>(scale), dtype_of(q),
-                                         c10::cuda::getCurrentCUDAStream().stream()));
+  const auto stream = c10::cuda::getCurrentCUDAStream().stream();
+  C10_CUDA_CHECK(tc ? lnn_flash_attention_tc_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                                 o.data_ptr(), lse.data_ptr<float>(), d[0],
+                                                 d[1], d[2], static_cast<float>(scale), stream)
+                    : lnn_flash_attention_fwd(q.data_ptr<float>(), k.data_ptr<float>(),
+                                              v.data_ptr<float>(), o.data_ptr<float>(),
+                                              lse.data_ptr<float>(), d[0], d[1], d[2],
+                                              static_cast<float>(scale), stream));
 }
 
 // As the forward, plus dout, dq, dk, dv ([B, H, N, hd], q's dtype) and
 // delta ([B, H, N] f32 scratch).
+void flash_attention_bwd_entry(const torch::Tensor& q, const torch::Tensor& k,
+                               const torch::Tensor& v, const torch::Tensor& o,
+                               const torch::Tensor& dout, const torch::Tensor& lse,
+                               const torch::Tensor& delta, const torch::Tensor& dq,
+                               const torch::Tensor& dk, const torch::Tensor& dv, double scale,
+                               bool tc) {
+  const auto d = check_attention(q, lse, tc);
+  check_like(k, q, "k", tc);
+  check_like(v, q, "v", tc);
+  check_like(o, q, "o", tc);
+  check_like(dout, q, "dout", tc);
+  check_like(dq, q, "dq", tc);
+  check_like(dk, q, "dk", tc);
+  check_like(dv, q, "dv", tc);
+  check_f32(delta, q, int64_t(d[0]) * d[1], "delta");
+  const c10::cuda::CUDAGuard guard(q.device());
+  const auto stream = c10::cuda::getCurrentCUDAStream().stream();
+  C10_CUDA_CHECK(
+      tc ? lnn_flash_attention_tc_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                      dout.data_ptr(), lse.data_ptr<float>(),
+                                      delta.data_ptr<float>(), dq.data_ptr(), dk.data_ptr(),
+                                      dv.data_ptr(), d[0], d[1], d[2],
+                                      static_cast<float>(scale), stream)
+         : lnn_flash_attention_bwd(q.data_ptr<float>(), k.data_ptr<float>(),
+                                   v.data_ptr<float>(), o.data_ptr<float>(),
+                                   dout.data_ptr<float>(), lse.data_ptr<float>(),
+                                   delta.data_ptr<float>(), dq.data_ptr<float>(),
+                                   dk.data_ptr<float>(), dv.data_ptr<float>(), d[0], d[1], d[2],
+                                   static_cast<float>(scale), stream));
+}
+
+void flash_attention_fwd(const torch::Tensor& q, const torch::Tensor& k,
+                         const torch::Tensor& v, const torch::Tensor& o,
+                         const torch::Tensor& lse, double scale) {
+  flash_attention_fwd_entry(q, k, v, o, lse, scale, false);
+}
+
+void flash_attention_tc_fwd(const torch::Tensor& q, const torch::Tensor& k,
+                            const torch::Tensor& v, const torch::Tensor& o,
+                            const torch::Tensor& lse, double scale) {
+  flash_attention_fwd_entry(q, k, v, o, lse, scale, true);
+}
+
 void flash_attention_bwd(const torch::Tensor& q, const torch::Tensor& k,
                          const torch::Tensor& v, const torch::Tensor& o,
                          const torch::Tensor& dout, const torch::Tensor& lse,
                          const torch::Tensor& delta, const torch::Tensor& dq,
                          const torch::Tensor& dk, const torch::Tensor& dv, double scale) {
-  const auto d = check_attention(q, lse);
-  check_like(k, q, "k");
-  check_like(v, q, "v");
-  check_like(o, q, "o");
-  check_like(dout, q, "dout");
-  check_like(dq, q, "dq");
-  check_like(dk, q, "dk");
-  check_like(dv, q, "dv");
-  check_f32(delta, q, int64_t(d[0]) * d[1], "delta");
-  const c10::cuda::CUDAGuard guard(q.device());
-  C10_CUDA_CHECK(lnn_flash_attention_bwd(
-      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
-      lse.data_ptr<float>(), delta.data_ptr<float>(), dq.data_ptr(), dk.data_ptr(),
-      dv.data_ptr(), d[0], d[1], d[2], static_cast<float>(scale), dtype_of(q),
-      c10::cuda::getCurrentCUDAStream().stream()));
+  flash_attention_bwd_entry(q, k, v, o, dout, lse, delta, dq, dk, dv, scale, false);
+}
+
+void flash_attention_tc_bwd(const torch::Tensor& q, const torch::Tensor& k,
+                            const torch::Tensor& v, const torch::Tensor& o,
+                            const torch::Tensor& dout, const torch::Tensor& lse,
+                            const torch::Tensor& delta, const torch::Tensor& dq,
+                            const torch::Tensor& dk, const torch::Tensor& dv, double scale) {
+  flash_attention_bwd_entry(q, k, v, o, dout, lse, delta, dq, dk, dv, scale, true);
 }
 
 // x: [B, C, D, H, W]; out: [nb, C, bs + 2, bs + 2, bs + 2] in x's dtype.
@@ -430,10 +478,14 @@ void deinterleave2(const torch::Tensor& x, const std::vector<torch::Tensor>& dst
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_attention_fwd", &flash_attention_fwd,
-        "non-causal flash attention forward, keeping the row log-sum-exp "
+        "non-causal flash attention forward, keeping the row log-sum-exp, f32 input "
         "(flash_attention.cu)");
   m.def("flash_attention_bwd", &flash_attention_bwd,
-        "its backward: FlashAttention-2's recomputation from the log-sum-exp");
+        "its backward: FlashAttention-2's recomputation from the log-sum-exp, f32 input");
+  m.def("flash_attention_tc_fwd", &flash_attention_tc_fwd,
+        "the flash-attention forward on the tensor cores, bf16 input (flash_attention.cu)");
+  m.def("flash_attention_tc_bwd", &flash_attention_tc_bwd,
+        "its backward on the tensor cores, bf16 input");
   m.def("instance_norm_leaky_fwd", &instance_norm_leaky_fwd,
         "InstanceNorm + LeakyReLU forward (instance_norm.cu)");
   m.def("instance_norm_leaky_bwd", &instance_norm_leaky_bwd,

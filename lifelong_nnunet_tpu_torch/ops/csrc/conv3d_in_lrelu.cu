@@ -73,6 +73,7 @@
 #include <type_traits>
 
 #include "lnn_common.cuh"
+#include "lnn_sm90.cuh"
 
 namespace {
 
@@ -390,65 +391,6 @@ inline long long m_tiles(int D, int H, int W) {
   return (long long)ceil_div(D, kTD) * ceil_div(H, kTH) * ceil_div(W, kTW);
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-// this thread's shared-memory writes (st.shared, cp.async) made visible to
-// the async proxy that wgmma reads them through
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// D[64 x n] += A[64 x 16] B[16 x n], bf16 -> f32, both operands in shared
-// memory (descriptors da, db), for the warpgroup
-__device__ __forceinline__ void wgmma_n32(float (&d)[16], unsigned long long da,
-                                          unsigned long long db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(1));
-}
-__device__ __forceinline__ void wgmma_n64(float (&d)[32], unsigned long long da,
-                                          unsigned long long db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-
 template <int NT>
 __device__ __forceinline__ void wgmma(float (&d)[NT / 2], unsigned long long da,
                                       unsigned long long db) {
@@ -456,15 +398,6 @@ __device__ __forceinline__ void wgmma(float (&d)[NT / 2], unsigned long long da,
     wgmma_n64(d, da, db);
   else
     wgmma_n32(d, da, db);
-}
-
-// Shared-memory matrix descriptor, K-major, no swizzle: 8x8 core matrices
-// of 128 contiguous bytes (8 rows of 16 bytes), `lbo` bytes between the two
-// k halves, `sbo` bytes between consecutive 8-row groups.
-__device__ __forceinline__ unsigned long long desc(unsigned addr, unsigned lbo,
-                                                   unsigned sbo) {
-  return (unsigned long long)((addr & 0x3FFFF) >> 4) |
-         ((unsigned long long)(lbo >> 4) << 16) | ((unsigned long long)(sbo >> 4) << 32);
 }
 
 // How the input tile is staged (see the kernel).

@@ -88,20 +88,31 @@ cudaError_t lnn_conv3d_tc(const void* x, const void* w, const float* scale,
                           int H, int W, int splits, float slope, float eps,
                           LnnDtype out_dtype, cudaStream_t stream);
 
-// Non-causal flash attention forward: q, k, v, o [BH, N, HD] of `dtype`,
-// contiguous, HD 64 or 80; o = softmax(q k^T * scale) v; lse [BH, N] f32,
-// the row log-sum-exp of the scaled logits, kept for the backward.
-cudaError_t lnn_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+// Non-causal flash attention forward, f32 FMA on the CUDA cores: the entry
+// of f32 input.  q, k, v, o [BH, N, HD] f32, contiguous, HD 64 or 80;
+// o = softmax(q k^T * scale) v; lse [BH, N] f32, the row log-sum-exp of the
+// scaled logits, kept for the backward.
+cudaError_t lnn_flash_attention_fwd(const float* q, const float* k, const float* v, float* o,
                                     float* lse, int BH, int N, int HD, float scale,
-                                    LnnDtype dtype, cudaStream_t stream);
+                                    cudaStream_t stream);
 
 // Its backward from the forward's o and lse and the output gradient dout
-// (all [BH, N, HD] of `dtype`): dq, dk, dv of `dtype`; delta: BH * N floats
-// of scratch (rowsum(dout * o)).
-cudaError_t lnn_flash_attention_bwd(const void* q, const void* k, const void* v,
-                                    const void* o, const void* dout, const float* lse,
-                                    float* delta, void* dq, void* dk, void* dv, int BH, int N,
-                                    int HD, float scale, LnnDtype dtype, cudaStream_t stream);
+// (all [BH, N, HD] f32): dq, dk, dv f32; delta: BH * N floats of scratch
+// (rowsum(dout * o)).
+cudaError_t lnn_flash_attention_bwd(const float* q, const float* k, const float* v,
+                                    const float* o, const float* dout, const float* lse,
+                                    float* delta, float* dq, float* dk, float* dv, int BH,
+                                    int N, int HD, float scale, cudaStream_t stream);
+
+// The same forward and backward on the tensor cores (bf16 x bf16 -> f32):
+// every [BH, N, HD] array bf16 and 16-byte aligned, lse and delta as above.
+cudaError_t lnn_flash_attention_tc_fwd(const void* q, const void* k, const void* v, void* o,
+                                       float* lse, int BH, int N, int HD, float scale,
+                                       cudaStream_t stream);
+cudaError_t lnn_flash_attention_tc_bwd(const void* q, const void* k, const void* v,
+                                       const void* o, const void* dout, const float* lse,
+                                       float* delta, void* dq, void* dk, void* dv, int BH,
+                                       int N, int HD, float scale, cudaStream_t stream);
 
 // Halo'd block pack: x [B, C, D, H, W] of `dtype` -> out [nb, C, bs+2, bs+2,
 // bs+2], nb = B (D/bs) (H/bs) (W/bs) in row-major (b, d, h, w) block order,

@@ -6,7 +6,10 @@ The CUDA kernels live in ``ops/csrc/flash_attention.cu``.  A tensor on the
 CPU goes through the plain PyTorch versions beside them; a CUDA tensor
 launches the kernels or raises, whatever its token count (the JAX package
 routed to its kernel only on a TPU, in bf16, at >= 512 tokens divisible by
-256; the port takes every attention the ViT asks of it).
+256; the port takes every attention the ViT asks of it).  The input dtype
+chooses the kernels: bf16 (the ViT's routes) runs the tensor-core kernels
+(``wgmma``; counted on ``tc_launches`` beside ``launches``), f32 the f32 FMA
+kernels, so an f32 attention is not rounded to bf16 or TF32.
 
 ``q, k, v [B, H, N, hd]``, ``hd`` 64 or 80 on the card, scale ``hd**-0.5``.
 The kernels take contiguous tensors (the ViT's ``Attention`` makes q, k and
@@ -18,12 +21,14 @@ never kept.
 
 Numerics against :func:`plain_attention` (the JAX einsum path): both take
 f32 logits and an f32 softmax; the plain version rounds the normalized
-weights to the activation dtype before the product with v, the kernel keeps
-its unnormalized weights in f32 and divides once at the end.  On the card
+weights to the activation dtype before the product with v.  The FMA kernels
+keep their unnormalized weights in f32 and divide once at the end; the
+tensor-core kernels round the unnormalized weights (and, in the backward,
+dS) to bf16 as operands of their products, with f32 sums.  On the card
 (``chip_smoke.py``, phase 7) the kernels are held to the plain versions on
 the same inputs within atol 1e-5 + rtol 1e-4 in f32 and atol 2e-3 + rtol
-1e-2 in bf16 (a bf16 rounding of the output, or of the weights on the
-plain side), forward and backward.
+1e-2 in bf16 (a bf16 rounding of the output, or of the weights), forward
+and backward.
 """
 
 from __future__ import annotations
@@ -99,7 +104,8 @@ def flash_attention_fwd(q, k, v, scale=None):
     """The forward of :func:`flash_attention` with its row log-sum-exp:
     (out in q's dtype, lse ``[B, H, N]`` f32).  A CPU tensor takes
     :func:`plain_attention_fwd`; a CUDA tensor launches the forward kernel
-    (counted on ``flash_attention.launches``) or raises."""
+    (counted on ``flash_attention.launches``; bf16 on the tensor cores,
+    counted on ``flash_attention.tc_launches`` too) or raises."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
         return plain_attention_fwd(q, k, v, scale)
@@ -109,16 +115,20 @@ def flash_attention_fwd(q, k, v, scale=None):
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
-    ext.flash_attention_fwd(q, k, v, out, lse, float(scale))
+    tc = q.dtype == torch.bfloat16
+    (ext.flash_attention_tc_fwd if tc else ext.flash_attention_fwd)(q, k, v, out, lse,
+                                                                     float(scale))
     flash_attention.launches += 1
+    flash_attention.tc_launches += tc
     return out, lse
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, scale=None):
     """The backward of :func:`flash_attention` (the math of
     :func:`plain_attention_bwd`): (dq, dk, dv) in q's dtype.  For a CUDA
-    tensor one call launches the three backward kernels (D, dK/dV, dQ);
-    ``dout`` is taken in q's dtype."""
+    tensor one call launches the three backward kernels (D, dK/dV, dQ), on
+    the tensor cores for bf16 (counted as the forward is); ``dout`` is
+    taken in q's dtype."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
         return plain_attention_bwd(q, k, v, out, lse, dout, scale)
@@ -128,13 +138,16 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale=None):
     q, k, v, out = (t.contiguous() for t in (q, k, v, out))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
-    ext.flash_attention_bwd(q, k, v, out, dout.to(q.dtype).contiguous(),
-                            lse.float().contiguous(), delta, dq, dk, dv, float(scale))
+    tc = q.dtype == torch.bfloat16
+    (ext.flash_attention_tc_bwd if tc else ext.flash_attention_bwd)(
+        q, k, v, out, dout.to(q.dtype).contiguous(), lse.float().contiguous(), delta, dq, dk,
+        dv, float(scale))
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.tc_launches += tc
     return dq, dk, dv
 
 
-flash_attention_bwd.launches = 0
+flash_attention_bwd.launches = flash_attention_bwd.tc_launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
@@ -163,4 +176,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return flash_attention_fwd(q, k, v, scale)[0]
 
 
-flash_attention.launches = 0
+flash_attention.launches = flash_attention.tc_launches = 0

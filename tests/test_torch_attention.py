@@ -10,8 +10,14 @@ against the JAX package's.
 * At a ragged token count (70, which no tile divides), the port's
   ``Attention`` module on both routes against the JAX ``Attention``'s
   einsum path, with and without LSA: output, weights, input gradient.
+* The wrapper's choice of kernel, on meta tensors with a stand-in
+  extension: bf16 to the tensor-core entries, f32 to the FMA entries, each
+  launch counted (``tc_launches`` for bf16 only), a head dim or dtype the
+  kernels do not take refused before any launch.
 * The CUDA kernels against the plain versions on the card (marked
-  ``cuda``, skipped without one; chip_smoke.py runs them at full size).
+  ``cuda``, skipped without one; chip_smoke.py runs them at full size):
+  both dtypes at the train step's shape, and the tensor-core kernels at
+  ragged token counts and both head dims, a second run equal bit for bit.
 
 Inputs are numpy-seeded; each tolerance is stated where it is used."""
 
@@ -21,11 +27,9 @@ import torch
 
 import jax
 import jax.numpy as jnp
-from jax.experimental.pallas import tpu as pltpu
 
-from lifelong_nnunet_tpu.models.vit import Attention as JaxAttention
-from lifelong_nnunet_tpu.models.vit import _flash_attention
 from lifelong_nnunet_tpu_torch.models.vit import Attention
+from lifelong_nnunet_tpu_torch.ops.kernels import build
 from lifelong_nnunet_tpu_torch.ops.kernels.attention import (
     flash_attention, flash_attention_bwd, flash_attention_fwd, plain_attention,
     plain_attention_bwd, plain_attention_fwd)
@@ -41,14 +45,24 @@ def _inputs(n, hd, seed=0):
     return [rng.normal(size=(1, 2, n, hd)).astype(np.float32) for _ in range(4)]
 
 
+def _jax_vit():
+    """The JAX package's ViT module, imported by the tests that compare with
+    it: it needs flax, which a host that runs only the CUDA-marked tests
+    may lack."""
+    from lifelong_nnunet_tpu.models import vit
+    return vit
+
+
 def _jax_flash(n, hd):
     """(q, k, v, g, out, dq, dk, dv) of jax's TPU flash attention in
     interpret mode, the gradients of sum(out * g); computed once per shape."""
+    from jax.experimental.pallas import tpu as pltpu
     if (n, hd) not in _JAX:
         q, k, v, g = _inputs(n, hd)
         scale = hd ** -0.5
+        flash = _jax_vit()._flash_attention
         with pltpu.force_tpu_interpret_mode():
-            out, vjp = jax.vjp(lambda q_, k_, v_: _flash_attention(q_, k_, v_, scale),
+            out, vjp = jax.vjp(lambda q_, k_, v_: flash(q_, k_, v_, scale),
                                jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
             grads = vjp(jnp.asarray(g))
         _JAX[(n, hd)] = [q, k, v, g, np.asarray(out)] + [np.asarray(t) for t in grads]
@@ -105,7 +119,7 @@ def test_forward_keeps_the_row_log_sum_exp():
 
 
 def _jax_attention(lsa, x):
-    jm = JaxAttention(num_heads=2, lsa=lsa)
+    jm = _jax_vit().Attention(num_heads=2, lsa=lsa)
     params = jax.tree_util.tree_map(np.asarray,
                                     jm.init(jax.random.PRNGKey(1), jnp.asarray(x))["params"])
     return jm, params
@@ -159,6 +173,67 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         flash_attention(q, q, q)
 
 
+class _Entries:
+    """A stand-in for the built extension: records which attention entry
+    each launch called."""
+
+    def __init__(self):
+        self.called = []
+
+    def __getattr__(self, name):
+        if not name.startswith("flash_attention"):
+            raise AttributeError(name)
+        return lambda *args: self.called.append(name)
+
+
+@pytest.fixture()
+def entries(monkeypatch):
+    ext = _Entries()
+    monkeypatch.setattr(build, "require_cuda", lambda *ts: ts[0].device)
+    monkeypatch.setattr(build, "load_extension", lambda: ext)
+    return ext
+
+
+def _meta(dtype, hd=64):
+    return [torch.zeros(1, 2, 70, hd, dtype=dtype, device="meta") for _ in range(4)]
+
+
+@pytest.mark.parametrize("dtype,tc", [(torch.bfloat16, True), (torch.float32, False)],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_dtype_chooses_the_kernel(entries, dtype, tc, direction):
+    """bf16 launches the tensor-core entry and counts on ``tc_launches``;
+    f32 launches the FMA entry and counts on ``launches`` alone."""
+    q, k, v, g = _meta(dtype)
+    wrapper = flash_attention if direction == "fwd" else flash_attention_bwd
+    before = (wrapper.launches, wrapper.tc_launches)
+    if direction == "fwd":
+        out, lse = flash_attention_fwd(q, k, v)
+        assert out.dtype == dtype and lse.dtype == torch.float32 and lse.shape == (1, 2, 70)
+    else:
+        grads = flash_attention_bwd(q, k, v, q, torch.zeros(1, 2, 70, device="meta"), g)
+        assert [t.dtype for t in grads] == [dtype] * 3
+    assert entries.called == [f"flash_attention_{'tc_' if tc else ''}{direction}"]
+    assert (wrapper.launches, wrapper.tc_launches) == (before[0] + 1, before[1] + tc)
+
+
+@pytest.mark.parametrize("dtype,hd,error", [
+    (torch.bfloat16, 48, ValueError), (torch.float32, 96, ValueError),
+    (torch.float16, 64, TypeError)], ids=["bf16-hd48", "f32-hd96", "f16"])
+def test_wrapper_refuses_before_any_launch(entries, dtype, hd, error):
+    """A head dim outside HEAD_DIMS, or a dtype other than f32 / bf16,
+    raises on either entry before the extension is called."""
+    q, k, v, g = _meta(dtype, hd)
+    counts = [(f.launches, f.tc_launches) for f in (flash_attention, flash_attention_bwd)]
+    with pytest.raises(error):
+        flash_attention_fwd(q, k, v)
+    with pytest.raises(error):
+        flash_attention_bwd(q, k, v, q, torch.zeros(1, 2, 70, device="meta"), g)
+    assert entries.called == []
+    assert [(f.launches, f.tc_launches) for f in (flash_attention, flash_attention_bwd)] \
+        == counts
+
+
 @pytest.fixture()
 def cuda_device():
     if not torch.cuda.is_available():
@@ -185,3 +260,31 @@ def test_kernels_match_plain_on_cuda(cuda_device, dtype, atol):
         torch.cuda.synchronize()
         for a, b in zip([out] + [t.grad for t in ts], [ref_out] + [t.grad for t in ref]):
             torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 80])
+@pytest.mark.parametrize("n", [70, 257, 490])
+def test_tensor_core_kernels_match_plain_on_cuda(cuda_device, n, hd):
+    """bf16 on the tensor-core kernels: out and the row log-sum-exp, then
+    dq, dk, dv from the plain forward's out and lse, against the plain
+    versions at ragged token counts (atol 3e-2 + rtol 1e-2; the lse to
+    1e-4 + 1e-5); a second run equal bit for bit; each launch counted on
+    ``tc_launches``, and an f32 launch on the FMA kernel only."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n + hd)
+    q, k, v, g = (torch.randn((2, 3, n, hd), generator=gen, device=cuda_device)
+                  .to(torch.bfloat16) for _ in range(4))
+    counts = [(f.launches, f.tc_launches) for f in (flash_attention, flash_attention_bwd)]
+    out, lse = flash_attention_fwd(q, k, v)
+    ref, ref_lse = plain_attention_fwd(q, k, v)
+    grads = flash_attention_bwd(q, k, v, ref, ref_lse, g)
+    want = plain_attention_bwd(q, k, v, ref, ref_lse, g)
+    again = (*flash_attention_fwd(q, k, v), *flash_attention_bwd(q, k, v, ref, ref_lse, g))
+    flash_attention_fwd(*(t.float() for t in (q, k, v)))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+    for a, b in zip((out, *grads), (ref, *want)):
+        torch.testing.assert_close(a.float(), b.float(), atol=3e-2, rtol=1e-2)
+    assert all(torch.equal(a, b) for a, b in zip(again, (out, lse, *grads)))
+    assert [(f.launches, f.tc_launches) for f in (flash_attention, flash_attention_bwd)] == [
+        (counts[0][0] + 3, counts[0][1] + 2), (counts[1][0] + 2, counts[1][1] + 2)]

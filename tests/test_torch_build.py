@@ -50,6 +50,7 @@ def test_the_header_declares_the_launchers():
                             "lnn_conv3d_tc_weight_len", "lnn_conv3d_tc_partials_len",
                             "lnn_conv3d_tc_workspace_len", "lnn_conv3d_tc",
                             "lnn_flash_attention_fwd", "lnn_flash_attention_bwd",
+                            "lnn_flash_attention_tc_fwd", "lnn_flash_attention_tc_bwd",
                             "lnn_pack_blocks", "lnn_unpack_blocks", "lnn_interleave_up2",
                             "lnn_deinterleave2"]
 
@@ -114,7 +115,8 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors(call, monkeypatch)
     counted = (conv3d_in_lrelu_cf, instance_norm_leaky_cf, conv3d_dx_cf,
                instance_norm_leaky_bwd_cf, flash_attention, flash_attention_bwd,
                pack_blocks, unpack_blocks, interleave_up2, deinterleave2)
-    before = [f.launches for f in counted]
+    split = (conv3d_in_lrelu_cf, conv3d_dx_cf, flash_attention, flash_attention_bwd)
+    before = [f.launches for f in counted] + [f.tc_launches for f in split]
     with pytest.raises(ValueError, match="CUDA"):
         call(torch.ones(1, 2, 4, 4, 4, device="meta"))
-    assert [f.launches for f in counted] == before
+    assert [f.launches for f in counted] + [f.tc_launches for f in split] == before
