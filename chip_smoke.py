@@ -9,8 +9,12 @@ Phases (one line each; any failure raises, so the exit code is not 0):
      the kernels built from ops/csrc/ (build seconds);
   1. the InstanceNorm + LeakyReLU kernel against its plain version at the
      post-stride shapes of the planned U-Net, at the serving path's largest
-     batch, with both medians at each batch of the serving path and at the
-     train batch;
+     batch, f32 and bf16, each launch in the form its launch plan gives
+     and a second run equal bit for bit; per forward at that batch (64)
+     and at the train batch (2), the bf16 kernel's device time
+     (torch.profiler, lifelong_nnunet_tpu_torch/tools/in_probe.py in a
+     process of its own) beside its bytes bound, the plain version's and
+     F.instance_norm's (a yardstick, not the same function) device time;
   2. the fused conv + InstanceNorm + LeakyReLU against its plain version at
      every stride-1 (Cin, Cout, spatial) of the planned U-Net: bf16 input on
      the tensor-core kernel (per shape its time, TFLOP/s, share of its
@@ -30,9 +34,11 @@ Phases (one line each; any failure raises, so the exit code is not 0):
      conv's data gradient) against their plain versions at every stride-1
      and post-stride shape of the train step, at the train batch (2), in
      f32 (the data gradient on the FMA kernel) and bf16 (on the
-     tensor-core kernel, per shape its TFLOP/s and share of its bound),
-     with medians per train step (kernel, plain, and cuDNN's data gradient
-     as the library time);
+     tensor-core kernel, per shape its TFLOP/s and share of its bound);
+     the InstanceNorm backward in every (x, dx) dtype pair, in the forms
+     and with the second runs of phase 1, its device time per train step
+     as phase 1's; the data gradient's medians per train step (kernel,
+     plain, and cuDNN's data gradient as the library time);
   6. the training path: ``nnUNet_torch_train_base_v2 --device cuda`` trains
      the full-width U-Net for 2 epochs of 60 steps with augmentation; the
      launch counters of all four kernels must equal what the route predicts
@@ -75,7 +81,10 @@ Phases (one line each; any failure raises, so the exit code is not 0):
      of the CT U-Net (B=2 and B=64) and its data gradient (B=2), bf16, with
      phases 2 and 5's limits, per shape at B=64 its time, cuDNN's F.conv3d
      beside it and its device time by kernel (the conv, the split-K reduce,
-     the finish);
+     the finish); then the InstanceNorm kernels at every CT shape they run
+     at (forward at B=2 and B=64, backward at B=2; f32 and bf16) as phase 1
+     holds them, and their device time per forward or step as phase 1
+     gives it;
   10. the CT path: a 160^3 synthetic task planned to nnU-Net's CT
      configuration (patch 128^3, batch 2, five pools, 32 -> 320 features) is
      trained by ``nnUNet_torch_train_base_v2 --device cuda`` with
@@ -106,7 +115,11 @@ conv, its data gradient and flash attention as ``conv3d_in_lrelu_tc`` /
 (the tensor-core kernels) and ``conv3d_in_lrelu_f32`` / ``conv3d_dx_f32``
 / ``flash_attention_f32`` / ``flash_attention_bwd_f32`` (the f32 FMA
 kernels, which no bf16 path runs: 0 launches on the paths, the f32 checks'
-launches under ``check_launches``)); the last line is ``{"ok": true,
+launches under ``check_launches``); the InstanceNorm rows also by the form
+of their launch plan (``launches_by_form``: warp, cluster, stream; on every
+path each form's count must equal what the plan predicts for the path's
+shapes) and with ``yardstick_ms``, F.instance_norm's time, which is not the
+same function); the last line is ``{"ok": true,
 "device": {...}}``.  Work files go to build/chip_smoke/ and are removed at the end.
 The script imports only the port, never the JAX package, and fails if any
 of lifelong_nnunet_tpu, jax, flax, optax, msgpack or sklearn was imported
@@ -158,8 +171,8 @@ from lifelong_nnunet_tpu_torch.ops.kernels.attention import (  # noqa: E402
 from lifelong_nnunet_tpu_torch.ops.kernels.conv3d import (  # noqa: E402
     conv3d_dx_cf, conv3d_in_lrelu_cf, plain_conv3d_dx, plain_conv3d_in_lrelu)
 from lifelong_nnunet_tpu_torch.ops.kernels.instance_norm import (  # noqa: E402
-    instance_norm_leaky_bwd_cf, instance_norm_leaky_cf, plain_instance_norm_leaky,
-    plain_instance_norm_leaky_bwd)
+    FORMS, card_limits, instance_norm_leaky_bwd_cf, instance_norm_leaky_cf, launch_plan,
+    plain_instance_norm_leaky, plain_instance_norm_leaky_bwd)
 from lifelong_nnunet_tpu_torch.ops.losses import deep_supervision_loss  # noqa: E402
 from lifelong_nnunet_tpu_torch.planning.plans import Plans, plans_path  # noqa: E402
 from lifelong_nnunet_tpu_torch.run.plan_and_preprocess import plan_and_preprocess  # noqa: E402
@@ -167,6 +180,7 @@ from lifelong_nnunet_tpu_torch.run.run_inference import run_inference  # noqa: E
 from lifelong_nnunet_tpu_torch.run.run_training import (  # noqa: E402
     output_folder, run_training)
 from lifelong_nnunet_tpu_torch.run.run_training_vit import run_training_vit  # noqa: E402
+from lifelong_nnunet_tpu_torch.tools import in_probe  # noqa: E402
 from lifelong_nnunet_tpu_torch.tools.flash_probe import device_ms  # noqa: E402
 from lifelong_nnunet_tpu_torch.training.checkpoints import (  # noqa: E402
     base_manifest, save_checkpoint)
@@ -204,7 +218,7 @@ NO_JAX = ("lifelong_nnunet_tpu", "jax", "jaxlib", "flax", "optax", "msgpack", "s
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): bf16 tensor
 # cores and HBM3
 PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12           # CUDA cores, the InstanceNorm's elementwise math
+PEAK_F32_FLOPS = 67e12           # CUDA cores, the FMA kernels
 PEAK_BYTES = 3.35e12
 # the CT scale (phases 9-10): a synthetic volume that crops to 156^3, which
 # nnU-Net plans at patch 128^3 and serves as a 2x2x2 window grid
@@ -286,11 +300,19 @@ CONV_SPLIT = ("conv3d_in_lrelu", "conv3d_dx")
 FLASH_SPLIT = ("flash_attention", "flash_attention_bwd")
 
 
+# the InstanceNorm wrappers, which count their launches by the form of their
+# launch plan too, as "<name>.<form>"
+IN_FORMED = ("instance_norm_leaky", "instance_norm_leaky_bwd")
+FORM_KEYS = [f"{name}.{form}" for name in IN_FORMED for form in FORMS]
+
+
 def _reset_counts():
     for wrapper in COUNTED.values():
         wrapper.launches = 0
     for name in SPLIT:
         COUNTED[name].tc_launches = 0
+    for name in IN_FORMED:
+        COUNTED[name].forms = dict.fromkeys(FORMS, 0)
 
 
 def _counts() -> dict:
@@ -298,17 +320,48 @@ def _counts() -> dict:
     for name, (tc, f32) in SPLIT.items():
         counts[tc] = COUNTED[name].tc_launches
         counts[f32] = counts[name] - counts[tc]
+    for name in IN_FORMED:
+        counts.update({f"{name}.{form}": n for form, n in COUNTED[name].forms.items()})
     return counts
 
 
 def _expect(**counts) -> dict:
     """Every counter, 0 unless given; the tensor-core counts default to
-    their wrapper's total and the FMA counts to 0, as on a bf16 path."""
+    their wrapper's total and the FMA counts to 0, as on a bf16 path; the
+    InstanceNorm's counts by form to 0 (give them with :func:`_in_forms`)."""
     expect = {name: counts.get(name, 0) for name in COUNTED}
     for name, (tc, f32) in SPLIT.items():
         expect[tc] = counts.get(tc, expect[name])
         expect[f32] = counts.get(f32, expect[name] - expect[tc])
+    expect.update({key: counts.get(key, 0) for key in FORM_KEYS})
     return expect
+
+
+def _in_forms(dev, fwd=(), bwd=()) -> dict:
+    """{"<name>.<form>": launches} that the launch plan predicts on this
+    card for bf16 launches of the InstanceNorm forward and backward at
+    ``fwd`` / ``bwd``: ((B, C, N), launches) pairs."""
+    out = dict.fromkeys(FORM_KEYS, 0)
+    for name, work in zip(IN_FORMED, (fwd, bwd)):
+        for (b, c, n), count in work:
+            plan = launch_plan(b, c, n, torch.bfloat16, name.endswith("bwd"), True,
+                               card_limits(dev))
+            out[f"{name}.{plan.form}"] += count
+    return out
+
+
+def _rows(out_shapes) -> list:
+    """(C, N) of each [C, *spatial] map."""
+    return [(o[0], math.prod(o[1:])) for o in out_shapes]
+
+
+def _at(rows, batches) -> list:
+    """((B, C, N), launches) of ``rows`` run at each (B, times) of ``batches``."""
+    work = {}
+    for b, times in batches:
+        for c, n in rows:
+            work[(b, c, n)] = work.get((b, c, n), 0) + times
+    return list(work.items())
 
 
 def _fma_launches(before: dict, after: dict) -> dict:
@@ -337,6 +390,100 @@ def _named_blocks(model, patch, device):
     for h in hooks:
         h.remove()
     return seen
+
+
+# the InstanceNorm kernels against their plain versions: (atol, rtol) of
+# the forward's output by its dtype and of the backward's dx by dx's dtype;
+# dscale / dbias
+IN_TOL = {"fwd": {torch.float32: (1e-4, 0.0), torch.bfloat16: (3e-2, 1e-2)},
+          "bwd": {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}}
+IN_STAT_TOL = (1e-3, 1e-4)
+# the InstanceNorm's device time, in a process of its own (see _in_probe)
+IN_PROBE = os.path.join(ROOT, "lifelong_nnunet_tpu_torch", "tools", "in_probe.py")
+
+
+def _in_check(direction, args, dev, chunk=None) -> float:
+    """Two launches of the InstanceNorm kernel on ``args`` (in_probe.inputs,
+    and for the backward optionally alpha and dx's dtype): each counted
+    under the form the launch plan predicts for its shape on this card, the
+    second equal to the first bit for bit, the first against the plain
+    version within IN_TOL (the forward's per batch slice of ``chunk``
+    items where given).  Returns the largest |kernel - plain| of the output
+    or dx."""
+    x = args[0]
+    B, C, N = x.shape
+    bwd = direction == "bwd"
+    name = IN_FORMED[bwd]
+    plan = launch_plan(B, C, N, x.dtype, bwd, True, card_limits(dev))
+    key = f"{name}.{plan.form}"
+    what = (f"IN {direction} {x.dtype} {tuple(x.shape)} ({plan.form}, cluster "
+            f"{plan.cluster})").replace("torch.", "")
+    before = _counts()
+    if bwd:
+        out = instance_norm_leaky_bwd_cf(*args)
+        again = instance_norm_leaky_bwd_cf(*args)
+        same = all(torch.equal(a, b) for a, b in zip(out, again))
+    else:
+        out = instance_norm_leaky_cf(*args)
+        again = instance_norm_leaky_cf(*args)
+        same = torch.equal(out, again)
+    after = _counts()
+    assert same, f"{what}: a second run differs"
+    assert after[name] - before[name] == after[key] - before[key] == 2, (what, before, after)
+    del again
+    if bwd:
+        ref = plain_instance_norm_leaky_bwd(*args)
+        err = _compare(what + " dx", out[0], ref[0], *IN_TOL["bwd"][out[0].dtype])
+        for o, r, stat in zip(out[1:], ref[1:], ("dscale", "dbias")):
+            _compare(f"{what} {stat}", o, r, *IN_STAT_TOL)
+        return err
+    err = 0.0
+    for b0, b1 in _chunks(B, chunk or B):
+        err = max(err, _compare(f"{what} [{b0}:{b1}]", out[b0:b1],
+                                plain_instance_norm_leaky(x[b0:b1], *args[1:3]),
+                                *IN_TOL["fwd"][x.dtype]))
+    return err
+
+
+def _in_probe(*groups) -> dict:
+    """{group: timings} of in_probe.py's groups, from a process of its own
+    (a torch.profiler started late in a long process loses device events:
+    phase 9's conv finish did, and phase 7's flash timing did once phases 1
+    and 5 profiled in this process): device ms of the bf16 kernel per
+    forward or step, the plain version's, F.instance_norm's (a yardstick,
+    not the same function) and the bytes bound."""
+    probe = subprocess.run([sys.executable, IN_PROBE, "--root", ROOT, "--groups", *groups],
+                           capture_output=True, text=True)
+    assert probe.returncode == 0, probe.stderr[-3000:]
+    out = {}
+    for line in probe.stdout.strip().splitlines():
+        g = json.loads(line)
+        assert g["card"] == _card(), g["card"]
+        out[g["group"]] = g
+    assert sorted(out) == sorted(groups), out.keys()
+    return out
+
+
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def _in_text(g, dev) -> str:
+    """One in_probe group: its sums and, per shape, the form, time and
+    share of the bound."""
+    def form(r):
+        return launch_plan(g["batch"], r["C"], r["N"], torch.bfloat16,
+                           g["direction"] == "bwd", True, card_limits(dev)).form
+
+    plain = "" if g["plain_ms"] is None else f", plain {g['plain_ms']:.4f} ms"
+    return (f"kernel {g['ms']:.4f} ms ({g['share']:.3f} of the bytes bound "
+            f"{g['bound_ms']:.4f} ms){plain}, F.instance_norm {g['yard_ms']:.4f} ms (not the "
+            f"same function); by shape " + ", ".join(
+                f"{r['C']}x{r['N']} x{r['count']} {form(r)} {r['ms']:.4f} ms "
+                f"({r['bound_ms'] / r['ms']:.3f})" for r in g["shapes"]))
 
 
 def _block_shapes(model, patch, device):
@@ -874,6 +1021,39 @@ def _ct_conv_phase(blocks, dev, gen) -> dict:
     return res
 
 
+def _ct_in_phase(blocks, model, dev, gen) -> tuple:
+    """Phase 9, the InstanceNorm kernels at CT scale: the forward at the
+    outputs of the CT U-Net's cuDNN and blocked convs at the train batch (2)
+    and the serving batch (64), the backward at every conv output at the
+    train batch, f32 and bf16 (f32 at B=64 where its three copies fit
+    CT_F32_BYTES), each through :func:`_in_check` (the plain forward per 8
+    batch items); then their device time per launch, bf16, with the bytes
+    bound and F.instance_norm beside it, from in_probe.py in a process of
+    its own.  Returns ({"fwd" | "bwd": largest error}, {group: timings})."""
+    routes = _ct_work(blocks, model, TRAIN_BATCH)["route"]
+    shapes = {}
+    for direction, outs in (("fwd", [o for name, _, _, o in blocks
+                                     if routes[name] in ("conv", "blocked")]),
+                            ("bwd", [o for _, _, _, o in blocks])):
+        counts = {}
+        for row in _rows(outs):
+            counts[row] = counts.get(row, 0) + 1
+        shapes[direction] = tuple((c, n, k) for (c, n), k in counts.items())
+    assert (shapes["fwd"], shapes["bwd"]) == (in_probe.CT_FWD, in_probe.CT_BWD), shapes
+    err = {"fwd": 0.0, "bwd": 0.0}
+    for direction, batches in (("fwd", (TRAIN_BATCH, CT_SERVE_BATCH)), ("bwd", (TRAIN_BATCH,))):
+        for c, n, _ in shapes[direction]:
+            for b in batches:
+                for dtype in (torch.float32, torch.bfloat16):
+                    if dtype == torch.float32 and 3 * 4 * b * c * n > CT_F32_BYTES:
+                        continue
+                    args = in_probe.inputs(direction, b, c, n, gen, dtype)
+                    err[direction] = max(err[direction], _in_check(direction, args, dev, 8))
+                    del args
+                    torch.cuda.empty_cache()
+    return err, _in_probe("ct_fwd_b2", "ct_fwd_b64", "ct_bwd_b2")
+
+
 def _ct_path(ct_dir, plans, blocks, model, work, pre, results, dev) -> dict:
     """Phase 10: the CT path through its entry points (see the module
     docstring).  Returns the launch counts of the two CLI runs, and the
@@ -894,6 +1074,10 @@ def _ct_path(ct_dir, plans, blocks, model, work, pre, results, dev) -> dict:
     n_dx = {r: sum(routes[name] == r and m.conv.stride == (1, 1, 1) for name, m in later)
             for r in ("blocked", "fused")}
     n_up = sum(f for f, _ in plan["ileave"].values())
+    # the InstanceNorm forward runs after the cuDNN and the blocked convs, its
+    # backward on every conv's output
+    in_rows = _rows([o for name, _, _, o in blocks if routes[name] in ("conv", "blocked")])
+    all_rows = _rows([o for _, _, _, o in blocks])
     fwd = {"conv3d_in_lrelu": n["fused"], "instance_norm_leaky": n["conv"] + n["blocked"],
            "pack_blocks": n["blocked"], "unpack_blocks": n["blocked"],
            "interleave_up2": n_up}
@@ -916,7 +1100,9 @@ def _ct_path(ct_dir, plans, blocks, model, work, pre, results, dev) -> dict:
     train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steps, vals = CT_TRAIN_ITERS, CT_VAL_ITERS
     expect = _expect(**{k: fwd.get(k, 0) * (steps + vals) + bwd.get(k, 0) * steps
-                        for k in set(fwd) | set(bwd)})
+                        for k in set(fwd) | set(bwd)},
+                     **_in_forms(dev, fwd=_at(in_rows, [(b2, steps + vals)]),
+                                 bwd=_at(all_rows, [(b2, steps)])))
     assert train_launches == expect, (train_launches, expect)
     trained = output_folder(os.path.join(results, "nnUNet_ext"), "3d_fullres", task,
                             "base_v2", plans.plans_name, 0, transfer_heads=True)
@@ -946,7 +1132,9 @@ def _ct_path(ct_dir, plans, blocks, model, work, pre, results, dev) -> dict:
     serve_s = time.perf_counter() - t0
     serve_launches = _counts()
     serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    expect = _expect(**{k: v * forwards for k, v in fwd.items()})
+    expect = _expect(**{k: v * forwards for k, v in fwd.items()},
+                     **_in_forms(dev, fwd=_at(in_rows, [(min(n_win, WINDOW_BATCH) * TTA,
+                                                         forwards)])))
     assert serve_launches == expect, (serve_launches, expect)
 
     # the f32 overlap-added probabilities, CT routes against the ordinary
@@ -1055,10 +1243,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = resolve_device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
-    print(smi)
+    print(_card())
     t0 = time.perf_counter()
     ext = build.load_extension()
     print(f"[phase 0] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
@@ -1123,35 +1308,24 @@ def main() -> int:
         n_strided = len(shapes) - n_fused
 
         # ---- phase 1: IN + LeakyReLU kernel at the post-stride maps
-        # timed at the serving path's batches and the train step's
-        timed = sorted(set(batches) | {TRAIN_BATCH})
+        # checked at the serving path's largest batch in f32 and bf16, timed
+        # (bf16, device time) at that batch and the train step's
+        strided = _rows([o for f, _, o in shapes if not f])
+        assert tuple((c, n, 1) for c, n in strided) == in_probe.HIPPO_FWD, strided
+        timed = sorted(set(batches) | {TRAIN_BATCH})     # phase 2's batches
         in_err = 0.0
-        in_ms, in_plain_ms = dict.fromkeys(timed, 0.0), dict.fromkeys(timed, 0.0)
-        in_numel = 0
-        for _, _, out_shape in (s for s in shapes if not s[0]):
-            c = out_shape[0]
-            in_numel += batch * math.prod(out_shape)
-            scale, bias = randn(c) * 0.1 + 1, randn(c) * 0.1
-            for dtype, atol, rtol in ((torch.float32, 1e-4, 0.0),
-                                      (torch.bfloat16, 3e-2, 1e-2)):
-                x = randn(batch, *out_shape, dtype=dtype) * 2 + 0.5
-                out = instance_norm_leaky_cf(x, scale, bias)
-                ref = plain_instance_norm_leaky(x, scale, bias)
-                torch.cuda.synchronize()
-                in_err = max(in_err, _compare(f"IN {dtype} {(batch,) + out_shape}",
-                                              out, ref, atol, rtol))
-            for b in timed:
-                xb = x[:b]
-                in_plain_ms[b] += _time_ms(lambda: plain_instance_norm_leaky(xb, scale, bias))
-                in_ms[b] += _time_ms(lambda: instance_norm_leaky_cf(xb, scale, bias))
-        # bf16 x read and out written once; ~10 f32 operations an element
-        in_bound = _bound(10 * in_numel, 2 * 2 * in_numel, PEAK_F32_FLOPS)
-        print(f"[phase 1] instance_norm_leaky: {n_strided} post-stride shapes ok "
-              f"(B={batch}: f32 atol 1e-4; bf16 atol 3e-2 + rtol 1e-2), max err "
-              f"{in_err:.3e}; per forward, kernel vs plain: "
-              + "; ".join(f"B={b} {in_ms[b]:.3f} vs {in_plain_ms[b]:.3f} ms"
-                          for b in timed)
-              + f"; B={batch} bound {in_bound[0]:.3f} ms ({in_bound[1]})", flush=True)
+        for c, n in strided:
+            for dtype in (torch.float32, torch.bfloat16):
+                args = in_probe.inputs("fwd", batch, c, n, gen, dtype)
+                in_err = max(in_err, _in_check("fwd", args, dev))
+                del args
+        assert batch == 64, batches
+        in_t = _in_probe("hippo_fwd_b2", "hippo_fwd_b64")
+        print(f"[phase 1] instance_norm_leaky: {n_strided} post-stride shapes ok (B={batch}: "
+              f"f32 atol 1e-4; bf16 atol 3e-2 + rtol 1e-2), max err {in_err:.3e}, second "
+              f"runs equal bit for bit, each launch in the form its plan gives; per forward, "
+              f"bf16, device time (in_probe.py): " + "; ".join(
+                  f"B={g['batch']} {_in_text(g, dev)}" for g in in_t.values()), flush=True)
 
         # ---- phase 2: fused conv kernel at every stride-1 shape
         # bf16 input runs the tensor-core kernel (timed at every batch of
@@ -1274,7 +1448,8 @@ def main() -> int:
         main_s = time.perf_counter() - t0
         launches = _counts()
         expect = _expect(conv3d_in_lrelu=n_fused * forwards,
-                         instance_norm_leaky=n_strided * forwards)
+                         instance_norm_leaky=n_strided * forwards,
+                         **_in_forms(dev, fwd=_at(strided, [(b, 1) for b in batches])))
         assert launches == expect, (launches, expect)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -1367,46 +1542,31 @@ def main() -> int:
         # every block's InstanceNorm backward runs on its conv output (the
         # raw conv output of a fused block); every fused block but the first,
         # whose input is the data, runs the data-gradient conv
-        in_bwd_rows, dx_convs = {}, {}
+        bwd_rows, dx_convs = {}, {}
         for i, (f, in_shape, out_shape) in enumerate(shapes):
-            in_bwd_rows[out_shape] = in_bwd_rows.get(out_shape, 0) + 1
+            (row,) = _rows([out_shape])
+            bwd_rows[row] = bwd_rows.get(row, 0) + 1
             if f and i > 0:
                 key = (in_shape[0], out_shape[0], in_shape[1:])
                 dx_convs[key] = dx_convs.get(key, 0) + 1
-        n_dx, n_in_bwd = sum(dx_convs.values()), sum(in_bwd_rows.values())
+        n_dx, n_in_bwd = sum(dx_convs.values()), sum(bwd_rows.values())
         assert n_dx == n_fused - 1 and n_in_bwd == n_fused + n_strided
+        assert tuple((c, n, k) for (c, n), k in bwd_rows.items()) == in_probe.HIPPO_BWD
         b2 = TRAIN_BATCH
-        inb_err = inb_ms = inb_plain_ms = 0.0
-        inb_numel = 0
-        for out_shape, count in in_bwd_rows.items():
-            c = out_shape[0]
-            scale, bias = randn(c) * 0.1 + 1, randn(c) * 0.1
-            inb_numel += count * b2 * math.prod(out_shape)
-            for dtype, atol, rtol in ((torch.float32, 1e-4, 1e-4),
-                                      (torch.bfloat16, 2e-2, 1e-2)):
-                x = randn(b2, *out_shape, dtype=dtype) * 2 + 0.5
-                g = randn(b2, *out_shape, dtype=dtype)
-                xf = x.float()
-                mean = xf.mean(dim=(2, 3, 4))
-                rstd = torch.rsqrt(xf.var(dim=(2, 3, 4), unbiased=False) + 1e-5)
-                args = (x, scale, bias, mean, rstd, g)
-                out = instance_norm_leaky_bwd_cf(*args)
-                ref = plain_instance_norm_leaky_bwd(*args)
-                torch.cuda.synchronize()
-                name = f"IN backward {dtype} {(b2,) + out_shape}"
-                inb_err = max(inb_err, _compare(name + " dx", out[0], ref[0], atol, rtol))
-                for o, r_, what in zip(out[1:], ref[1:], ("dscale", "dbias")):
-                    _compare(f"{name} {what}", o, r_, 1e-3, 1e-4)
-            inb_ms += count * _time_ms(lambda: instance_norm_leaky_bwd_cf(*args))
-            inb_plain_ms += count * _time_ms(lambda: plain_instance_norm_leaky_bwd(*args))
-            del x, g, xf, args, out, ref
-        # bf16 x and g read and dx written once; ~20 f32 operations an element
-        inb_bound = _bound(20 * inb_numel, 3 * 2 * inb_numel, PEAK_F32_FLOPS)
-        print(f"[phase 5] instance_norm_leaky_bwd: {len(in_bwd_rows)} shapes "
-              f"({n_in_bwd} per step) ok (B={b2}: dx f32 atol 1e-4 + rtol 1e-4, bf16 "
+        # every (x, dx) dtype pair: the f32 step checks run the mixed ones
+        inb_err = 0.0
+        for (c, n), count in bwd_rows.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                args = in_probe.inputs("bwd", b2, c, n, gen, dtype)
+                for dx_dtype in (torch.float32, torch.bfloat16):
+                    inb_err = max(inb_err, _in_check("bwd", args + (0.01, dx_dtype), dev))
+                del args
+        inb_t = _in_probe("hippo_bwd_b2")["hippo_bwd_b2"]
+        print(f"[phase 5] instance_norm_leaky_bwd: {len(bwd_rows)} shapes ({n_in_bwd} per "
+              f"step) ok (B={b2}, every (x, dx) dtype pair: dx f32 atol 1e-4 + rtol 1e-4, bf16 "
               f"atol 2e-2 + rtol 1e-2; dscale/dbias atol 1e-3 + rtol 1e-4), max err "
-              f"{inb_err:.3e}; per train step, bf16: kernel {inb_ms:.3f} ms vs plain "
-              f"{inb_plain_ms:.3f} ms, bound {inb_bound[0]:.3f} ms ({inb_bound[1]})",
+              f"{inb_err:.3e}, second runs equal bit for bit, each launch in the form its plan "
+              f"gives; per train step, bf16, device time (in_probe.py): {_in_text(inb_t, dev)}",
               flush=True)
 
         dx_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
@@ -1478,7 +1638,10 @@ def main() -> int:
         expect = _expect(conv3d_in_lrelu=n_fused * (steps + val_steps),
                          instance_norm_leaky=n_strided * (steps + val_steps),
                          conv3d_dx=(n_fused - 1) * steps,
-                         instance_norm_leaky_bwd=(n_fused + n_strided) * steps)
+                         instance_norm_leaky_bwd=(n_fused + n_strided) * steps,
+                         **_in_forms(dev, fwd=_at(strided, [(b2, steps + val_steps)]),
+                                     bwd=_at(_rows([o for _, _, o in shapes]),
+                                             [(b2, steps)])))
         assert train_launches == expect, (train_launches, expect)
         trained = output_folder(os.path.join(results, "nnUNet_ext"), "3d_fullres", task,
                                 "base_v2", plans.plans_name, 0, transfer_heads=True)
@@ -1559,12 +1722,18 @@ def main() -> int:
         vit_train_s = time.perf_counter() - t0
         vit_train_launches = _counts()
         vit_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # the ViT-U-Net trains at half the plan's batch
+        vit_b = max(1, b2 // 2)
+        v_rows = _rows([o for f, _, o in vit_shapes if not f])
         expect = _expect(conv3d_in_lrelu=v_fused * (steps + val_steps),
                          instance_norm_leaky=v_strided * (steps + val_steps),
                          conv3d_dx=(v_fused - 1) * steps,
                          instance_norm_leaky_bwd=(v_fused + v_strided) * steps,
                          flash_attention=n_attn * (steps + val_steps),
-                         flash_attention_bwd=n_attn * steps)
+                         flash_attention_bwd=n_attn * steps,
+                         **_in_forms(dev, fwd=_at(v_rows, [(vit_b, steps + val_steps)]),
+                                     bwd=_at(_rows([o for _, _, o in vit_shapes]),
+                                             [(vit_b, steps)])))
         assert vit_train_launches == expect, (vit_train_launches, expect)
         vit_fold = os.path.join(results, "nnUNet_ext", "3d_fullres", task,
                                 f"nnViTUNetTrainer__{plans.plans_name}",
@@ -1572,7 +1741,7 @@ def main() -> int:
         with open(os.path.join(vit_fold, "model_final_checkpoint.json")) as f:
             manifest = json.load(f)
         assert manifest["use_vit"] and manifest["vit"]["type"] == "base" \
-            and manifest["batch_size"] == 1, manifest["vit"]
+            and manifest["batch_size"] == vit_b == 1, manifest["vit"]
         with open(os.path.join(vit_fold, "progress.json")) as f:
             vit_losses = json.load(f)["step_losses"]
         assert len(vit_losses) == steps and all(map(math.isfinite, vit_losses))
@@ -1588,9 +1757,14 @@ def main() -> int:
         per_case = dict(zip((c for c, _ in cases), windows))
         vit_forwards = sum(math.ceil(per_case[c] / WINDOW_BATCH)
                            for c, _ in case_files(os.path.join(task_dir, "imagesTr")))
+        served_batches = [min(WINDOW_BATCH, per_case[c] - i) * TTA
+                          for c, _ in case_files(os.path.join(task_dir, "imagesTr"))
+                          for i in range(0, per_case[c], WINDOW_BATCH)]
+        assert len(served_batches) == vit_forwards
         expect = _expect(conv3d_in_lrelu=v_fused * vit_forwards,
                          instance_norm_leaky=v_strided * vit_forwards,
-                         flash_attention=n_attn * vit_forwards)
+                         flash_attention=n_attn * vit_forwards,
+                         **_in_forms(dev, fwd=_at(v_rows, [(b, 1) for b in served_batches])))
         assert vit_serve_launches == expect, (vit_serve_launches, expect)
         vit_dice = []
         for case, _ in case_files(os.path.join(task_dir, "imagesTr")):
@@ -1688,6 +1862,15 @@ def main() -> int:
               f"(statistics + normalize) {finish['finish']:.3f} ms of {finish['ms']:.3f} ms",
               flush=True)
 
+        ct_in_err, ct_in = _ct_in_phase(ct_blocks, model_ct, dev, gen)
+        for name, g in ct_in.items():
+            print(f"[phase 9]   IN {name}, bf16, device time (in_probe.py): {_in_text(g, dev)}",
+                  flush=True)
+        print(f"[phase 9] instance_norm_leaky / _bwd at the CT shapes (B={TRAIN_BATCH} forward "
+              f"and backward, B={CT_SERVE_BATCH} forward; f32 and bf16) ok, max err forward "
+              f"{ct_in_err['fwd']:.3e}, backward {ct_in_err['bwd']:.3e} (IN_TOL), second runs "
+              f"equal bit for bit, each launch in the form its plan gives", flush=True)
+
         # ---- phase 10: the CT path through its entry points
         ct_paths, fma_ct = _ct_path(ct_dir, ct_plans, ct_blocks, model_ct, work, pre,
                                     results, dev)
@@ -1713,7 +1896,8 @@ def main() -> int:
          conv_err[torch.float32], fma_ms, fma_plain_ms, fma_bound, fma_lib_ms,
          f"forward at B={batch}, f32 input, FMA kernel"),
         ("instance_norm_leaky", "instance_norm.cu", f"{pallas}/instance_norm.py:82", in_err,
-         in_ms[batch], in_plain_ms[batch], in_bound, None, f"forward at B={batch}"),
+         in_t["hippo_fwd_b64"]["ms"], in_t["hippo_fwd_b64"]["plain_ms"],
+         (in_t["hippo_fwd_b64"]["bound_ms"], "bytes"), None, f"forward at B={batch}, device time"),
         ("conv3d_dx_tc", "conv3d_in_lrelu.cu", f"{pallas}/conv3d.py:343",
          dx_err[torch.bfloat16], dx_ms, dx_plain_ms, dx_bound, dx_lib_ms,
          f"train step at B={TRAIN_BATCH}, bf16, tensor cores"),
@@ -1722,7 +1906,8 @@ def main() -> int:
          dxf_ms, dxf_plain_ms, dxf_bound, dxf_lib_ms,
          f"train step at B={TRAIN_BATCH}, f32 input, FMA kernel"),
         ("instance_norm_leaky_bwd", "instance_norm.cu", f"{pallas}/instance_norm.py:122", inb_err,
-         inb_ms, inb_plain_ms, inb_bound, None, f"train step at B={TRAIN_BATCH}"),
+         inb_t["ms"], inb_t["plain_ms"], (inb_t["bound_ms"], "bytes"), None,
+         f"train step at B={TRAIN_BATCH}, device time"),
     ] + [(f"{name}_{kind}", "flash_attention.cu", "lifelong_nnunet_tpu/models/vit.py:172",
           flash["err"][p][dtype],
           *scaled(tuple(flash[key][p][k] for k in ("ms", "plain_ms", "library_ms", "bound")),
@@ -1757,6 +1942,13 @@ def main() -> int:
              "launches_by_path": {path: c[name] for path, c in paths.items()}})
         if name.endswith("_f32"):
             kernels[-1]["check_launches"] = {check: c[name] for check, c in f32_checks.items()}
+        if name in IN_FORMED:
+            # by the form of the launch plan; the yardstick, F.instance_norm
+            # alone (or its backward), is not the same function
+            kernels[-1]["launches_by_form"] = {
+                form: sum(c[f"{name}.{form}"] for c in paths.values()) for form in FORMS}
+            kernels[-1]["yardstick_ms"] = (in_t["hippo_fwd_b64"] if name == IN_FORMED[0]
+                                           else inb_t)["yard_ms"]
         if name in ("interleave_up2", "deinterleave2"):
             # the whole upsample on the octant route, beside the library's
             kernels[-1]["route_ms"] = copies[name]["route_ms"]

@@ -42,11 +42,30 @@ int as_int(int64_t v, const char* what) {
   return static_cast<int>(v);
 }
 
+// an InstanceNorm launch plan from the wrapper's ``LaunchPlan.args()``:
+// (form, cluster, slice, keep, threads, vec); the launcher checks that it
+// covers every row and raises through C10_CUDA_CHECK where it does not
+LnnInPlan in_plan(int64_t form, int64_t cluster, int64_t slice, int64_t keep,
+                  int64_t threads, int64_t vec) {
+  TORCH_CHECK(form == LNN_IN_WARP || form == LNN_IN_CLUSTER, "unknown plan form ", form);
+  return LnnInPlan{static_cast<int>(form), as_int(cluster, "cluster"), slice, keep,
+                   as_int(threads, "threads"), static_cast<int>(vec != 0)};
+}
+
+// (SMs, dynamic shared memory a cluster-form block may take, largest
+// cluster the card schedules with it) of the current device
+std::vector<int64_t> instance_norm_limits() {
+  int sms = 0, smem = 0, cluster = 0;
+  C10_CUDA_CHECK(lnn_instance_norm_limits(&sms, &smem, &cluster));
+  return {sms, smem, cluster};
+}
+
 // x, out: [B, C, *spatial]; scale, bias: [C] f32; mean, rstd: [B, C] f32.
 void instance_norm_leaky_fwd(const torch::Tensor& x, const torch::Tensor& scale,
                              const torch::Tensor& bias, const torch::Tensor& out,
                              const torch::Tensor& mean, const torch::Tensor& rstd,
-                             double alpha, double eps) {
+                             double alpha, double eps, int64_t form, int64_t cluster,
+                             int64_t slice, int64_t keep, int64_t threads, int64_t vec) {
   check(x, x, "x");
   TORCH_CHECK(x.dim() >= 3, "x must be [B, C, *spatial]");
   const int B = as_int(x.size(0), "B"), C = as_int(x.size(1), "C");
@@ -62,6 +81,7 @@ void instance_norm_leaky_fwd(const torch::Tensor& x, const torch::Tensor& scale,
       x.data_ptr(), scale.data_ptr<float>(), bias.data_ptr<float>(), out.data_ptr(),
       mean.data_ptr<float>(), rstd.data_ptr<float>(), B, C, x.numel() / (int64_t(B) * C),
       static_cast<float>(alpha), static_cast<float>(eps), dtype_of(x),
+      in_plan(form, cluster, slice, keep, threads, vec),
       c10::cuda::getCurrentCUDAStream().stream()));
 }
 
@@ -72,7 +92,8 @@ void instance_norm_leaky_bwd(const torch::Tensor& x, const torch::Tensor& g,
                              const torch::Tensor& mean, const torch::Tensor& rstd,
                              const torch::Tensor& dx, const torch::Tensor& dscale,
                              const torch::Tensor& dbias, const torch::Tensor& partials,
-                             double alpha) {
+                             double alpha, int64_t form, int64_t cluster, int64_t slice,
+                             int64_t keep, int64_t threads, int64_t vec) {
   check(x, x, "x");
   TORCH_CHECK(x.dim() >= 3, "x must be [B, C, *spatial]");
   const int B = as_int(x.size(0), "B"), C = as_int(x.size(1), "C");
@@ -94,6 +115,7 @@ void instance_norm_leaky_bwd(const torch::Tensor& x, const torch::Tensor& g,
       mean.data_ptr<float>(), rstd.data_ptr<float>(), dx.data_ptr(),
       dscale.data_ptr<float>(), dbias.data_ptr<float>(), partials.data_ptr<float>(), B, C,
       x.numel() / (int64_t(B) * C), static_cast<float>(alpha), dtype_of(x), dtype_of(dx),
+      in_plan(form, cluster, slice, keep, threads, vec),
       c10::cuda::getCurrentCUDAStream().stream()));
 }
 
@@ -490,6 +512,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "InstanceNorm + LeakyReLU forward (instance_norm.cu)");
   m.def("instance_norm_leaky_bwd", &instance_norm_leaky_bwd,
         "InstanceNorm + LeakyReLU backward (instance_norm.cu)");
+  m.def("instance_norm_limits", &instance_norm_limits,
+        "(SMs, shared memory a block may take, largest cluster) for the InstanceNorm "
+        "launch plan (instance_norm.cu)");
   m.def("conv3d_partials_len", &conv3d_partials_len,
         "floats of partial-statistics scratch for one conv3d_in_lrelu_fwd call");
   m.def("conv3d_in_lrelu_fwd", &conv3d_in_lrelu_fwd,

@@ -12,6 +12,30 @@
 // element types of the kernels' inputs and outputs
 enum LnnDtype { LNN_F32 = 0, LNN_BF16 = 1 };
 
+// The form of an InstanceNorm launch, chosen per (B, C, N, dtype) by the
+// caller's launch plan (`launch_plan` in ops/kernels/instance_norm.py):
+// LNN_IN_WARP, one warp per row of at most 512 elements, the row in
+// registers; LNN_IN_CLUSTER, a row split over a cluster of `cluster` blocks
+// of `threads` threads, block r owning elements [r slice, (r + 1) slice) of
+// it, the first `keep` of those staged in shared memory and the rest
+// streamed from device memory twice.  `vec`: 16-byte access (every row and
+// pointer aligned to it), else scalar.  The launchers raise (return
+// cudaErrorInvalidValue) on a plan that does not cover each row exactly.
+enum { LNN_IN_WARP = 0, LNN_IN_CLUSTER = 1 };
+struct LnnInPlan {
+  int form;
+  int cluster;
+  long long slice;
+  long long keep;
+  int threads;
+  int vec;
+};
+
+// The limits a plan is made within, on the current device: its SMs, the
+// dynamic shared memory a cluster-form block may take, and the largest
+// cluster (16, 8, ... 1) the card schedules with that much in each block.
+cudaError_t lnn_instance_norm_limits(int* sms, int* smem, int* cluster);
+
 // InstanceNorm + LeakyReLU forward.  x, out: [B, C, N] of `dtype`,
 // contiguous.  scale, bias: [C] f32.  mean, rstd: [B, C] f32 (kept for the
 // backward).
@@ -19,7 +43,7 @@ cudaError_t lnn_instance_norm_leaky_fwd(const void* x, const float* scale,
                                         const float* bias, void* out, float* mean,
                                         float* rstd, int B, int C, long long N,
                                         float alpha, float eps, LnnDtype dtype,
-                                        cudaStream_t stream);
+                                        LnnInPlan plan, cudaStream_t stream);
 
 // InstanceNorm + LeakyReLU backward.  x, g: [B, C, N] of `dtype` (the
 // forward's input and the gradient of its output); scale, bias: [C] f32;
@@ -31,7 +55,8 @@ cudaError_t lnn_instance_norm_leaky_bwd(const void* x, const void* g, const floa
                                         const float* rstd, void* dx, float* dscale,
                                         float* dbias, float* partials, int B, int C,
                                         long long N, float alpha, LnnDtype dtype,
-                                        LnnDtype dx_dtype, cudaStream_t stream);
+                                        LnnDtype dx_dtype, LnnInPlan plan,
+                                        cudaStream_t stream);
 
 // Length in floats of the partial-statistics scratch of one f32-input conv
 // call (the FMA entries below).

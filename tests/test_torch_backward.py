@@ -9,6 +9,8 @@ the CUDA kernels are compared with those on the card (marked ``cuda``,
 skipped without one, and run by chip_smoke.py).  Inputs are f32; each
 tolerance is stated where it is used."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -24,9 +26,11 @@ from lifelong_nnunet_tpu_torch.models.unet import ConvNormAct
 from lifelong_nnunet_tpu_torch.ops.kernels.conv3d import (
     TC_CHUNK, _dx_weight, conv3d_dx_cf, conv3d_in_lrelu, conv3d_in_lrelu_cf, plain_conv3d_dx,
     plain_conv3d_in_lrelu_bwd, plain_conv3d_in_lrelu_train, tc_n_tile, tc_weight)
+from lifelong_nnunet_tpu_torch.ops.kernels import build
+from lifelong_nnunet_tpu_torch.ops.kernels import instance_norm as inorm
 from lifelong_nnunet_tpu_torch.ops.kernels.instance_norm import (
-    instance_norm_leaky, instance_norm_leaky_bwd_cf, instance_norm_leaky_cf,
-    plain_instance_norm_leaky_bwd)
+    H100, instance_norm_leaky, instance_norm_leaky_bwd_cf, instance_norm_leaky_cf,
+    launch_plan, plain_instance_norm_leaky_bwd)
 
 torch.set_num_threads(2)
 
@@ -274,3 +278,80 @@ def test_dx_tc_kernel_matches_plain_on_cuda(cuda_device, b, cin, cout, sp, out_d
                                atol=5e-2, rtol=1e-2)
     assert torch.equal(dx, conv3d_dx_cf(dy, w, out_dtype))
     assert (conv3d_dx_cf.launches, conv3d_dx_cf.tc_launches) == (before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.parametrize("shape,form", [((2, 320, 7, 5, 7), "warp"),
+                                        ((2, 128, 14, 20, 14), "cluster"),
+                                        ((2, 32, 128, 128, 128), "stream")])
+@pytest.mark.parametrize("dx_dtype", [None, torch.float32])
+def test_backward_wrapper_hands_the_plan_to_the_kernel(monkeypatch, shape, form, dx_dtype):
+    """On a device tensor the backward wrapper launches once with the
+    backward plan of its shape (x and g staged: half the forward's keep),
+    dx in the asked dtype and dscale, dbias and the partials carved from one
+    f32 buffer (meta tensors and a stand-in extension here), and counts the
+    launch under its form."""
+    calls = []
+    ext = type("Ext", (), {"instance_norm_leaky_bwd": staticmethod(
+        lambda *args: calls.append(args))})()
+    monkeypatch.setattr(build, "require_cuda", lambda *ts: ts[0].device)
+    monkeypatch.setattr(build, "load_extension", lambda: ext)
+    monkeypatch.setattr(inorm, "card_limits", lambda device: H100)
+    B, C = shape[:2]
+    x = torch.empty(shape, dtype=torch.bfloat16, device="meta")
+    stats = torch.empty((B, C), device="meta")
+    before = dict(instance_norm_leaky_bwd_cf.forms)
+    dx, dscale, dbias = instance_norm_leaky_bwd_cf(
+        x, torch.ones(C, device="meta"), torch.zeros(C, device="meta"), stats, stats, x,
+        dx_dtype=dx_dtype)
+    assert dx.shape == shape and dx.dtype == (dx_dtype or torch.bfloat16)
+    assert dscale.shape == dbias.shape == (C,)
+    plan = launch_plan(B, C, math.prod(shape[2:]), torch.bfloat16, backward=True)
+    assert plan.form == form
+    ((*tensors, alpha, form_id, cluster, slice_, keep, threads, vec),) = calls
+    assert (form_id, cluster, slice_, keep, threads, vec) == plan.args() and alpha == 0.01
+    work = tensors[-3:]                       # dscale, dbias, partials
+    assert [t.numel() for t in work] == [C, C, 2 * B * C]
+    assert instance_norm_leaky_bwd_cf.forms == {f: n + (f == form) for f, n in before.items()}
+
+
+BWD_ROWS = [((3, 5, 7, 5, 7), "warp"), ((2, 7, 7, 10, 7), "warp"), ((2, 4, 8, 8, 8), "warp"),
+            ((2, 3, 5, 9, 13), "cluster"), ((2, 3, 56, 80, 56), "cluster"),
+            ((2, 64, 28, 40, 28), "stream"), ((1, 2, 128, 128, 128), "stream")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dx_dtype", [(torch.float32, torch.float32),
+                                            (torch.float32, torch.bfloat16),
+                                            (torch.bfloat16, torch.float32),
+                                            (torch.bfloat16, torch.bfloat16)],
+                         ids=["f32-f32", "f32-bf16", "bf16-f32", "bf16-bf16"])
+@pytest.mark.parametrize("shape,form", BWD_ROWS, ids=[f for _, f in BWD_ROWS])
+def test_backward_forms_match_plain_on_cuda(cuda_device, shape, form, dtype, dx_dtype):
+    """Each form of the backward kernel, in all four (x, dx) dtype pairs,
+    against the plain version (dx in f32 atol 1e-4 + rtol 1e-4, in bf16
+    atol 2e-2 + rtol 1e-2; dscale / dbias atol 1e-3 + rtol 1e-4), counted under the
+    form its plan gives, and a second run equal bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = (torch.randn(shape, generator=gen, device=cuda_device) * 2 + 0.5).to(dtype)
+    g = torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+    C = shape[1]
+    s = torch.randn(C, generator=gen, device=cuda_device) * 0.1 + 1
+    o = torch.randn(C, generator=gen, device=cuda_device) * 0.1
+    axes = tuple(range(2, x.dim()))
+    mean = x.float().mean(dim=axes)
+    rstd = torch.rsqrt(x.float().var(dim=axes, unbiased=False) + 1e-5)
+    args = (x, s, o, mean, rstd, g, 0.01, dx_dtype)
+    plan = launch_plan(shape[0], shape[1], math.prod(shape[2:]), dtype, True,
+                       limits=inorm.card_limits(x.device))
+    assert plan.form == form or dtype == torch.float32   # the rows are picked in bf16
+    before = instance_norm_leaky_bwd_cf.forms[plan.form]
+    out = instance_norm_leaky_bwd_cf(*args)
+    ref = plain_instance_norm_leaky_bwd(*args)
+    assert out[0].dtype == dx_dtype
+    atol, rtol = (1e-4, 1e-4) if dx_dtype == torch.float32 else (2e-2, 1e-2)
+    torch.testing.assert_close(out[0].float(), ref[0].float(), atol=atol, rtol=rtol)
+    for a, e in zip(out[1:], ref[1:]):
+        torch.testing.assert_close(a, e, atol=1e-3, rtol=1e-4)
+    again = instance_norm_leaky_bwd_cf(*args)
+    assert all(torch.equal(a, b) for a, b in zip(again, out))
+    assert instance_norm_leaky_bwd_cf.forms[plan.form] == before + 2

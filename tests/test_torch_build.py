@@ -44,7 +44,8 @@ def test_only_the_binding_includes_torch_headers(name):
 
 
 def test_the_header_declares_the_launchers():
-    assert _launchers() == ["lnn_instance_norm_leaky_fwd", "lnn_instance_norm_leaky_bwd",
+    assert _launchers() == ["lnn_instance_norm_limits", "lnn_instance_norm_leaky_fwd",
+                            "lnn_instance_norm_leaky_bwd",
                             "lnn_conv3d_partials_len", "lnn_conv3d_in_lrelu_fwd",
                             "lnn_conv3d_in_lrelu_train_fwd", "lnn_conv3d_fwd",
                             "lnn_conv3d_tc_weight_len", "lnn_conv3d_tc_partials_len",
