@@ -73,11 +73,18 @@ Phases (one line each; any failure raises, so the exit code is not 0):
   9. the CT-scale route's copy kernels (block pack and unpack, the 2x
      interleave and de-interleave) against their plain versions, bit for
      bit, at every shape the CT train step (batch 2) and CT serving (window
-     batch 8: a batch of 64) give them, bf16 and f32, with the kernel, plain
-     and library medians per train step (the library: the F.pad +
+     batch 8: a batch of 64) give them, bf16 and f32, every pack launch in
+     the tma form (TMA box copies), with the kernel, plain and library
+     CUDA-event medians per train step (the library: the F.pad +
      Tensor.unfold chain, its inverse permute, and F.conv_transpose3d
-     forward and backward beside the octant route); then the fused conv's
-     tensor-core kernel against its plain version at every stride-1 shape
+     forward and backward beside the octant route); the pack's device time
+     per CT train step and per CT serving forward (torch.profiler, calls of
+     1 ms or more by CUDA events; lifelong_nnunet_tpu_torch/tools/
+     pack_probe.py in a process of its own, its shapes held to the routes')
+     beside its bytes bound, the library chain, the plain version and
+     PyTorch's elementwise kernel on x (x * 1) as the card's streaming
+     ceiling; then the fused conv's tensor-core kernel against its plain
+     version at every stride-1 shape
      of the CT U-Net (B=2 and B=64) and its data gradient (B=2), bf16, with
      phases 2 and 5's limits, per shape at B=64 its time, cuDNN's F.conv3d
      beside it and its device time by kernel (the conv, the split-K reduce,
@@ -107,7 +114,9 @@ checks of phases 4, 6, 8 and 10 none.  The line
 before the last is the kernels' JSON record (the U-Net's forward kernels
 per forward at the serving path's largest batch, its backward kernels per
 train step, the flash kernels per ViT-U-Net train step, the copy kernels
-per CT train step; ``launches`` summed over the six paths' runs, and per
+per CT train step, the pack by device time with its CUDA-event median as
+``event_ms`` and its time per CT serving forward as ``serve_ms`` beside
+``serve_bound_ms``; ``launches`` summed over the six paths' runs, and per
 path under ``launches_by_path``: ``serve``, ``train``, ``vit_train``,
 ``vit_serve``, ``ct_train``, ``ct_serve``; the two kernels of the fused
 conv, its data gradient and flash attention as ``conv3d_in_lrelu_tc`` /
@@ -119,7 +128,9 @@ launches under ``check_launches``); the InstanceNorm rows also by the form
 of their launch plan (``launches_by_form``: warp, cluster, stream; on every
 path each form's count must equal what the plan predicts for the path's
 shapes) and with ``yardstick_ms``, F.instance_norm's time, which is not the
-same function); the last line is ``{"ok": true,
+same function); the pack's row by form too (``launches_by_form``: tma,
+scalar; on the CT paths every launch in the tma form, as its plan
+predicts); the last line is ``{"ok": true,
 "device": {...}}``.  Work files go to build/chip_smoke/ and are removed at the end.
 The script imports only the port, never the JAX package, and fails if any
 of lifelong_nnunet_tpu, jax, flax, optax, msgpack or sklearn was imported
@@ -181,6 +192,7 @@ from lifelong_nnunet_tpu_torch.run.run_training import (  # noqa: E402
     output_folder, run_training)
 from lifelong_nnunet_tpu_torch.run.run_training_vit import run_training_vit  # noqa: E402
 from lifelong_nnunet_tpu_torch.tools import in_probe  # noqa: E402
+from lifelong_nnunet_tpu_torch.tools import pack_probe  # noqa: E402
 from lifelong_nnunet_tpu_torch.tools.flash_probe import device_ms  # noqa: E402
 from lifelong_nnunet_tpu_torch.training.checkpoints import (  # noqa: E402
     base_manifest, save_checkpoint)
@@ -304,6 +316,8 @@ FLASH_SPLIT = ("flash_attention", "flash_attention_bwd")
 # launch plan too, as "<name>.<form>"
 IN_FORMED = ("instance_norm_leaky", "instance_norm_leaky_bwd")
 FORM_KEYS = [f"{name}.{form}" for name in IN_FORMED for form in FORMS]
+# the pack likewise, by the form of its launch plan (tma, scalar)
+PACK_FORM_KEYS = [f"pack_blocks.{form}" for form in block_pack.FORMS]
 
 
 def _reset_counts():
@@ -313,6 +327,7 @@ def _reset_counts():
         COUNTED[name].tc_launches = 0
     for name in IN_FORMED:
         COUNTED[name].forms = dict.fromkeys(FORMS, 0)
+    block_pack.pack_blocks.forms = dict.fromkeys(block_pack.FORMS, 0)
 
 
 def _counts() -> dict:
@@ -322,18 +337,21 @@ def _counts() -> dict:
         counts[f32] = counts[name] - counts[tc]
     for name in IN_FORMED:
         counts.update({f"{name}.{form}": n for form, n in COUNTED[name].forms.items()})
+    counts.update({f"pack_blocks.{form}": n
+                   for form, n in block_pack.pack_blocks.forms.items()})
     return counts
 
 
 def _expect(**counts) -> dict:
     """Every counter, 0 unless given; the tensor-core counts default to
     their wrapper's total and the FMA counts to 0, as on a bf16 path; the
-    InstanceNorm's counts by form to 0 (give them with :func:`_in_forms`)."""
+    InstanceNorm's and the pack's counts by form to 0 (give them with
+    :func:`_in_forms` and :func:`_pack_forms`)."""
     expect = {name: counts.get(name, 0) for name in COUNTED}
     for name, (tc, f32) in SPLIT.items():
         expect[tc] = counts.get(tc, expect[name])
         expect[f32] = counts.get(f32, expect[name] - expect[tc])
-    expect.update({key: counts.get(key, 0) for key in FORM_KEYS})
+    expect.update({key: counts.get(key, 0) for key in FORM_KEYS + PACK_FORM_KEYS})
     return expect
 
 
@@ -347,6 +365,18 @@ def _in_forms(dev, fwd=(), bwd=()) -> dict:
             plan = launch_plan(b, c, n, torch.bfloat16, name.endswith("bwd"), True,
                                card_limits(dev))
             out[f"{name}.{plan.form}"] += count
+    return out
+
+
+def _pack_forms(dev, work) -> dict:
+    """{"pack_blocks.<form>": launches} that the pack's launch plan
+    predicts on this card for bf16 launches at ``work``: {(x shape, bs):
+    launches}, x contiguous and 16-byte aligned (a fresh activation or
+    gradient)."""
+    out = dict.fromkeys(PACK_FORM_KEYS, 0)
+    for (x_shape, bs), count in work.items():
+        plan = block_pack.launch_plan(x_shape, bs, torch.bfloat16, 0, block_pack.card_sms(dev))
+        out[f"pack_blocks.{plan.form}"] += count
     return out
 
 
@@ -855,8 +885,11 @@ def _ct_copy_phase(blocks, model, dev, gen) -> dict:
                         4 * (math.prod(x_shape) + out_numel) > CT_F32_BYTES:
                     continue
                 x = rand(x_shape, dtype)
+                before = dict(block_pack.pack_blocks.forms)
                 out = block_pack.pack_blocks(x, bs)
                 torch.cuda.synchronize()
+                assert block_pack.pack_blocks.forms == {**before, "tma": before["tma"] + 1}, \
+                    f"pack_blocks {dtype} {x_shape} bs {bs}: not in the tma form"
                 for b0, b1 in _chunks(batch):
                     assert torch.equal(out[b0 * per_item:b1 * per_item],
                                        block_pack.plain_pack_blocks(x[b0:b1], bs)), \
@@ -942,6 +975,38 @@ def _ct_copy_phase(blocks, model, dev, gen) -> dict:
         r["bound"] = _bound(0, r.pop("bytes"))
     res["up_err"] = up_err
     return res
+
+
+# the pack's device time, in a process of its own (see _in_probe)
+PACK_PROBE = os.path.join(ROOT, "lifelong_nnunet_tpu_torch", "tools", "pack_probe.py")
+
+
+def _pack_probe(blocks, model) -> dict:
+    """{group: timings} of pack_probe.py's groups, from a process of its
+    own: device ms of the bf16 pack per CT train step ("ct_train", B=2) and
+    per CT serving forward ("ct_serve", B=64), beside its bytes bound, the
+    library chain (F.pad + Tensor.unfold) and the plain version (where it
+    fits), every launch in the tma form; the probe's shapes held to what
+    the CT routes launch."""
+    for group, (batch, shapes) in pack_probe.GROUPS.items():
+        work = _ct_work(blocks, model, batch)["pack"]
+        got = {(x_shape[1:], bs): f + (b if group == "ct_train" else 0)
+               for (x_shape, bs), (f, b) in work.items()}
+        assert got == {(shape, pack_probe.BS): n for shape, n in shapes}, (group, got)
+    probe = subprocess.run([sys.executable, PACK_PROBE, "--root", ROOT], capture_output=True,
+                           text=True)
+    assert probe.returncode == 0, probe.stderr[-3000:]
+    out = {}
+    for line in probe.stdout.strip().splitlines():
+        g = json.loads(line)
+        assert g["card"] == _card() and g["forms_used"] == ["tma"], (g["card"], g["forms_used"])
+        out[g["group"]] = g
+    assert sorted(out) == sorted(pack_probe.GROUPS), out.keys()
+    return out
+
+
+def _opt(v, fmt=".3f") -> str:
+    return "not measured" if v is None else f"{v:{fmt}} ms"
 
 
 # the fused conv's device time by kernel at the CT serving batch, in a
@@ -1099,10 +1164,14 @@ def _ct_path(ct_dir, plans, blocks, model, work, pre, results, dev) -> dict:
     train_launches = _counts()
     train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steps, vals = CT_TRAIN_ITERS, CT_VAL_ITERS
+    # every pack of the path in the TMA form, as its launch plan predicts
+    pack_forms = _pack_forms(dev, {k: f * (steps + vals) + b * steps
+                                   for k, (f, b) in plan["pack"].items()})
+    assert pack_forms["pack_blocks.scalar"] == 0, pack_forms
     expect = _expect(**{k: fwd.get(k, 0) * (steps + vals) + bwd.get(k, 0) * steps
                         for k in set(fwd) | set(bwd)},
                      **_in_forms(dev, fwd=_at(in_rows, [(b2, steps + vals)]),
-                                 bwd=_at(all_rows, [(b2, steps)])))
+                                 bwd=_at(all_rows, [(b2, steps)])), **pack_forms)
     assert train_launches == expect, (train_launches, expect)
     trained = output_folder(os.path.join(results, "nnUNet_ext"), "3d_fullres", task,
                             "base_v2", plans.plans_name, 0, transfer_heads=True)
@@ -1132,9 +1201,13 @@ def _ct_path(ct_dir, plans, blocks, model, work, pre, results, dev) -> dict:
     serve_s = time.perf_counter() - t0
     serve_launches = _counts()
     serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    serve_batch = min(n_win, WINDOW_BATCH) * TTA
+    pack_forms = _pack_forms(dev, {k: f * forwards for k, (f, _) in
+                                   _ct_work(blocks, model, serve_batch)["pack"].items()})
+    assert pack_forms["pack_blocks.scalar"] == 0, pack_forms
     expect = _expect(**{k: v * forwards for k, v in fwd.items()},
-                     **_in_forms(dev, fwd=_at(in_rows, [(min(n_win, WINDOW_BATCH) * TTA,
-                                                         forwards)])))
+                     **_in_forms(dev, fwd=_at(in_rows, [(serve_batch, forwards)])),
+                     **pack_forms)
     assert serve_launches == expect, (serve_launches, expect)
 
     # the f32 overlap-added probabilities, CT routes against the ordinary
@@ -1833,8 +1906,21 @@ def main() -> int:
                       f"{c['bound'][1]}), plain {c['plain_ms']:.3f} ms, library "
                       f"{c['library_ms']:.3f} ms" + (f", octant route {c['route_ms']:.3f} ms"
                                                      if c["route_ms"] else ""), flush=True)
+        pack_t = _pack_probe(ct_blocks, model_ct)
+        for g in pack_t.values():
+            print(f"[phase 9]   pack_blocks, bf16, device time "
+                  f"({os.path.relpath(PACK_PROBE, ROOT)}), per CT "
+                  f"{'train step' if g['group'] == 'ct_train' else 'serving forward'} "
+                  f"(B={g['batch']}, {sum(r['count'] for r in g['shapes'])} launches, every one "
+                  f"in the tma form): kernel {g['ms']:.4f} ms ({g['share']:.3f} of the bound "
+                  f"{g['bound_ms']:.4f} ms, bytes), library chain {_opt(g['library_ms'], '.4f')}, "
+                  f"plain {_opt(g['plain_ms'], '.4f')}; PyTorch's elementwise x * 1 "
+                  f"reaches {g['copy_share']:.3f} of its own bound" + (
+                      f"; the CUDA-event median above {copies['pack_blocks']['ms']:.4f} ms"
+                      if g["group"] == "ct_train" else ""), flush=True)
         print(f"[phase 9] copy kernels at the CT shapes (B={TRAIN_BATCH} and B={CT_SERVE_BATCH}, "
-              f"bf16 and f32) equal to their plain versions bit for bit; the octant upsample "
+              f"bf16 and f32) equal to their plain versions bit for bit, every pack in the tma "
+              f"form; the octant upsample "
               f"against F.conv_transpose3d: max err "
               + ", ".join(f"{d} {e:.3e}".replace("torch.", "")
                           for d, e in copies["up_err"].items())
@@ -1952,6 +2038,17 @@ def main() -> int:
         if name in ("interleave_up2", "deinterleave2"):
             # the whole upsample on the octant route, beside the library's
             kernels[-1]["route_ms"] = copies[name]["route_ms"]
+        if name == "pack_blocks":
+            # by device time (pack_probe.py) per CT train step, the CUDA-event
+            # median beside; per CT serving forward too; launches by form
+            tr, sv = pack_t["ct_train"], pack_t["ct_serve"]
+            kernels[-1].update(
+                ms=tr["ms"], plain_ms=tr["plain_ms"], library_ms=tr["library_ms"],
+                event_ms=copies[name]["ms"], per=f"CT train step at B={TRAIN_BATCH}, device time",
+                serve_ms=sv["ms"], serve_bound_ms=sv["bound_ms"],
+                serve_library_ms=sv["library_ms"], serve_plain_ms=sv["plain_ms"],
+                launches_by_form={form: sum(c[f"pack_blocks.{form}"] for c in paths.values())
+                                  for form in block_pack.FORMS})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

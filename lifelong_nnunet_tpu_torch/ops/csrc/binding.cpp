@@ -409,8 +409,11 @@ void flash_attention_tc_bwd(const torch::Tensor& q, const torch::Tensor& k,
   flash_attention_bwd_entry(q, k, v, o, dout, lse, delta, dq, dk, dv, scale, true);
 }
 
-// x: [B, C, D, H, W]; out: [nb, C, bs + 2, bs + 2, bs + 2] in x's dtype.
-void pack_blocks(const torch::Tensor& x, const torch::Tensor& out, int64_t bs) {
+// x: [B, C, D, H, W]; out: [nb, C, bs + 2, bs + 2, bs + 2] in x's dtype; the
+// launch plan from the wrapper's ``PackPlan.args()``: (form, sz, gw, stages,
+// blocks); the launcher refuses one that breaks its rules.
+void pack_blocks(const torch::Tensor& x, const torch::Tensor& out, int64_t bs, int64_t form,
+                 int64_t sz, int64_t gw, int64_t stages, int64_t blocks) {
   check(x, x, "x");
   TORCH_CHECK(x.dim() == 5, "x must be [B, C, D, H, W]");
   const int B = as_int(x.size(0), "B"), C = as_int(x.size(1), "C");
@@ -423,9 +426,24 @@ void pack_blocks(const torch::Tensor& x, const torch::Tensor& out, int64_t bs) {
                   out.size(1) == C && out.size(2) == b + 2 && out.size(3) == b + 2 &&
                   out.size(4) == b + 2,
               "out must be [nb, C, bs + 2, bs + 2, bs + 2] in x's dtype");
+  TORCH_CHECK(form == LNN_PACK_SCALAR || form == LNN_PACK_TMA, "unknown pack form ", form);
+  const LnnPackPlan plan{static_cast<int>(form), as_int(sz, "sz"), as_int(gw, "gw"),
+                         as_int(stages, "stages"), as_int(blocks, "blocks")};
   const c10::cuda::CUDAGuard guard(x.device());
   C10_CUDA_CHECK(lnn_pack_blocks(x.data_ptr(), out.data_ptr(), B, C, D, H, W, b, dtype_of(x),
-                                 c10::cuda::getCurrentCUDAStream().stream()));
+                                 plan, c10::cuda::getCurrentCUDAStream().stream()));
+}
+
+// [box row elements, box bytes, shared-memory bytes] of the pack's TMA form
+// for elements of `elem` bytes at block size bs, boxes of sz planes of gw
+// windows and a ring of `stages` boxes.
+std::vector<int64_t> pack_tma_layout(int64_t bs, int64_t elem, int64_t sz, int64_t gw,
+                                     int64_t stages) {
+  TORCH_CHECK(elem == 2 || elem == 4, "elem must be 2 or 4 bytes");
+  const LnnPackLayout l = lnn_pack_tma_layout(as_int(bs, "bs"), static_cast<int>(elem),
+                                              as_int(sz, "sz"), as_int(gw, "gw"),
+                                              as_int(stages, "stages"));
+  return {l.box_row, l.box_bytes, l.smem};
 }
 
 // y: [nb, C, s, s, s]; out: [B, C, nd s, nh s, nw s] in y's dtype, nb = B nd nh nw.
@@ -534,6 +552,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("conv3d_tc_fwd", &conv3d_tc_fwd,
         "the conv alone on the tensor cores, the data gradient of bf16 input");
   m.def("pack_blocks", &pack_blocks, "halo'd block pack (block_pack.cu)");
+  m.def("pack_tma_layout", &pack_tma_layout,
+        "box row, box bytes and shared memory of the pack's TMA form (block_pack.cu)");
   m.def("unpack_blocks", &unpack_blocks, "its inverse scatter (block_pack.cu)");
   m.def("interleave_up2", &interleave_up2, "2x up-interleave (interleave.cu)");
   m.def("deinterleave2", &deinterleave2, "its inverse gather (interleave.cu)");

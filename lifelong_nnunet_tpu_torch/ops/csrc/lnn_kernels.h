@@ -139,11 +139,42 @@ cudaError_t lnn_flash_attention_tc_bwd(const void* q, const void* k, const void*
                                        float* delta, void* dq, void* dk, void* dv, int BH,
                                        int N, int HD, float scale, cudaStream_t stream);
 
+// The form of a pack launch, chosen per (shape, bs, dtype, alignment) by the
+// caller's launch plan (`launch_plan` in ops/kernels/block_pack.py):
+// LNN_PACK_TMA, tensor-map boxes of `sz` z-planes of `gw` windows along W
+// (`gw` divides W / bs; the last box of a window ends on its last plane),
+// a ring of `stages` boxes in each of `blocks` persistent blocks, each
+// window's slab written by 16-byte stores;
+// LNN_PACK_SCALAR, one block per (window, channel), element by element (the
+// other fields unused).  The TMA form needs an even bs, and W * elem, bs *
+// elem and x's address multiples of 16 bytes; the launcher refuses a plan
+// that breaks that, or a tensor map the driver does not encode.
+enum { LNN_PACK_SCALAR = 0, LNN_PACK_TMA = 1 };
+struct LnnPackPlan {
+  int form;
+  int sz;
+  int gw;
+  int stages;
+  int blocks;
+};
+
+// The TMA form's layout for elements of `elem` bytes (2 or 4) at block size
+// bs, boxes of `sz` planes of `gw` windows and a ring of `stages` boxes:
+// the elements of a box row, the bytes of a box, and the bytes of dynamic
+// shared memory a block takes.  The launcher uses these; the wrapper's
+// plan is held to them (tests/test_torch_block_pack.py).
+struct LnnPackLayout {
+  int box_row;
+  long long box_bytes;
+  long long smem;
+};
+LnnPackLayout lnn_pack_tma_layout(int bs, int elem, int sz, int gw, int stages);
+
 // Halo'd block pack: x [B, C, D, H, W] of `dtype` -> out [nb, C, bs+2, bs+2,
 // bs+2], nb = B (D/bs) (H/bs) (W/bs) in row-major (b, d, h, w) block order,
 // zeros where a window leaves the volume.  bs divides D, H and W.
 cudaError_t lnn_pack_blocks(const void* x, void* out, int B, int C, int D, int H, int W,
-                            int bs, LnnDtype dtype, cudaStream_t stream);
+                            int bs, LnnDtype dtype, LnnPackPlan plan, cudaStream_t stream);
 
 // Its inverse scatter: y [nb, C, s, s, s] -> out [B, C, nd s, nh s, nw s],
 // nb = B nd nh nw in the same block order.

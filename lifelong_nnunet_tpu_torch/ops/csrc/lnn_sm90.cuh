@@ -1,8 +1,10 @@
-// PTX helpers of the port's Hopper (sm_90a) tensor-core kernels, shared by
-// conv3d_in_lrelu.cu and flash_attention.cu: asynchronous copies into
-// shared memory (`cp.async`), the fence that hands shared memory written
-// by threads to the async proxy, and warpgroup matrix products (`wgmma`)
-// with their fence / commit / wait and shared-memory descriptors.
+// PTX helpers of the port's Hopper (sm_90a) kernels: asynchronous copies
+// into shared memory (`cp.async`), the fence that hands shared memory
+// written by threads to the async proxy, and warpgroup matrix products
+// (`wgmma`) with their fence / commit / wait and shared-memory descriptors,
+// shared by conv3d_in_lrelu.cu and flash_attention.cu; the Tensor Memory
+// Accelerator's tiled loads (`cp.async.bulk.tensor`) and the `mbarrier`s
+// they complete on, used by block_pack.cu.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -43,6 +45,54 @@ static __device__ __forceinline__ void cp_async_wait() {
 static __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
+
+// ---- mbarriers: a phase completes once `count` threads have arrived and
+// the bytes announced by expect_tx have landed
+static __device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+// the barriers' initialization made visible to the async proxy (TMA)
+static __device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+static __device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
+                   bar)
+               : "memory");
+}
+// arrive, and announce `bytes` that asynchronous copies will complete on bar
+static __device__ __forceinline__ void mbar_arrive_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// spin until the phase of parity `parity` has completed
+static __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// ---- TMA: one box of a 4-D tiled tensor map (a __grid_constant__ kernel
+// parameter) at signed coordinates (innermost first) into shared memory at
+// dst (128-byte aligned), completing on bar; elements outside the tensor
+// land as the map's out-of-bounds fill
+static __device__ __forceinline__ void tma_load_4d(unsigned dst, const void* map, unsigned bar,
+                                                   int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(map), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 static __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }

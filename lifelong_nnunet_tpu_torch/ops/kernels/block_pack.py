@@ -9,6 +9,14 @@ goes through the plain PyTorch versions beside them
 launches the kernel or raises.  Both are pure copies, so kernel and plain
 version agree bit for bit.
 
+How a pack launch lies on the card is decided here, by :func:`launch_plan`,
+a pure function of the shape, bs, dtype and x's address: the ``"tma"`` form
+(Tensor Memory Accelerator boxes of ``sz`` z-planes of ``gw`` windows along
+W, zero-filled where they leave the volume, a ring of ``stages`` boxes in
+each of ``blocks`` persistent blocks) wherever the TMA rules hold, which is
+every shape of the main paths, else the ``"scalar"`` form.  ``pack_blocks``
+counts its launches in ``launches`` and, by form, in ``forms``.
+
 Layout, channels-first as the rest of the port: ``pack_blocks(x [B, C, D,
 H, W], bs)`` returns the ``(bs + 2)^3`` windows around each ``bs^3`` block,
 ``[nb, C, bs + 2, bs + 2, bs + 2]`` in row-major (b, d, h, w) block order,
@@ -31,8 +39,10 @@ and gets a zero gradient, as on the fused route.
 
 from __future__ import annotations
 
+import functools
 import itertools
 import math
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -83,6 +93,158 @@ def plain_unpack_blocks(y: torch.Tensor, B: int, grid) -> torch.Tensor:
     return out
 
 
+FORMS = ("tma", "scalar")
+# ops/csrc/block_pack.cu: threads of a TMA-form block (a producer warp and
+# kConsumerWarps consumer warps) and the alignment of its shared buffers
+THREADS = 32 * (1 + 8)
+ALIGN = 128
+# H100: shared memory one block may opt in to, and one SM's (1 KB of it
+# reserved per resident block); threads an SM holds
+SMEM_BLOCK = 232448
+SMEM_SM = 233472
+SM_THREADS = 2048
+# the layout rules, from a sweep of box widths and depths, ring depths and
+# blocks an SM at the CT routes' shapes on an H100
+# (tools/pack_probe.py --sweep; PERF.md): a box spans the most windows along
+# W that a box row holds and takes at most BOX_BYTES of whole z-planes (in
+# as few equal slabs as that allows; two planes of a row of four bf16
+# windows); a block's ring of boxes at most RING_BYTES and MAX_STAGES boxes
+# (which keeps at least IN_FLIGHT bytes of loads in flight at every shape
+# of the main paths, as the tests check); PER_SM blocks an SM
+BOX_BYTES = 20 * 1024
+RING_BYTES = 80 * 1024
+MAX_STAGES = 16
+IN_FLIGHT = 32 * 1024
+PER_SM = 1
+
+
+@dataclass(frozen=True)
+class PackPlan:
+    """One pack launch's layout.  ``form``: one of FORMS.  The TMA form
+    copies boxes ``box`` = (Wb, S, sz, 1) elements (innermost first) of
+    ``box_bytes``, each holding ``gw`` windows along W, ``slabs`` of them a
+    window, through a ring of ``stages`` of them in each of ``blocks``
+    persistent blocks of ``smem`` bytes of shared memory, over ``items``
+    (row of windows, channel, slab) items."""
+    form: str
+    sz: int = 0
+    gw: int = 0
+    slabs: int = 0
+    stages: int = 0
+    blocks: int = 0
+    box: tuple = ()
+    box_bytes: int = 0
+    smem: int = 0
+    items: int = 0
+
+    def args(self) -> tuple:
+        """The plan as the binding takes it: (form, sz, gw, stages, blocks),
+        form 1 for TMA and 0 for scalar."""
+        if self.form == "scalar":
+            return (0, 1, 1, 1, 1)
+        return (1, self.sz, self.gw, self.stages, self.blocks)
+
+
+def _round_up(v: int, a: int) -> int:
+    return -(-v // a) * a
+
+
+def _slabs_aligned(S: int, sz: int, size: int) -> bool:
+    """Every slab of ``sz`` planes (and the last, shorter one) of a window
+    of edge S starts and ends on 16 bytes of the output."""
+    plane = S * S * size
+    return plane * sz % 16 == 0 and plane * (S - (-(-S // sz) - 1) * sz) % 16 == 0
+
+
+def tma_layout(bs: int, size: int, sz: int, gw: int, stages: int) -> tuple:
+    """(box row elements, box bytes, shared-memory bytes of a block) of the
+    TMA form for elements of ``size`` bytes at block size ``bs``, boxes of
+    ``sz`` planes of ``gw`` windows and a ring of ``stages`` boxes.  A box
+    row runs from 16 bytes before its first window's first block column
+    (that window's halo column is the last element of those 16 bytes) to
+    its last window's far halo column, rounded up to 16 bytes; the block
+    holds the ring, each box at a multiple of ALIGN, two 8-byte mbarriers a
+    stage and ALIGN bytes of slack to align the ring.  The kernel's own
+    ``lnn_pack_tma_layout`` (``ext.pack_tma_layout``), to which a
+    CUDA-marked test holds this."""
+    a, S = 16 // size, bs + 2
+    row = _round_up(a - 1 + gw * bs + 2, a)
+    box = row * S * sz * size
+    return row, box, stages * _round_up(box, ALIGN) + 16 * stages + ALIGN
+
+
+def tma_rules(x_shape, bs: int, dtype: torch.dtype, aligned: bool = True) -> bool:
+    """True when the TMA form can take ``x [B, C, D, H, W]`` of ``dtype``
+    at block size ``bs``: x's address (``aligned``), its rows (W elements)
+    and its blocks' first columns (bs elements) on 16 bytes, where a box's
+    innermost start must lie; an even window edge S = bs + 2 (16-byte slabs
+    of the output); no box dimension past 256; B C within an int and every
+    stride under 2^40 bytes."""
+    B, C, D, H, W = x_shape
+    size, S = dtype.itemsize, bs + 2
+    return aligned and W * size % 16 == 0 and bs * size % 16 == 0 and S % 2 == 0 \
+        and tma_layout(bs, size, 1, 1, 1)[0] <= 256 and B * C < 2 ** 31 \
+        and D * H * W * size < 2 ** 40
+
+
+def tma_plan(x_shape, bs: int, dtype: torch.dtype, sz: int, stages: int, per_sm: int,
+             sms: int = 132, gw: int = 1) -> PackPlan:
+    """The TMA-form layout with boxes of ``sz`` planes of ``gw`` windows,
+    ``stages`` of them a block, ``per_sm`` blocks an SM (at most what the
+    SM holds)."""
+    B, C, D, H, W = x_shape
+    size, S = dtype.itemsize, bs + 2
+    wb, box_bytes, smem = tma_layout(bs, size, sz, gw, stages)
+    slabs = -(-S // sz)
+    per_sm = max(1, min(per_sm, SMEM_SM // (smem + 1024), SM_THREADS // THREADS))
+    items = B * C * (D // bs) * (H // bs) * (W // bs // gw) * slabs
+    return PackPlan("tma", sz, gw, slabs, stages, min(items, sms * per_sm),
+                    (wb, S, sz, 1), box_bytes, smem, items)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(x_shape, bs: int, dtype: torch.dtype, aligned: bool, sms: int) -> PackPlan:
+    if not tma_rules(x_shape, bs, dtype, aligned):
+        return PackPlan("scalar")
+    size, S = dtype.itemsize, bs + 2
+    nw = x_shape[4] // bs
+    gw = max(d for d in range(1, nw + 1)
+             if nw % d == 0 and tma_layout(bs, size, 1, d, 1)[0] <= 256)
+    plane = tma_layout(bs, size, 1, gw, 1)[1]     # box bytes of one z-plane
+    slabs = -(-S // max(1, min(S, BOX_BYTES // plane)))
+    sz = next(z for z in range(-(-S // slabs), S + 1) if _slabs_aligned(S, z, size))
+    box = _round_up(plane * sz, ALIGN)
+    stages = max(2, min(MAX_STAGES, RING_BYTES // box))
+    while stages > 1 and tma_plan(x_shape, bs, dtype, sz, stages, 1, gw=gw).smem > SMEM_BLOCK:
+        stages -= 1
+    plan = tma_plan(x_shape, bs, dtype, sz, stages, PER_SM, sms=sms, gw=gw)
+    return plan if plan.smem <= SMEM_BLOCK else PackPlan("scalar")
+
+
+def launch_plan(x_shape, bs: int, dtype: torch.dtype, data_ptr: int = 0,
+                sms: int = 132) -> PackPlan:
+    """The layout of one pack launch on contiguous ``x`` of ``x_shape`` [B,
+    C, D, H, W] and ``dtype`` at block size ``bs``, x at address
+    ``data_ptr``, on a card of ``sms`` SMs: the TMA form wherever
+    :func:`tma_rules` hold, with boxes as wide as a box row allows (the
+    most windows along W, a divisor of W / bs, within 256 elements) and as
+    deep as BOX_BYTES allows (whole z-planes, in equal slabs), a ring of
+    them within RING_BYTES, PER_SM persistent blocks an SM; else the scalar
+    form.  Cached by shape."""
+    return _plan(tuple(x_shape), bs, dtype, data_ptr % 16 == 0, sms)
+
+
+_sms: dict = {}
+
+
+def card_sms(device: torch.device) -> int:
+    """The SMs of ``device``, asked once."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sms[index]
+
+
 def _check_dtype(t: torch.Tensor, what: str) -> None:
     if t.dtype not in build.DTYPES:
         raise TypeError(f"{what} kernel takes float32/bfloat16, got {t.dtype}")
@@ -90,7 +252,8 @@ def _check_dtype(t: torch.Tensor, what: str) -> None:
 
 def pack_blocks(x: torch.Tensor, bs: int) -> torch.Tensor:
     """``x [B, C, D, H, W]`` -> ``[nb, C, bs + 2, bs + 2, bs + 2]``, ``bs``
-    dividing D, H and W.  One launch of the pack kernel for a CUDA tensor."""
+    dividing D, H and W.  One launch of the pack kernel for a CUDA tensor,
+    in the form its launch plan gives."""
     if x.dim() != 5 or any(s % bs for s in x.shape[2:]):
         raise ValueError(f"pack_blocks takes x [B, C, D, H, W] with bs {bs} dividing "
                          f"D, H and W, got {tuple(x.shape)}")
@@ -98,14 +261,18 @@ def pack_blocks(x: torch.Tensor, bs: int) -> torch.Tensor:
         return plain_pack_blocks(x, bs)
     dev = build.require_cuda(x)
     _check_dtype(x, "pack_blocks")
+    xc = x.contiguous()
     nb = x.shape[0] * math.prod(_grid(x.shape[2:], bs))
     out = torch.empty((nb, x.shape[1]) + (bs + 2,) * 3, dtype=x.dtype, device=dev)
-    build.load_extension().pack_blocks(x.contiguous(), out, bs)
+    plan = launch_plan(xc.shape, bs, xc.dtype, xc.data_ptr(), card_sms(dev))
+    build.load_extension().pack_blocks(xc, out, bs, *plan.args())
     pack_blocks.launches += 1
+    pack_blocks.forms[plan.form] += 1
     return out
 
 
 pack_blocks.launches = 0
+pack_blocks.forms = dict.fromkeys(FORMS, 0)
 
 
 def unpack_blocks(y: torch.Tensor, B: int, grid) -> torch.Tensor:

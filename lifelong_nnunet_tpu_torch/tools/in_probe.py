@@ -1,8 +1,9 @@
 """Time the InstanceNorm + LeakyReLU kernels (``instance_norm_leaky_cf`` and
 ``instance_norm_leaky_bwd_cf``, bf16) by device time per launch
-(torch.profiler), at the shapes the main paths give them, each beside its
-bytes bound and a yardstick; with ``--step``, time the CT-scale U-Net's
-train step and split its device time by kernel.
+(torch.profiler; a call of 1 ms or more by CUDA events, by the rule of
+``flash_probe.device_kernels``), at the shapes the main paths give them,
+each beside its bytes bound and a yardstick; with ``--step``, time the
+CT-scale U-Net's train step and split its device time by kernel.
 
     python3 lifelong_nnunet_tpu_torch/tools/in_probe.py [--root DIR] [--groups G ...] [--step]
 
@@ -31,6 +32,11 @@ import time
 
 import torch
 import torch.nn.functional as F
+
+try:  # the running tree's timing, also where --root imports another package
+    from .flash_probe import device_kernels
+except ImportError:  # run as a script
+    from flash_probe import device_kernels
 
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
 # the plain version is timed where x in f32 takes at most this many bytes
@@ -118,7 +124,6 @@ def time_group(name: str, gen) -> dict:
     plain version's where its f32 copy of x fits PLAIN_BYTES, and their
     sums weighted by the launches per forward or step (``plain_ms`` None
     where a shape has none)."""
-    from lifelong_nnunet_tpu_torch.tools.flash_probe import device_kernels
     direction, B, shapes = GROUPS[name]
     rows, tot = [], {"ms": 0.0, "yard_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     for C, N, count in shapes:
@@ -149,7 +154,6 @@ def sweep(name: str, gen) -> list:
     from lifelong_nnunet_tpu_torch.ops.kernels import build
     from lifelong_nnunet_tpu_torch.ops.kernels.instance_norm import (
         card_limits, cluster_plan, launch_plan)
-    from lifelong_nnunet_tpu_torch.tools.flash_probe import device_kernels
     direction, B, shapes = GROUPS[name]
     ext, limits = build.load_extension(), card_limits(gen.device)
     out = []

@@ -9,6 +9,9 @@ before the comparison.  On the CPU the port's wrappers take their plain
 versions; the CUDA kernels are compared with those bit for bit on the card
 (marked ``cuda``, skipped without one, and run by chip_smoke.py)."""
 
+import itertools
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -190,3 +193,130 @@ def test_kernels_equal_plain_on_cuda(cuda_device, dtype):
             assert torch.equal(tbp.unpack_blocks(y, b, grid), tbp.plain_unpack_blocks(y, b, grid))
     assert (tbp.pack_blocks.launches, tbp.unpack_blocks.launches) == (
         before[0] + len(cases), before[1] + 2 * len(cases))
+
+
+# (C, edge) of the CT routes' pack inputs at bs 32 (the CT U-Net's blocked
+# convs and their data gradients), at the train batch 2 and the serving 64
+MAIN_PACKS = [(1, 128), (32, 128), (64, 64), (64, 128)]
+SMEM_227K = 227 * 1024
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [2, 64])
+@pytest.mark.parametrize("C,edge", MAIN_PACKS)
+def test_launch_plan_takes_tma_at_every_main_path_shape(C, edge, batch, dtype):
+    """Every pack of the six main paths takes the TMA form, with a box the
+    hardware takes (rows of 16-byte multiples from 16 bytes before the
+    first of its windows along W, covering the last; no dimension past
+    256), a
+    block within 227 KB of shared memory keeping at least IN_FLIGHT bytes
+    of loads in flight, slabs that cover the window on 16-byte boundaries
+    of the output, and a persistent grid no larger than the items."""
+    x_shape = (batch, C) + (edge,) * 3
+    size = dtype.itemsize
+    plan = tbp.launch_plan(x_shape, 32, dtype, 0)
+    wb, S, sz, one = plan.box
+    assert plan.form == "tma" and plan.args()[0] == 1 and (S, one) == (34, 1)
+    a, nw = 16 // size, edge // 32
+    assert nw % plan.gw == 0 and wb % a == 0
+    assert a + 1 + 32 * plan.gw <= wb < 2 * a + 1 + 32 * plan.gw
+    assert max(plan.box) <= 256 and plan.box_bytes == wb * S * sz * size
+    assert plan.smem <= SMEM_227K
+    assert plan.stages * plan.box_bytes >= tbp.IN_FLIGHT
+    assert (plan.slabs - 1) * sz < S <= plan.slabs * sz
+    for p0 in range(0, S, sz):
+        assert p0 * S * S * size % 16 == 0 and (min(p0 + sz, S) - p0) * S * S * size % 16 == 0
+    assert plan.items == batch * C * nw ** 2 * (nw // plan.gw) * plan.slabs
+    assert 1 <= plan.blocks <= min(plan.items, 132 * (2048 // tbp.THREADS))
+
+
+@pytest.mark.parametrize("x_shape,bs,dtype,offset", [
+    ((1, 2, 15, 15, 15), 5, torch.float32, 0),      # rows of 60 bytes, odd bs
+    ((1, 2, 36, 36, 36), 9, torch.float32, 0),      # odd bs: slabs off 16 bytes
+    ((1, 2, 16, 16, 16), 8, torch.bfloat16, 1),     # x 2 bytes past 16
+    ((2, 3, 32, 32, 32), 16, torch.float32, 3),     # x 12 bytes past 16
+])
+def test_launch_plan_takes_scalar_where_tma_rules_fail(x_shape, bs, dtype, offset):
+    """The scalar form for a shape or an address the TMA form cannot take:
+    rows not a multiple of 16 bytes, an odd window edge, an input at an odd
+    storage offset; the same shape at an aligned address takes TMA where
+    only the address failed."""
+    x = torch.zeros(math.prod(x_shape) + offset, dtype=dtype)[offset:].view(x_shape)
+    assert x.is_contiguous() and x.storage_offset() == offset
+    plan = tbp.launch_plan(x.shape, bs, dtype, x.data_ptr())
+    assert plan.form == "scalar" and plan.args()[0] == 0
+    if offset:
+        assert tbp.launch_plan(x.shape, bs, dtype, 0).form == "tma"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pack_forms_equal_plain_on_cuda(cuda_device, dtype, bs):
+    """Both forms of the pack equal the plain version bit for bit: C = 1 at
+    B = 3 on a 3x3x3 grid of windows (every face, edge and corner, and one
+    inside), a non-cubic grid (64 x 32 x 96 at bs 32, scaled with bs), an
+    input made contiguous from a transposed view; the TMA form as planned
+    (counted under ``forms``), with one-window boxes and with two-plane
+    boxes (several slabs a window, the last box overlapping its
+    neighbour), and the scalar form for an input off 16 bytes."""
+    from lifelong_nnunet_tpu_torch.ops.kernels import build
+    ext = build.load_extension()
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    sms = tbp.card_sms(cuda_device)
+
+    def randn(shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+
+    xs = [randn((3, 1) + (3 * bs,) * 3),
+          randn((2, 4) + tuple(e * bs // 32 for e in (64, 32, 96))),
+          randn((2, 3) + tuple(e * bs // 32 for e in (96, 64, 32))).transpose(2, 4)]
+    for x in xs:
+        ref = tbp.plain_pack_blocks(x, bs)
+        before = dict(tbp.pack_blocks.forms)
+        assert torch.equal(tbp.pack_blocks(x, bs), ref)
+        assert tbp.pack_blocks.forms == {**before, "tma": before["tma"] + 1}
+        xc = x.contiguous()
+        plan = tbp.launch_plan(xc.shape, bs, dtype, xc.data_ptr(), sms)
+        for gw, sz in ((1, plan.sz), (1, 2), (plan.gw, 2)):
+            p = tbp.tma_plan(xc.shape, bs, dtype, sz, 2, 2, sms, gw)
+            out = torch.full_like(ref, float("nan"))
+            ext.pack_blocks(xc, out, bs, *p.args())
+            torch.cuda.synchronize()
+            assert torch.equal(out, ref), (tuple(x.shape), gw, sz)
+        off = torch.empty(xc.numel() + 1, dtype=dtype, device=cuda_device)[1:].view(xc.shape)
+        off.copy_(xc)
+        assert tbp.launch_plan(off.shape, bs, dtype, off.data_ptr(), sms).form == "scalar"
+        before = dict(tbp.pack_blocks.forms)
+        assert torch.equal(tbp.pack_blocks(off, bs), ref)
+        assert tbp.pack_blocks.forms == {**before, "scalar": before["scalar"] + 1}
+
+
+@pytest.mark.cuda
+def test_tma_layout_equals_the_kernels(cuda_device):
+    """The wrapper's TMA layout (box row, box bytes, shared memory), from
+    which the launch plan picks its ring, is the kernel's own
+    (``lnn_pack_tma_layout``): at both element sizes, bs 8 / 16 / 32, one
+    to eight windows a box, 1-34 planes and 1-16 stages."""
+    from lifelong_nnunet_tpu_torch.ops.kernels import build
+    ext = build.load_extension()
+    for size, bs, gw, sz, stages in itertools.product((2, 4), (8, 16, 32), (1, 2, 4, 8),
+                                                      (1, 2, 17, 34), (1, 4, 16)):
+        want = tuple(ext.pack_tma_layout(bs, size, min(sz, bs + 2), gw, stages))
+        assert tbp.tma_layout(bs, size, min(sz, bs + 2), gw, stages) == want, \
+            (size, bs, gw, sz, stages)
+
+
+@pytest.mark.parametrize("size,bs,gw,want_row", [
+    (2, 32, 4, 144), (2, 32, 1, 48), (4, 32, 1, 40), (4, 16, 2, 40), (2, 8, 8, 80)])
+def test_tma_layout_box_row(size, bs, gw, want_row):
+    """A box row runs from 16 bytes before its first window's block column
+    to its last window's far halo column, in whole 16 bytes; the ring's
+    boxes sit on ALIGN bytes, with two 8-byte mbarriers a stage and ALIGN
+    bytes of slack."""
+    row, box, smem = tbp.tma_layout(bs, size, 2, gw, 3)
+    a = 16 // size
+    assert row == want_row and row % a == 0
+    assert a - 1 + gw * bs + 2 <= row < 2 * a - 1 + gw * bs + 2
+    assert box == row * (bs + 2) * 2 * size
+    assert smem == 3 * (-(-box // tbp.ALIGN) * tbp.ALIGN) + 3 * 16 + tbp.ALIGN

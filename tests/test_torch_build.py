@@ -52,8 +52,8 @@ def test_the_header_declares_the_launchers():
                             "lnn_conv3d_tc_workspace_len", "lnn_conv3d_tc",
                             "lnn_flash_attention_fwd", "lnn_flash_attention_bwd",
                             "lnn_flash_attention_tc_fwd", "lnn_flash_attention_tc_bwd",
-                            "lnn_pack_blocks", "lnn_unpack_blocks", "lnn_interleave_up2",
-                            "lnn_deinterleave2"]
+                            "lnn_pack_tma_layout", "lnn_pack_blocks", "lnn_unpack_blocks",
+                            "lnn_interleave_up2", "lnn_deinterleave2"]
 
 
 @pytest.mark.parametrize("launcher", _launchers())
