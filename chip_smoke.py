@@ -104,21 +104,42 @@ Phases (one line each; any failure raises, so the exit code is not 0):
      segmentation against the plain route's; the f32 step check of phase 6
      on the CT routes; warm s/step in turns (plain, kernel, CT routes and
      back), s/volume of both kernel routes, peak memory and the CT route's
-     device time by kernel.
-Phases 4, 6 and 8 run with both switches set: at hippocampus scale the
+     device time by kernel;
+  11. a task sequence: phase 4's task A and a task B of the same shape
+     (``Task098_SynthB``, seed 7, intensity shift 0.8), planned and
+     preprocessed the same way, trained at full width by
+     ``nnUNet_torch_train_sequential 3d_fullres -t A B`` and then
+     ``nnUNet_torch_train_rehearsal`` (1 epoch of 30 steps and 2 validation
+     batches per task, ``-save_interval 1 --use_progress_val --device
+     cuda``): each task's loss finite, the launch counters of the four
+     kernels as the route predicts per train step, per validation batch
+     and per progress-validation forward (each val case's windows from
+     ``window_grid`` in batches of 4; after A on A, after B on A and B),
+     ``val_metrics.json`` after B holding both tasks with their own
+     heads, the rehearsal pool of B holding B's train cases and
+     max(1, round(0.25 n_A)) of A's; a second ``-c`` run of the
+     sequential command trains nothing (every counter 0);
+     ``nnUNet_torch_inference sequential -trained_on A B -use_head X``
+     serves each head on each task's images (launches as predicted, the
+     Dice of each head on each task recorded), one case's segmentation
+     agreeing with the plain route's on >= 99% of voxels; seconds per
+     task, warm s/step (synchronized per step), the progress validation's
+     seconds and peak memory.
+Phases 4, 6, 8 and 11 run with both switches set: at hippocampus scale the
 gates admit nothing, so their launch counts are those of the ordinary
 routes.  The fused conv, its data gradient and flash attention (forward
 and backward) count every launch and, apart, those on the tensor-core
-kernels: on the six main paths (bf16) every one must take them, in the f32
+kernels: on the eight main paths (bf16) every one must take them, in the f32
 checks of phases 4, 6, 8 and 10 none.  The line
 before the last is the kernels' JSON record (the U-Net's forward kernels
 per forward at the serving path's largest batch, its backward kernels per
 train step, the flash kernels per ViT-U-Net train step, the copy kernels
 per CT train step, the pack by device time with its CUDA-event median as
 ``event_ms`` and its time per CT serving forward as ``serve_ms`` beside
-``serve_bound_ms``; ``launches`` summed over the six paths' runs, and per
+``serve_bound_ms``; ``launches`` summed over the eight paths' runs, and per
 path under ``launches_by_path``: ``serve``, ``train``, ``vit_train``,
-``vit_serve``, ``ct_train``, ``ct_serve``; the two kernels of the fused
+``vit_serve``, ``ct_train``, ``ct_serve``, ``cl_train`` (both sequence
+trainings) and ``cl_serve`` (the four servings of phase 11); the two kernels of the fused
 conv, its data gradient and flash attention as ``conv3d_in_lrelu_tc`` /
 ``conv3d_dx_tc`` / ``flash_attention_tc`` / ``flash_attention_bwd_tc``
 (the tensor-core kernels) and ``conv3d_in_lrelu_f32`` / ``conv3d_dx_f32``
@@ -162,7 +183,8 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from lifelong_nnunet_tpu_torch.data.augment import AugmentConfig  # noqa: E402
-from lifelong_nnunet_tpu_torch.data.dataset import PreprocessedDataset  # noqa: E402
+from lifelong_nnunet_tpu_torch.data.dataset import (  # noqa: E402
+    PreprocessedDataset, final_splits)
 from lifelong_nnunet_tpu_torch.data.sampler import PatchSampler  # noqa: E402
 from lifelong_nnunet_tpu_torch.device import resolve_device  # noqa: E402
 from lifelong_nnunet_tpu_torch.evaluation.metrics import subject_metrics  # noqa: E402
@@ -189,7 +211,7 @@ from lifelong_nnunet_tpu_torch.planning.plans import Plans, plans_path  # noqa: 
 from lifelong_nnunet_tpu_torch.run.plan_and_preprocess import plan_and_preprocess  # noqa: E402
 from lifelong_nnunet_tpu_torch.run.run_inference import run_inference  # noqa: E402
 from lifelong_nnunet_tpu_torch.run.run_training import (  # noqa: E402
-    output_folder, run_training)
+    output_folder, run_training, trainer_name)
 from lifelong_nnunet_tpu_torch.run.run_training_vit import run_training_vit  # noqa: E402
 from lifelong_nnunet_tpu_torch.tools import in_probe  # noqa: E402
 from lifelong_nnunet_tpu_torch.tools import pack_probe  # noqa: E402
@@ -197,10 +219,13 @@ from lifelong_nnunet_tpu_torch.tools.flash_probe import device_ms  # noqa: E402
 from lifelong_nnunet_tpu_torch.training.checkpoints import (  # noqa: E402
     base_manifest, save_checkpoint)
 from lifelong_nnunet_tpu_torch.training.optimizer import PolySGD  # noqa: E402
-from lifelong_nnunet_tpu_torch.training.output_paths import arch_dir  # noqa: E402
+from lifelong_nnunet_tpu_torch.training.output_paths import (  # noqa: E402
+    arch_dir, build_output_folder)
 from lifelong_nnunet_tpu_torch.training.restore import restore_model  # noqa: E402
 from lifelong_nnunet_tpu_torch.training.train_step import (  # noqa: E402
     StepConfig, make_train_step)
+from lifelong_nnunet_tpu_torch.training.trainer import MultiHeadTrainer  # noqa: E402
+from lifelong_nnunet_tpu_torch.training.trainers.rehearsal import RehearsalTrainer  # noqa: E402
 from lifelong_nnunet_tpu_torch.utilities.imageio import read_image  # noqa: E402
 from lifelong_nnunet_tpu_torch.utilities.synthetic import make_synthetic_task  # noqa: E402
 
@@ -241,6 +266,9 @@ CT_WINDOWS = 8
 CT_SERVE_BATCH = WINDOW_BATCH * TTA
 CT_TRAIN_ITERS, CT_VAL_ITERS, CT_STEP_REPS = 20, 2, 5
 CT_ROUTES = {"blocked_conv": True, "upsample": "interleave"}
+# the task sequence (phase 11): steps and validation batches per task, the
+# progress validation's window batch (the trainer's)
+SEQ_ITERS, SEQ_VAL_ITERS, SEQ_WINDOW_BATCH = 30, 2, 4
 DIRECT_ROUTES = {"blocked_conv": False, "upsample": "direct"}
 # f32 copies at the serving batch are checked where the kernel's input and
 # output fit in this many bytes (the largest, 64 x 64 x 128^3, would not fit
@@ -1308,6 +1336,248 @@ def _ct_path(ct_dir, plans, blocks, model, work, pre, results, dev) -> dict:
             {"ct_serve_f32": fma_serve, "ct_train_f32_step": fma_step})
 
 
+class _SequenceProbe:
+    """Phase 11's measurements, by wrapping three trainer methods while the
+    CLIs run: the seconds of each ``train_task`` and of each
+    ``_perform_validation`` (synchronized), every train step's seconds
+    (synchronized before and after the step), and the rehearsal pool of
+    each task.  The wrappers only time and record."""
+
+    def __init__(self):
+        self.tasks, self.steps, self.val_s, self.pools = [], {}, [], {}
+        self._saved = {}
+
+    def _wrap(self, cls, name, make):
+        self._saved[(cls, name)] = getattr(cls, name)
+        setattr(cls, name, make(getattr(cls, name)))
+
+    def __enter__(self):
+        probe = self
+
+        def train_task(orig):
+            def timed(self, task, *args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                probe.steps[task] = []
+                out = orig(self, task, *args, **kw)
+                torch.cuda.synchronize()
+                probe.tasks.append((task, time.perf_counter() - t0))
+                return out
+            return timed
+
+        def build_step(orig):
+            def wrapped(self):
+                orig(self)
+                step, task = self._train_step, self.mh.active_task
+
+                def timed(cl_state, batch):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = step(cl_state, batch)
+                    torch.cuda.synchronize()
+                    probe.steps.setdefault(task, []).append(time.perf_counter() - t0)
+                    return out
+                self._train_step = timed
+            return wrapped
+
+        def validation(orig):
+            def timed(self, *args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = orig(self, *args, **kw)
+                torch.cuda.synchronize()
+                probe.val_s.append(time.perf_counter() - t0)
+                return out
+            return timed
+
+        def pool(orig):
+            def recorded(self, task):
+                out = orig(self, task)
+                probe.pools[task] = [(os.path.basename(os.path.dirname(ds.stage_dir)), c)
+                                     for ds, c in out]
+                return out
+            return recorded
+
+        self._wrap(MultiHeadTrainer, "train_task", train_task)
+        self._wrap(MultiHeadTrainer, "_build_step", build_step)
+        self._wrap(MultiHeadTrainer, "_perform_validation", validation)
+        self._wrap(RehearsalTrainer, "rehearsal_pool", pool)
+        return self
+
+    def __exit__(self, *exc):
+        for (cls, name), orig in self._saved.items():
+            setattr(cls, name, orig)
+
+    def warm_step_s(self, task, skip=3):
+        return statistics.median(self.steps[task][skip:])
+
+
+def _sequence_path(task_dir, plans, shapes, work, pre, results, dev) -> dict:
+    """Phase 11: a sequence of two hippocampus-scale tasks through the CL
+    entry points (see the module docstring).  Returns the launch counts of
+    the training runs (``cl_train``) and of serving the heads
+    (``cl_serve``)."""
+    cfg = plans.config("3d_fullres")
+    patch, b2, classes = tuple(cfg.patch_size), TRAIN_BATCH, plans.num_classes + 1
+    n_fused = sum(f for f, _, _ in shapes)
+    n_strided = len(shapes) - n_fused
+    strided = _rows([o for f, _, o in shapes if not f])
+    all_rows = _rows([o for _, _, o in shapes])
+    a_dir = task_dir
+    b_dir = make_synthetic_task(os.path.dirname(task_dir), task_name="Task098_SynthB",
+                                shape=SMALL_SHAPE, num_cases=4, seed=7, intensity_shift=0.8)
+    plan_and_preprocess([b_dir], pre, configs=("3d_fullres",), verbose=False)
+    raw_dirs = {os.path.basename(d): d for d in (a_dir, b_dir)}
+    tasks = list(raw_dirs)
+    stages = {t: PreprocessedDataset(os.path.join(pre, t, "nnUNetData_plans_v2.1_3d_fullres"))
+              for t in tasks}
+    splits = {t: final_splits(os.path.join(pre, t), stages[t].cases)[0] for t in tasks}
+
+    def val_batches(t):
+        """The progress validation's window batches over ``t``'s val cases."""
+        out = []
+        for case in splits[t]["val"]:
+            n = len(window_grid(stages[t].load(case).shape[1:], patch)[2])
+            out += [min(SEQ_WINDOW_BATCH, n - i) for i in range(0, n, SEQ_WINDOW_BATCH)]
+        return out
+
+    # after A: A's val cases with head A; after B: A's and B's, each its head
+    progress = val_batches(tasks[0]) * 2 + val_batches(tasks[1])
+    steps, vals = 2 * SEQ_ITERS, 2 * SEQ_VAL_ITERS
+    forwards = steps + vals + len(progress)
+    expect_train = _expect(
+        conv3d_in_lrelu=n_fused * forwards, instance_norm_leaky=n_strided * forwards,
+        conv3d_dx=(n_fused - 1) * steps, instance_norm_leaky_bwd=(n_fused + n_strided) * steps,
+        **_in_forms(dev, fwd=_at(strided, [(b2, steps + vals)] + [(b, 1) for b in progress]),
+                    bwd=_at(all_rows, [(b2, steps)])))
+    argv = ["3d_fullres", "-t"] + tasks + [
+        "-num_epochs", "1", "-num_iters", str(SEQ_ITERS), "-val_iters", str(SEQ_VAL_ITERS),
+        "-save_interval", "1", "--use_progress_val", "--device", "cuda"]
+    ext_root = os.path.join(results, "nnUNet_ext")
+
+    def folder(ext, upto):
+        return build_output_folder(ext_root, "3d_fullres", tasks, tasks[: upto + 1],
+                                   trainer_name(ext), plans.plans_name, 0, True)
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+    train_launches, probes, peak_gb = {}, {}, {}
+    for ext in ("sequential", "rehearsal"):
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with _SequenceProbe() as probe:
+            run_training(ext, argv)
+        torch.cuda.synchronize()
+        peak_gb[ext] = torch.cuda.max_memory_allocated() / 1e9
+        train_launches[ext] = _counts()
+        assert train_launches[ext] == expect_train, (ext, train_launches[ext], expect_train)
+        probes[ext] = probe
+        final = folder(ext, 1)
+        with open(os.path.join(final, "progress.json")) as f:
+            record = json.load(f)
+        assert len(record["step_losses"]) == steps, len(record["step_losses"])
+        assert all(map(math.isfinite, record["step_losses"]))
+        assert [e["task"] for e in record["epochs"]] == tasks, record["epochs"]
+        assert all(math.isfinite(e["tr_loss"]) and math.isfinite(e["val_loss"])
+                   for e in record["epochs"])
+        with open(os.path.join(final, "val_metrics.json")) as f:
+            history = json.load(f)
+        assert [{t: r["head"] for t, r in h["results"].items()} for h in history] == \
+            [{tasks[0]: tasks[0]}, {t: t for t in tasks}], history
+        assert all(sorted(history[-1]["results"][t]["subjects"]) == sorted(splits[t]["val"])
+                   for t in tasks)
+        assert [t for t, _ in probe.tasks] == tasks and len(probe.val_s) == 2
+    pools = probes["rehearsal"].pools
+    tr_a, tr_b = splits[tasks[0]]["train"], splits[tasks[1]]["train"]
+    n_rehearsed = max(1, round(0.25 * len(tr_a)))
+    assert pools[tasks[0]] == [(tasks[0], c) for c in tr_a], pools
+    assert pools[tasks[1]][: len(tr_b)] == [(tasks[1], c) for c in tr_b], pools
+    rehearsed = pools[tasks[1]][len(tr_b):]
+    assert len(rehearsed) == n_rehearsed == len(set(rehearsed)), pools
+    assert all(t == tasks[0] and c in tr_a for t, c in rehearsed), pools
+
+    # a second -c run of the finished sequence trains nothing
+    _reset_counts()
+    run_training("sequential", argv + ["-c"])
+    resume_launches = _counts()
+    assert resume_launches == _expect(), resume_launches
+
+    # serving each head on each task's images
+    images = {t: os.path.join(raw_dirs[t], "imagesTr") for t in tasks}
+    labels = {t: os.path.join(raw_dirs[t], "labelsTr") for t in tasks}
+    serve_batches = []
+    for t in tasks:
+        for _, files in case_files(images[t]):
+            data, _ = preprocess_for_inference(files, plans, "3d_fullres")
+            n = len(window_grid(data.shape[:-1], patch)[2])
+            serve_batches += [min(WINDOW_BATCH, n - i) * TTA for i in range(0, n, WINDOW_BATCH)]
+    serve_batches *= len(tasks)            # every head on every task
+    _reset_counts()
+    dice, served = {}, {}
+    for head in tasks:
+        for t in tasks:
+            out = os.path.join(work, f"seq_{head}_on_{t}")
+            run_inference(["3d_fullres", "sequential", "-i", images[t], "-o", out,
+                           "-trained_on"] + tasks + ["-use_head", head, "-window_batch",
+                                                     str(WINDOW_BATCH), "--device", "cuda"])
+            served[(head, t)] = out
+            per_case = []
+            for case, files in case_files(images[t]):
+                seg = np.asarray(read_image(os.path.join(out, f"{case}.nii.gz")).data)
+                label = np.asarray(read_image(os.path.join(labels[t], f"{case}.nii.gz")).data)
+                assert seg.shape == label.shape and int(seg.max()) < classes
+                per_case.append(float(np.nanmean(subject_metrics(seg, label, classes)["Dice"])))
+            dice[(head, t)] = statistics.mean(per_case)
+    serve_launches = _counts()
+    assert serve_launches == _expect(
+        conv3d_in_lrelu=n_fused * len(serve_batches),
+        instance_norm_leaky=n_strided * len(serve_batches),
+        **_in_forms(dev, fwd=_at(strided, [(b, 1) for b in serve_batches]))), serve_launches
+
+    # one case of B with head B on the plain route against the served one
+    ckpt = os.path.join(folder("sequential", 1), "model_final_checkpoint")
+    case, files = case_files(images[tasks[1]])[0]
+    m, _, _ = restore_model(ckpt, dev, head=tasks[1], use_kernels=False)
+    plain_seg, _, _ = predict_case([m], files, plans, "3d_fullres", device=dev,
+                                   window_batch=WINDOW_BATCH)
+    del m
+    kernel_seg = np.asarray(read_image(os.path.join(served[(tasks[1], tasks[1])],
+                                                    f"{case}.nii.gz")).data)
+    agree = float((kernel_seg == plain_seg).mean())
+    assert agree >= 0.99, agree
+
+    per_step = (f"per step {{conv3d_in_lrelu: {n_fused}, instance_norm_leaky: {n_strided}, "
+                f"conv3d_dx: {n_fused - 1}, instance_norm_leaky_bwd: {n_fused + n_strided}}}, "
+                f"+{n_fused}/+{n_strided} per val batch and per progress-validation forward")
+    for ext in ("sequential", "rehearsal"):
+        probe = probes[ext]
+        print(f"[phase 11] nnUNet_torch_train_{ext} -t {' '.join(tasks)} --device cuda, full "
+              f"width, patch {patch}, batch {b2}, 1 epoch x {SEQ_ITERS} steps + {SEQ_VAL_ITERS} "
+              f"val batches per task, progress validation after each task ("
+              f"{len(progress)} forwards, window batches {progress}): seconds per task "
+              + ", ".join(f"{t} {s:.2f}" for t, s in probe.tasks)
+              + f"; warm s/step (median of steps 4-{SEQ_ITERS}, synchronized) "
+              + ", ".join(f"{t} {probe.warm_step_s(t):.4f}" for t in tasks)
+              + f"; progress validation {[round(s, 3) for s in probe.val_s]} s; peak "
+              f"{peak_gb[ext]:.2f} GB; launches {train_launches[ext]} == predicted, "
+              + per_step, flush=True)
+    print(f"[phase 11] rehearsal pool of {tasks[1]}: its {len(tr_b)} train cases + "
+          f"{n_rehearsed} of {tasks[0]}'s {len(tr_a)} ({[c for _, c in rehearsed]}, "
+          f"RandomState(3299)); val_metrics.json after {tasks[1]} holds {tasks} with their "
+          f"own heads; a second -c run trained nothing (all launch counts 0)", flush=True)
+    print(f"[phase 11] nnUNet_torch_inference sequential -trained_on {' '.join(tasks)} "
+          f"-use_head <head>: {len(serve_batches)} forwards, launches {serve_launches} == "
+          f"predicted; mean foreground Dice (random init + {SEQ_ITERS} steps per task, "
+          f"recorded; rows head, columns images) "
+          + "; ".join(f"head {h}: " + ", ".join(f"{t} {dice[(h, t)]:.4f}" for t in tasks)
+                      for h in tasks)
+          + f"; {case} with head {tasks[1]}: seg agreement kernel vs plain route {agree:.5f} "
+          f"(limit 0.99)", flush=True)
+    cl_train = {k: train_launches["sequential"][k] + train_launches["rehearsal"][k]
+                for k in train_launches["sequential"]}
+    return {"cl_train": cl_train, "cl_serve": serve_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs an NVIDIA GPU: "
@@ -1960,6 +2230,9 @@ def main() -> int:
         # ---- phase 10: the CT path through its entry points
         ct_paths, fma_ct = _ct_path(ct_dir, ct_plans, ct_blocks, model_ct, work, pre,
                                     results, dev)
+
+        # ---- phase 11: a task sequence through the CL entry points
+        cl_paths = _sequence_path(task_dir, plans, shapes, work, pre, results, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2011,7 +2284,7 @@ def main() -> int:
                                   ("interleave_up2", "interleave.cu", "interleave.py:58"),
                                   ("deinterleave2", "interleave.cu", "interleave.py:73"))]
     paths = {"serve": launches, "train": train_launches, "vit_train": vit_train_launches,
-             "vit_serve": vit_serve_launches, **ct_paths}
+             "vit_serve": vit_serve_launches, **ct_paths, **cl_paths}
     # the FMA kernel runs f32 input only, off the bf16 main paths (0
     # launches there, asserted above); its launches in the f32 checks of
     # phases 4, 6, 8 and 10 are kept apart, under ``check_launches``

@@ -131,9 +131,13 @@ def predict_case(models_per_fold: list, image_files: list, plans,
     probs = None
     for model in models_per_fold:
         # bf16-rounded probabilities, as the JAX package's device->host
-        # transfer; ensembling, resampling and argmax run in f32 on the host
+        # transfer; ensembling, resampling and argmax run in f32 on the host.
+        # A ViT-U-Net's position embeddings fix its window: the patch it was
+        # trained at (restore_model sets it from the manifest), which may
+        # differ from the plans' (the JAX package windows with the plans')
         p = predict_sliding_window(
-            model, data, cfg.patch_size, plans.num_classes + 1, device=device,
+            model, data, getattr(model, "patch_size", cfg.patch_size),
+            plans.num_classes + 1, device=device,
             mirror_axes=mirror_axes if do_tta else (),
             step_fraction=step_fraction, window_batch=window_batch,
             output="probs_bf16")

@@ -10,6 +10,12 @@ the head, the rest the body (the reference's recursive split, its
 the JAX package).  The default split ``seg_outputs`` puts every ``seg*``
 head in the head.  Tensors are cloned on the way in, so the optimizer's
 in-place updates of the model never write through into the registry.
+
+The freezing and name-filter masks (:meth:`MultiHeadParams.trainable_mask`,
+:func:`name_filter_mask`) are plain ``{key: bool}`` dicts, and
+:func:`replace_params` returns a new ``{key: tensor}`` dict: data only.
+Wiring a mask into the optimizer comes with the trainers that freeze
+parameters.
 """
 
 from __future__ import annotations
@@ -90,6 +96,15 @@ class MultiHeadParams:
         heads[task] = _clone(src)
         return replace(self, heads=heads, active_task=task)
 
+    def add_n_tasks_and_activate(self, tasks: list, active: str,
+                                 use_init: bool = True) -> "MultiHeadParams":
+        """Add every task of ``tasks`` not yet registered, in order, then
+        activate ``active`` (restoring a checkpoint, ``--init_seq``)."""
+        mh = self
+        for t in tasks:
+            mh = mh.add_new_task(t, use_init=use_init)
+        return replace(mh, active_task=active)
+
     def assemble(self, task: str | None = None) -> dict:
         """The full ``state_dict`` of one task: body and its head."""
         merged = dict(self.body)
@@ -104,7 +119,32 @@ class MultiHeadParams:
         heads[task or self.active_task] = head
         return replace(self, body=body, heads=heads)
 
+    def trainable_mask(self, freeze_body: bool = False) -> dict:
+        """``{key: bool}`` over the assembled ``state_dict``: False marks a
+        frozen parameter (the body's with ``freeze_body``)."""
+        mask = {k: not freeze_body for k in self.body}
+        mask.update({k: True for k in self.heads[self.active_task]})
+        return mask
+
     @property
     def tasks(self) -> list:
         return list(self.heads)
+
+
+def replace_params(state_dict: dict, predicate, fn) -> dict:
+    """A new dict with ``fn(value)`` for every key where ``predicate(key)``
+    holds and the other values as they are (the reference's
+    ``replace_layers``, ``MultiHead_Module.py:544-572``)."""
+    return {k: (fn(v) if predicate(k) else v) for k, v in state_dict.items()}
+
+
+def name_filter_mask(state_dict: dict, substrings: list, include: bool) -> dict:
+    """``{key: bool}``: True where the key contains every one of
+    ``substrings`` (case-insensitive) with ``include``, where it does not
+    without (the EWC variants' parameter-name filters)."""
+    out = {}
+    for k in state_dict:
+        hit = all(s.lower() in k.lower() for s in substrings)
+        out[k] = hit if include else not hit
+    return out
 

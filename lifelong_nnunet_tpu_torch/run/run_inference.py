@@ -4,19 +4,28 @@
 The arguments of the JAX package's ``nnUNet_inference``
 (``lifelong_nnunet_tpu/run/run_inference.py``), plus ``--device``, which
 defaults to ``cuda`` and never falls back to the CPU.  The model is looked
-up in the base-trainer layout
-``$RESULTS_FOLDER/nnUNet_ext/<network>/<task>/<Trainer>__<plans>/<arch>/fold_X``
-for ``nnUNetTrainerV2`` (``Generic_UNet``) and for ``nnViTUNetTrainer`` /
-``vit_unet`` (``Generic_ViT_UNetV{v}/<type>/not_task_specific/<variant>``,
-from ``-v``, ``-v_type``, ``--do_SPT``, ``--do_LSA``: the folder
-``nnUNet_torch_train_vit`` writes), and for ``base_v2`` in the folder that
-``nnUNet_torch_train_base_v2`` writes
-(``<network>/<task>/<task>/nnUNetTrainerBase_v2__<plans>/<arch>/SEQ/fold_X``,
-``<arch>`` a ViT's with ``--use_vit``; the JAX CLI reads ``base_v2`` from
-the base-trainer layout, where its trainer does not write).  The
-checkpoint's manifest says whether the network is a U-Net or a ViT-U-Net.
-Continual-learning layouts and task-specific LayerNorms come with later
-parts of the port and are refused here.
+up as the JAX CLI's ``_locate_model`` (``run/run_evaluation.py:80-112``)
+does:
+
+* ``nnUNetTrainerV2`` (``Generic_UNet``) and ``nnViTUNetTrainer`` /
+  ``vit_unet`` (``Generic_ViT_UNetV{v}/<type>/not_task_specific/<variant>``,
+  from ``-v``, ``-v_type``, ``--do_SPT``, ``--do_LSA``: the folder
+  ``nnUNet_torch_train_vit`` writes) in the base-trainer layout
+  ``$RESULTS_FOLDER/nnUNet_ext/<network>/<task>/<Trainer>__<plans>/<arch>/fold_X``;
+* ``base_v2`` in the folder that ``nnUNet_torch_train_base_v2`` writes
+  (``<network>/<task>/<task>/nnUNetTrainerBase_v2__<plans>/<arch>/SEQ/fold_X``;
+  the JAX CLI reads ``base_v2`` from the base-trainer layout, where its
+  trainer does not write);
+* the continual-learning trainers the port trains (``multihead``,
+  ``sequential``, ``rehearsal`` or their class names) in the sequence's
+  folder ``<network>/<trained_on>/<use or trained_on>/<Trainer>__<plans>/
+  <arch>/<MH|SEQ>/fold_X``, ``SEQ`` for a head-transferring trainer unless
+  ``--no_transfer_heads``.
+
+``-use_head`` picks the head (default the last task's).  The checkpoint's
+manifest says whether the network is a U-Net or a ViT-U-Net.  Other
+trainers and task-specific LayerNorms come with later parts of the port and
+are refused here.
 """
 
 from __future__ import annotations
@@ -29,17 +38,18 @@ from .. import paths
 from ..device import resolve_device
 from ..inference.predict import predict_from_folder
 from ..run.plan_and_preprocess import resolve_task
-from ..run.run_training import arch_kwargs, output_folder
-from ..training.output_paths import arch_dir
+from ..run.run_training import arch_kwargs, output_folder, trainer_name
+from ..training.output_paths import arch_dir, build_output_folder
 from ..training.restore import find_checkpoint, restore_model
+from ..training.trainers import get_trainer
 
 # base trainer -> whether its layout holds a ViT-U-Net (the JAX CLI's rule)
 BASE_TRAINERS = {"nnUNetTrainerV2": False, "base_v2": False,
                  "nnViTUNetTrainer": True, "vit_unet": True}
 # options of the JAX CLI kept for argument parity, with the value that means
-# "off": the continual-learning heads and task-specific LayerNorms are not
-# ported yet, so any other value is refused
-UNPORTED_OPTIONS = {"no_transfer_heads": False, "task_specific_ln": False}
+# "off": task-specific LayerNorms are not ported yet, so any other value is
+# refused
+UNPORTED_OPTIONS = {"task_specific_ln": False}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -86,18 +96,23 @@ def _resolve_task(task: str) -> str:
 
 def _refuse_unported(args) -> None:
     if args.trainer not in BASE_TRAINERS:
-        raise NotImplementedError(
-            f"trainer {args.trainer!r}: the port reads single-task models "
-            f"({', '.join(BASE_TRAINERS)}) only")
+        get_trainer(args.trainer)      # raises for a trainer not ported yet
     set_ = [k for k, off in UNPORTED_OPTIONS.items() if getattr(args, k) != off]
     if set_:
-        raise NotImplementedError(f"{', '.join(set_)}: not ported yet (the port "
-                                  "serves single-task models only)")
+        raise NotImplementedError(f"{', '.join(set_)}: not ported yet")
 
 
 def _locate_model(args, results: str, fold: int) -> str:
     task = (args.use or args.trained_on)[-1]
-    if args.trainer == "base_v2":
+    if args.trainer not in BASE_TRAINERS:
+        cls = get_trainer(args.trainer)
+        name = args.trainer if args.trainer.startswith("nnUNetTrainer") \
+            else trainer_name(args.trainer)
+        folder = build_output_folder(
+            results, args.network, args.trained_on, args.use or args.trained_on, name,
+            args.plans_identifier, fold, cls.TRANSFER_HEADS and not args.no_transfer_heads,
+            **arch_kwargs(args))
+    elif args.trainer == "base_v2":
         folder = output_folder(results, args.network, task, "base_v2",
                                args.plans_identifier, fold, transfer_heads=True,
                                **arch_kwargs(args))
@@ -150,7 +165,7 @@ def run_inference(argv=None) -> int:
         device=device, do_tta=not args.disable_tta,
         window_batch=args.window_batch, postprocess_labels=post)
     print(f"wrote {len(written)} segmentations to {args.output_folder} "
-          f"on {device}")
+          f"on {device} (head {args.use_head or 'of the last task'})")
     return 0
 
 

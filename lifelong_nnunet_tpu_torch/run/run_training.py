@@ -1,63 +1,78 @@
-"""CLI: training with the PyTorch port — ``nnUNet_torch_train_<extension>``
-for ``multihead``, ``sequential`` and ``base_v2``.
+"""CLI: continual training across a task sequence with the PyTorch port —
+``nnUNet_torch_train_<extension>`` for ``multihead``, ``sequential``,
+``rehearsal`` and ``base_v2``.
 
-The arguments of the JAX package's ``nnUNet_train_<method>``
+The JAX package's ``nnUNet_train_<method>``
 (``lifelong_nnunet_tpu/run/run_training.py``), with ``--device`` (default
-``cuda``, never falling back to the CPU) in place of its ``-d`` list.  One
-task per run: the fold loop, the per-task output folder and metadata tree,
-and the trainer's epoch loop are the JAX package's.  Options whose parts
-are not ported yet (continuation ``-c``, ``--init_seq``, task-specific
-LayerNorms, SPMD, progress validation, rematerialization, task sequences)
-are refused, as ``nnUNet_torch_inference`` refuses its unported options.
-``--use_vit`` trains the ViT-U-Net (``-v``, ``-v_type``, ``--do_LSA``,
-``--do_SPT``, ``-vit_depth``) into the ``Generic_ViT_UNetV{v}/...`` folder
-of the JAX CLI.  ``--no_pallas_conv`` trains on the plain route (no
-hand-written kernels).
+``cuda``, never falling back to the CPU) in place of its ``-d`` list: the
+fold x task loop, one output folder per task prefix and the metadata
+folder (``training/output_paths.py``), ``-c`` continuation (mid-task from
+``model_latest`` at its epoch + 1, or after the last finished task of
+``<extension>_trained_on.json``), ``--init_seq`` with
+``-initialize_with_network_trainer``, ``--disable_saving``, ``-val_mode``
+and ``--use_progress_val``, and the per-method hyperparameters of
+``METHOD_ARGS``.  Every task is trained with the first task's plans.
+``--no_transfer_heads`` changes only the folder (``SEQ`` -> ``MH``), as in
+the JAX CLI: the trainer still follows its class's ``TRANSFER_HEADS``.
+Options whose parts are not ported yet (task-specific LayerNorms, SPMD,
+rematerialization) are refused, as are the extensions without a ported
+trainer.  ``--use_vit`` trains the ViT-U-Net (``-v``, ``-v_type``,
+``--do_LSA``, ``--do_SPT``, ``-vit_depth``) into the
+``Generic_ViT_UNetV{v}/...`` folder of the JAX CLI.  ``--no_pallas_conv``
+trains on the plain route (no hand-written kernels).
 
 The trained model is served by ``nnUNet_torch_inference <network>
-<extension> -trained_on <task>``.
+<extension> -trained_on <tasks> [-use_head <task>]``.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import shutil
 
 from .. import paths
 from ..planning.plans import Plans, plans_path
 from ..training.output_paths import build_output_folder, metadata_folder
+from ..training.restore import find_checkpoint, restore_trainer
 from ..training.trainer import TrainerOptions
 from ..training.trainers import TRAINER_MAP, get_trainer
 from .plan_and_preprocess import resolve_task
 
+# per-method CLI hyperparameters of the ported trainers: flag -> (type,
+# default) (the JAX CLI's METHOD_ARGS)
+METHOD_ARGS = {"rehearsal": {"samples_in_perc": (float, 0.25)}}
+
 # options kept for argument parity with the JAX CLI, with the value that
 # means "off"; any other value is refused
-UNPORTED_OPTIONS = {"continue_training": False, "init_seq": False,
-                    "initialize_with_network_trainer": None,
-                    "val_mode": "sliding_window", "use_progress_val": False,
-                    "task_specific_ln": False, "n_devices": None, "model_parallel": 1,
+UNPORTED_OPTIONS = {"task_specific_ln": False, "n_devices": None, "model_parallel": 1,
                     "remat": False}
 
 
 def build_parser(extension: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=f"Training with the PyTorch port: {extension}")
     p.add_argument("network", choices=["2d", "3d_lowres", "3d_fullres"])
-    p.add_argument("-t", "--task_ids", nargs="+", required=True)
+    p.add_argument("-t", "--task_ids", nargs="+", required=True,
+                   help="ordered task sequence (ids or names)")
     p.add_argument("-f", "--folds", nargs="+", type=int, default=[0])
     p.add_argument("-s", "--split_at", default="seg_outputs")
     p.add_argument("-num_epochs", type=int, default=100)
     p.add_argument("-save_interval", type=int, default=25)
     p.add_argument("-p", "--plans_identifier", default=paths.default_plans_identifier)
     p.add_argument("-c", "--continue_training", action="store_true")
-    p.add_argument("--init_seq", action="store_true")
-    p.add_argument("-initialize_with_network_trainer", default=None)
-    p.add_argument("--no_transfer_heads", action="store_true")
-    # deletes the folders of a sequence's earlier tasks: with one task there
-    # are none, as in the JAX CLI
-    p.add_argument("--disable_saving", action="store_true")
+    p.add_argument("--init_seq", action="store_true",
+                   help="initialize the first task from a previous trainer's checkpoint")
+    p.add_argument("-initialize_with_network_trainer", default=None,
+                   help="checkpoint base path (without extension) to initialize from")
+    p.add_argument("--no_transfer_heads", action="store_true",
+                   help="the MH folder instead of SEQ (the trainer is unchanged)")
+    p.add_argument("--disable_saving", action="store_true",
+                   help="delete the earlier tasks' folders at the end")
     p.add_argument("-val_mode", choices=["sliding_window", "patches"],
                    default="sliding_window")
-    p.add_argument("--use_progress_val", action="store_true")
+    p.add_argument("--use_progress_val", action="store_true",
+                   help="run cross-task validation every save_interval epochs")
     p.add_argument("--fp32", action="store_true", help="disable bfloat16 compute")
     p.add_argument("-num_iters", type=int, default=250)
     p.add_argument("-val_iters", type=int, default=50)
@@ -81,6 +96,8 @@ def build_parser(extension: str) -> argparse.ArgumentParser:
                    help="train on the plain route, without the hand-written kernels")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on ('cuda', 'cuda:N' or 'cpu')")
+    for name, (typ, default) in METHOD_ARGS.get(extension, {}).items():
+        p.add_argument(f"-{name}", f"--{name}", type=typ, default=default)
     return p
 
 
@@ -95,16 +112,15 @@ def stage_dir_for(pre_root: str, task_name: str, config: str,
 
 def _refuse_unported(args) -> None:
     set_ = [k for k, off in UNPORTED_OPTIONS.items() if getattr(args, k) != off]
-    if len(args.task_ids) > 1:
-        set_.append("a sequence of tasks")
     if set_:
         raise NotImplementedError(f"{', '.join(set_)}: not ported yet (the port "
-                                  "trains one task on one device)")
+                                  "trains on one device)")
 
 
 def trainer_name(extension: str) -> str:
-    """The JAX CLI's ``nnUNetTrainer<Ext>`` folder name."""
-    special = {"multihead": "MultiHead", "sequential": "Sequential"}
+    """The JAX CLI's ``nnUNetTrainer<Ext>`` folder name (its ``_camel``)."""
+    special = {"multihead": "MultiHead", "sequential": "Sequential",
+               "rehearsal": "Rehearsal"}
     return f"nnUNetTrainer{special.get(extension, extension.capitalize())}"
 
 
@@ -118,8 +134,39 @@ def arch_kwargs(args) -> dict:
 def output_folder(results: str, network: str, task: str, extension: str,
                   plans_identifier: str, fold: int, transfer_heads: bool,
                   **arch) -> str:
+    """The folder of a single-task run."""
     return build_output_folder(results, network, [task], [task], trainer_name(extension),
                                plans_identifier, fold, transfer_heads, **arch)
+
+
+def _resume(tasks, opts, meta_dir, extension, fold, folder):
+    """``-c``: (trainer or None, tasks finished, task to resume, its first
+    epoch) from the metadata folder's manifest."""
+    manifest_file = os.path.join(meta_dir, f"{extension}_trained_on.json")
+    if not os.path.isfile(manifest_file):
+        return None, [], None, 0
+    with open(manifest_file) as f:
+        trained_on = json.load(f).get(str(fold), {})
+    finished = trained_on.get("finished_training_on", [])
+    in_progress = trained_on.get("start_training_on")
+    if in_progress and in_progress in tasks:
+        # an interrupted task: continue it from model_latest (parameters,
+        # optimizer momentum and step count, epoch)
+        ckpt = find_checkpoint(folder(in_progress), prefer="model_latest")
+        if ckpt and ckpt.endswith("model_latest"):
+            trainer = restore_trainer(ckpt, opts, restore_opt=True)
+            trainer.already_trained_on = {str(fold): trained_on}
+            print(f"[fold {fold}] resuming {in_progress} at epoch {trainer.epoch + 1} "
+                  f"from {ckpt}")
+            return trainer, finished, in_progress, trainer.epoch + 1
+    if finished:
+        ckpt = find_checkpoint(folder(finished[-1]))
+        if ckpt:
+            trainer = restore_trainer(ckpt, opts)
+            trainer.already_trained_on = {str(fold): trained_on}
+            print(f"[fold {fold}] resumed after {finished[-1]} from {ckpt}")
+            return trainer, finished, None, 0
+    return None, finished, None, 0
 
 
 def run_training(extension: str, argv=None) -> int:
@@ -129,33 +176,72 @@ def run_training(extension: str, argv=None) -> int:
     raw = paths.raw_data_dir(create=False)
     pre = paths.require(paths.preprocessed_dir(create=False), "preprocessed data")
     results = paths.require(paths.results_dir(), "results")
-    try:
-        task = os.path.basename(resolve_task(args.task_ids[0], pre))
-    except FileNotFoundError:
-        task = os.path.basename(resolve_task(args.task_ids[0], raw or pre))
-    plans = Plans.load(plans_path(os.path.join(pre, task), args.plans_identifier))
-    transfer = trainer_cls.TRANSFER_HEADS and not args.no_transfer_heads
+    tasks = []
+    for t in args.task_ids:
+        try:
+            tasks.append(os.path.basename(resolve_task(t, pre)))
+        except FileNotFoundError:
+            tasks.append(os.path.basename(resolve_task(t, raw or pre)))
     name = trainer_name(extension)
+    # one Plans object for the whole sequence: the first task's
+    first_plans = Plans.load(plans_path(os.path.join(pre, tasks[0]), args.plans_identifier))
+    hyper = {k: getattr(args, k) for k in METHOD_ARGS.get(extension, {})}
+    transfer = trainer_cls.TRANSFER_HEADS and not args.no_transfer_heads
+    arch = arch_kwargs(args)
+
     for fold in args.folds:
         opts = TrainerOptions(
             num_epochs=args.num_epochs, iters_per_epoch=args.num_iters,
             val_iters=args.val_iters, save_every=args.save_interval,
             split_at=args.split_at, fold=fold,
             dtype="float32" if args.fp32 else "bfloat16",
+            use_progress_val=args.use_progress_val, val_mode=args.val_mode,
             patch_size=tuple(args.patch_size) if args.patch_size else None,
             batch_size=args.batch_size, augment=not args.no_augment,
             base_num_features=args.base_features, max_num_features=args.max_features,
             device=args.device, use_kernels=args.use_kernels, use_vit=args.use_vit,
             vit_version=f"V{args.vit_version}", vit_type=args.vit_type,
             vit_lsa=args.do_LSA, vit_spt=args.do_SPT, vit_depth_override=args.vit_depth)
-        meta_dir = metadata_folder(results, args.network, [task], name,
-                                   args.plans_identifier, transfer, **arch_kwargs(args))
-        out_dir = output_folder(results, args.network, task, extension,
-                                args.plans_identifier, fold, transfer, **arch_kwargs(args))
-        trainer = trainer_cls(plans, args.network, out_dir, opts)
+        meta_dir = metadata_folder(results, args.network, tasks, name,
+                                   args.plans_identifier, transfer, **arch)
+
+        def folder(task, fold=fold):
+            """The output folder of the sequence up to ``task``."""
+            return build_output_folder(results, args.network, tasks,
+                                       tasks[: tasks.index(task) + 1], name,
+                                       args.plans_identifier, fold, transfer, **arch)
+
+        trainer, finished, resume_task, resume_epoch = None, [], None, 0
+        if args.continue_training:
+            trainer, finished, resume_task, resume_epoch = _resume(
+                tasks, opts, meta_dir, extension, fold, folder)
+        if trainer is None:
+            trainer = trainer_cls(first_plans, args.network,
+                                  os.path.join(meta_dir, f"fold_{fold}_bootstrap"),
+                                  opts, **hyper)
+            if args.init_seq and args.initialize_with_network_trainer:
+                # the first task starts from a trained model: its body, heads
+                # and geometry
+                init_tr = restore_trainer(args.initialize_with_network_trainer, opts)
+                trainer.mh = init_tr.mh.add_n_tasks_and_activate(
+                    init_tr.mh.tasks, init_tr.mh.tasks[-1])
+                trainer.model = init_tr.model
+                trainer.patch_size = init_tr.patch_size
+                print(f"[fold {fold}] initialized from "
+                      f"{args.initialize_with_network_trainer} (tasks {init_tr.mh.tasks})")
         trainer.metadata_folder = meta_dir
-        trainer.train_task(task, stage_dir_for(pre, task, args.network))
-        print(f"[fold {fold}] finished {task} -> {out_dir}")
+
+        for task in tasks:
+            if task in finished:
+                continue
+            trainer.set_output_folder(folder(task))
+            trainer.train_task(task, stage_dir_for(pre, task, args.network),
+                               start_epoch=resume_epoch if task == resume_task else 0)
+            print(f"[fold {fold}] finished {task} -> {folder(task)}")
+
+        if args.disable_saving:
+            for task in tasks[:-1]:
+                shutil.rmtree(folder(task), ignore_errors=True)
     return 0
 
 

@@ -1,18 +1,26 @@
 """Checkpoints of the port: ``torch.save`` state plus a JSON manifest.
 
-    <name>.pt     {"heads": {task: state_dict of the assembled U-Net}},
-                  and from the trainer also "optimizer" (its state_dict),
-                  "step" and "epoch"
+A trainer's checkpoint keeps the multi-head registry, as the JAX package's
+(``lifelong_nnunet_tpu/training/checkpoints.py``) does:
+
+    <name>.pt     {"body": state_dict part, "heads": {task: head part},
+                   "state_init": the initial head ({} for trainers whose
+                   new heads copy the active head, JAX's
+                   ``include_state_init``), "optimizer" (its state_dict),
+                   "step", "epoch"}
     <name>.json   the JAX manifest's keys (``trainer.py:660-684``: plans,
                   trainer, extension, config_name, widths, fold, ...) plus
-                  "meta" {"task_order", "active_task"}, "step", "epoch"
-                  and "has_opt_state"
+                  "meta" {"split_at", "module_order", "active_task",
+                  "task_order"}, "step", "epoch" and "has_opt_state"
+
+A model saved by hand (:func:`save_checkpoint`) keeps one full
+``state_dict`` per task instead: ``{"heads": {task: state_dict}}`` with
+"meta" {"task_order", "active_task"}.  :func:`load_checkpoint` gives one
+full ``state_dict`` per task from either, which is all that serving reads;
+:func:`load_registry` gives the registry of either.
 
 Names follow the JAX package and the reference: ``model_final_checkpoint``,
 ``model_latest``, ``model_best``.  The manifest stores no absolute path.
-A served model reads only "heads", so ``restore_model`` takes a trained
-checkpoint as it takes a hand-saved one.  Continual-learning state comes
-with the CL trainers.
 """
 
 from __future__ import annotations
@@ -20,8 +28,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+from collections import OrderedDict
 
 import torch
+
+from ..models.multihead import MultiHeadParams, split_params
 
 CKPT_SUFFIX = ".pt"
 
@@ -60,37 +71,78 @@ def base_manifest(plans, config_name: str, model, trainer: str = "nnUNetTrainerV
     }
 
 
-def save_checkpoint(path_base: str, heads: dict, manifest: dict,
-                    optimizer: dict | None = None, step: int = 0, epoch: int = 0,
-                    active_task: str | None = None) -> None:
-    """``heads``: {task: state_dict}, in task order; ``active_task``
-    defaults to the last.  ``optimizer`` is the trainer optimizer's
-    ``state_dict``."""
-    if not heads:
-        raise ValueError("a checkpoint needs at least one head")
+def _cpu(sd: dict) -> dict:
+    return {k: v.detach().cpu() for k, v in sd.items()}
+
+
+def _write(path_base: str, blob: dict, manifest: dict, meta: dict, step: int,
+           epoch: int) -> None:
     os.makedirs(os.path.dirname(path_base) or ".", exist_ok=True)
-    blob = {"heads": {t: {k: v.detach().cpu() for k, v in sd.items()}
-                      for t, sd in heads.items()},
-            "step": int(step), "epoch": int(epoch)}
-    if optimizer is not None:
-        blob["optimizer"] = optimizer
-    torch.save(blob, path_base + CKPT_SUFFIX)
+    torch.save(dict(blob, step=int(step), epoch=int(epoch)), path_base + CKPT_SUFFIX)
     man = dict(manifest)
-    man["meta"] = {"task_order": list(heads),
-                   "active_task": active_task or list(heads)[-1]}
-    man.update({"step": int(step), "epoch": int(epoch),
-                "has_opt_state": optimizer is not None})
+    man.update({"meta": meta, "step": int(step), "epoch": int(epoch),
+                "has_opt_state": "optimizer" in blob})
     with open(path_base + ".json", "w") as f:
         json.dump(man, f, indent=2, default=str)
 
 
-def load_checkpoint(path_base: str, device: torch.device):
-    """Returns ({task: state_dict on ``device``}, manifest)."""
+def save_checkpoint(path_base: str, heads: dict, manifest: dict) -> None:
+    """A model saved by hand: ``heads`` {task: full state_dict}, in task
+    order, the last one active."""
+    if not heads:
+        raise ValueError("a checkpoint needs at least one head")
+    _write(path_base, {"heads": {t: _cpu(sd) for t, sd in heads.items()}}, manifest,
+           {"task_order": list(heads), "active_task": list(heads)[-1]}, 0, 0)
+
+
+def save_registry(path_base: str, mh: MultiHeadParams, manifest: dict,
+                  optimizer: dict | None = None, step: int = 0, epoch: int = 0,
+                  include_state_init: bool = True) -> None:
+    """A trainer's checkpoint: the registry ``mh`` (``state_init`` left out
+    unless ``include_state_init``) and the optimizer's state_dict."""
+    blob = {"body": _cpu(mh.body), "heads": {t: _cpu(h) for t, h in mh.heads.items()},
+            "state_init": _cpu(mh.state_init) if include_state_init else {}}
+    if optimizer is not None:
+        blob["optimizer"] = optimizer
+    _write(path_base, blob, manifest,
+           {"split_at": mh.split_at, "module_order": list(mh.module_order),
+            "active_task": mh.active_task, "task_order": mh.tasks}, step, epoch)
+
+
+def _read(path_base: str, device: torch.device):
     with open(path_base + ".json") as f:
         manifest = json.load(f)
-    blob = torch.load(path_base + CKPT_SUFFIX, map_location=device,
-                      weights_only=True)
+    blob = torch.load(path_base + CKPT_SUFFIX, map_location=device, weights_only=True)
+    return blob, manifest
+
+
+def load_registry(path_base: str, device: torch.device, module_order: list):
+    """Returns (MultiHeadParams on ``device``, blob, manifest).  A model
+    saved by hand is split at the manifest's ``split_at`` (default the seg
+    heads) in ``module_order``, with no ``state_init``."""
+    blob, manifest = _read(path_base, device)
+    meta = manifest["meta"]
+    order = meta["task_order"]
+    if "body" in blob:
+        heads = OrderedDict((t, blob["heads"][t]) for t in order)
+        mh = MultiHeadParams(body=blob["body"], heads=heads,
+                             split_at=meta["split_at"], module_order=meta["module_order"],
+                             state_init=blob["state_init"], active_task=meta["active_task"])
+        return mh, blob, manifest
+    split_at = manifest.get("split_at") or "seg_outputs"
+    parts = {t: split_params(blob["heads"][t], split_at, module_order) for t in order}
+    mh = MultiHeadParams(body=parts[meta["active_task"]][0],
+                         heads=OrderedDict((t, parts[t][1]) for t in order),
+                         split_at=split_at, module_order=list(module_order),
+                         active_task=meta["active_task"])
+    return mh, blob, manifest
+
+
+def load_checkpoint(path_base: str, device: torch.device):
+    """Returns ({task: full state_dict on ``device``}, manifest), from a
+    trainer's checkpoint or a model saved by hand."""
+    blob, manifest = _read(path_base, device)
     order = manifest["meta"]["task_order"]
-    return {t: blob["heads"][t] for t in order}, manifest
-
-
+    if "body" not in blob:
+        return {t: blob["heads"][t] for t in order}, manifest
+    return {t: {**blob["body"], **blob["heads"][t]} for t in order}, manifest

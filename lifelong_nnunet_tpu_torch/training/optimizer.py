@@ -13,9 +13,17 @@ skips a parameter whose ``.grad`` is None, where optax updates every leaf
 zero gradient first, as the fused conv's Function does for the conv bias
 (``ops/kernels/conv3d.py``); the coarsest deep-supervision head, whose
 loss weight is 0, is the other case.
+
+The poly LR follows the optimizer's own step count, as optax's schedule
+follows its own count: a trainer builds a fresh optimizer for every task,
+so the count starts again at 0 for each task, and a resumed task takes it
+back from the checkpoint (:meth:`PolySGD.load_state_dict`), never from the
+trainer's global step.
 """
 
 from __future__ import annotations
+
+import copy
 
 import torch
 
@@ -68,3 +76,11 @@ class PolySGD:
 
     def state_dict(self) -> dict:
         return {"sgd": self.opt.state_dict(), "step": self.step_count}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore the momentum buffers and the step count of
+        :meth:`state_dict` (the parameters in the same order).  The buffers
+        are copied: ``torch.optim`` would share tensors already on the
+        parameters' device with ``state``."""
+        self.opt.load_state_dict(copy.deepcopy(state["sgd"]))
+        self.step_count = int(state["step"])

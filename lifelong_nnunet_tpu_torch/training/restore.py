@@ -1,11 +1,14 @@
-"""Model restoration from a port checkpoint: the inference subset of
+"""Model and trainer restoration from a port checkpoint: the port of
 ``lifelong_nnunet_tpu/training/restore.py``.
 
 The manifest embeds the full plans (the first task's, so later tasks never
 reshape the network), the network widths and, for a ViT-U-Net, its
 ``vit`` options and the patch size its position embeddings were sized for;
 ``restore_model`` rebuilds the U-Net or the ViT-U-Net from them and loads
-one task's head.
+one task's head (a ViT-U-Net keeps that patch as ``model.patch_size``,
+which serving windows with); ``restore_trainer`` rebuilds the trainer of
+the manifest's class with the registry, epoch and step, and the optimizer
+when asked.
 
 :func:`route_switches` reads the JAX package's two switches for the
 CT-scale routes, as its ``maybe_pallas_conv`` does for served models and
@@ -16,6 +19,8 @@ its trainer for trained ones: ``LNN_BLOCKED_CONV=1`` (the blocked conv) and
 
 from __future__ import annotations
 
+import copy
+import json
 import os
 
 import torch
@@ -89,3 +94,53 @@ def restore_model(checkpoint_base: str, device: torch.device, head: str | None =
                                 **(route_switches() if routes is None else routes))
     model.load_state_dict(heads[head])
     return model.to(device).eval(), plans, manifest["config_name"]
+
+
+def restore_trainer(checkpoint_base: str, options=None, restore_opt: bool = False):
+    """checkpoint_base: path WITHOUT extension.  A trainer of the manifest's
+    class on ``options.device`` (``options`` is copied, then given the
+    manifest's fold, split, patch, batch, widths and ViT options), with the
+    registry, epoch and global step restored, and the optimizer with
+    ``restore_opt``; its output folder is the checkpoint's."""
+    # the trainer imports route_switches from here
+    from .trainer import TrainerOptions
+    from .trainers import get_trainer
+
+    with open(checkpoint_base + ".json") as f:
+        manifest = json.load(f)
+    cls = get_trainer(manifest["extension"])
+    opts = copy.copy(options) if options else TrainerOptions()
+    opts.fold = manifest.get("fold", opts.fold)
+    opts.split_at = manifest.get("split_at") or opts.split_at
+    if manifest.get("patch_size"):
+        opts.patch_size = tuple(manifest["patch_size"])
+    if manifest.get("batch_size"):
+        opts.batch_size = manifest["batch_size"]
+    opts.base_num_features = manifest.get("base_num_features") or opts.base_num_features
+    opts.max_num_features = manifest.get("max_num_features") or opts.max_num_features
+    vit = manifest.get("vit")
+    if manifest.get("use_vit") and vit:
+        if vit.get("ln_tasks") or vit.get("task_specific_ln"):
+            raise NotImplementedError("task-specific LayerNorms are not ported yet")
+        opts.use_vit = True
+        opts.vit_version, opts.vit_type = vit["version"], vit["type"]
+        opts.vit_lsa, opts.vit_spt = vit["lsa"], vit["spt"]
+        opts.vit_depth_override = vit.get("depth_override")
+    trainer = cls(plans_from_manifest(manifest), manifest["config_name"],
+                  os.path.dirname(checkpoint_base), opts,
+                  **_parse_hyperparams(cls, manifest.get("hyperparams", {})))
+    trainer.load_checkpoint(os.path.basename(checkpoint_base), restore_opt=restore_opt)
+    return trainer
+
+
+def _parse_hyperparams(cls, raw: dict) -> dict:
+    """The manifest's stringified hyperparameters, typed by the class's
+    ``HYPERPARAMS`` (str where it names none)."""
+    out = {}
+    for k, v in raw.items():
+        typ = cls.HYPERPARAMS.get(k, str)
+        try:
+            out[k] = str(v).lower() in ("true", "1") if typ is bool else typ(v)
+        except (TypeError, ValueError):
+            out[k] = v
+    return out

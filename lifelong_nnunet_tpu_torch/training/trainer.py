@@ -1,35 +1,47 @@
-"""MultiHeadTrainer, the single-task path: the port of
+"""MultiHeadTrainer, the base continual-learning trainer: the port of
 ``lifelong_nnunet_tpu/training/trainer.py``.
 
 It owns the U-Net (or, with ``use_vit``, the ViT-U-Net of
 ``models/vit_unet.py`` at half the plans' batch, as the JAX trainer halves
-it) on one explicit device, the multi-head registry, the
-task's data split, the epoch loop (``iters_per_epoch`` train steps, then
-``val_iters`` validation batches), the checkpoints ``model_best`` /
-``model_latest`` / ``model_final_checkpoint`` and the
-``<extension>_trained_on.json`` manifest.  The recipe is the JAX
-package's: 250/50 train/val iterations per epoch, poly LR from 0.01, SGD
-Nesterov 0.99, clip 12, deep supervision, moreDA augmentation on the
-device, bf16 activations on the card with f32 parameters.
+it) on one explicit device, the multi-head registry, each task's data
+split, the per-task epoch loop (``iters_per_epoch`` train steps, then
+``val_iters`` validation batches; ``train_task(..., start_epoch)``
+continues an interrupted task), the checkpoints ``before_training`` /
+``model_best`` / ``model_latest`` / ``model_final_checkpoint`` with the
+registry and the optimizer (``load_checkpoint`` restores them), the
+``<extension>_trained_on.json`` manifest and the cross-task validation
+``_perform_validation`` (sliding window per subject, or the reference's
+patch-sampled validation) into ``val_metrics.json`` / ``.csv``.  The
+recipe is the JAX package's: 250/50 train/val iterations per epoch, poly LR
+from 0.01 on a fresh optimizer per task, SGD Nesterov 0.99, clip 12, deep
+supervision, moreDA augmentation on the device, bf16 activations on the
+card with f32 parameters.  Every task is trained with the first task's
+plans, patch and pools, and ``best_val`` runs on across tasks, as in the
+JAX trainer.
+
+Continual-learning methods subclass it and override the hooks
+(``init_cl_state`` / ``loss_extras`` / ``cl_state_update`` /
+``before_task`` / ``after_task`` / ``trainable_mask`` /
+``extra_manifest`` / ``_adopt_manifest``) and ``HYPERPARAMS``.
 
 Not ported yet, and refused by ``run/run_training.py`` when asked for:
-task-specific LayerNorms, SPMD (``-n_devices`` / ``-model_parallel``), rematerialization,
-patch-sampled and sliding-window progress validation
-(``_perform_validation``), and resuming a task (``-c``); their options are
-not fields of :class:`TrainerOptions` (nor is the profiler's).  In place of the
-JAX package's ``progress.png`` (matplotlib is not a dependency of the
-port), ``progress.json`` beside the checkpoints holds the epoch curves and
-every train step's loss.
+task-specific LayerNorms, SPMD (``-n_devices`` / ``-model_parallel``) and
+rematerialization; their options are not fields of :class:`TrainerOptions`
+(nor is the profiler's).  In place of the JAX package's ``progress.png``
+(matplotlib is not a dependency of the port), ``progress.json`` beside the
+checkpoints holds the epoch curves and every train step's loss.
 """
 
 from __future__ import annotations
 
+import csv
 import json
 import math
 import os
 import time
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..data.augment import AugmentConfig
@@ -37,6 +49,8 @@ from ..data.dataset import PreprocessedDataset, final_splits
 from ..data.pipeline import Prefetcher
 from ..data.sampler import PatchSampler
 from ..device import resolve_device
+from ..evaluation.metrics import subject_metrics
+from ..inference.sliding_window import predict_sliding_window
 from ..models.multihead import MultiHeadParams
 from ..models.unet import ds_scale_factors, unet_from_plans
 from ..models.vit_unet import vit_overrides, vit_unet_from_plans
@@ -68,6 +82,10 @@ class TrainerOptions:
     max_num_features: int | None = None
     device: str = "cuda"
     use_kernels: bool = True               # False: the plain route
+    use_progress_val: bool = False         # _perform_validation every save_every
+    # "sliding_window" (per-subject metrics on whole volumes) or "patches"
+    # (the reference's patch-sampled periodic validation)
+    val_mode: str = "sliding_window"
     # the ViT-U-Net backbone (models/vit_unet.py)
     use_vit: bool = False
     vit_version: str = "V1"
@@ -79,6 +97,7 @@ class TrainerOptions:
 
 class MultiHeadTrainer:
     EXTENSION = "multihead"
+    HYPERPARAMS: dict = {}
     # Sequential-style trainers transfer the previous head to new tasks
     TRANSFER_HEADS = False
 
@@ -130,6 +149,10 @@ class MultiHeadTrainer:
         self._datasets: dict = {}     # task -> (PreprocessedDataset, tr_cases, val_cases)
         self._epoch_log: list = []    # dicts: task, epoch, tr_loss, val_loss, val_dice
         self.step_losses: list = []   # per train step, floats, in order
+        self._val_history: list = []
+        # the optimizer state of a restored checkpoint, adopted by the next
+        # _build_step (a resumed task continues its momentum and LR count)
+        self._resume_opt: dict | None = None
 
     # ------------------------------------------------------------------ hooks
     def init_cl_state(self):
@@ -146,6 +169,18 @@ class MultiHeadTrainer:
 
     def after_task(self, task: str):
         pass
+
+    def trainable_mask(self):
+        """Override for the freezing methods; None = everything trainable."""
+        return None
+
+    def extra_manifest(self) -> dict:
+        """Per-trainer additions to the checkpoint manifest."""
+        return {}
+
+    def _adopt_manifest(self, manifest: dict):
+        """Adopt trainer-specific manifest fields in ``load_checkpoint``,
+        before the train step is rebuilt."""
 
     # -------------------------------------------------------------- data
     def register_task_data(self, task: str, stage_dir: str):
@@ -179,6 +214,9 @@ class MultiHeadTrainer:
                     f"batch {self.batch_size}, {self.model.dtype} on {self.device}")
 
     def _build_step(self):
+        if self.trainable_mask() is not None:
+            raise NotImplementedError("a trainable mask reaches the optimizer with the "
+                                      "freezing trainers, which are not ported yet")
         self.model.load_state_dict(self.mh.assemble())
         self.optimizer = PolySGD(self.model.parameters(), max_epochs=self.opts.num_epochs,
                                  iters_per_epoch=self.opts.iters_per_epoch,
@@ -192,6 +230,9 @@ class MultiHeadTrainer:
                                            cl_state_update=self.cl_state_update(),
                                            generator=self.generator)
         self._eval_step = make_eval_step(self.model, step_cfg)
+        if self._resume_opt is not None:
+            self.optimizer.load_state_dict(self._resume_opt)
+            self._resume_opt = None
 
     # -------------------------------------------------------------- manifest
     def set_output_folder(self, folder: str):
@@ -218,9 +259,14 @@ class MultiHeadTrainer:
             json.dump(self.already_trained_on, f, indent=2)
 
     # -------------------------------------------------------------- training
-    def train_task(self, task: str, stage_dir: str, num_epochs: int | None = None):
-        """Train on one task: register its data, add or activate its head,
-        run the epoch loop with its checkpoints, update the manifest."""
+    def train_task(self, task: str, stage_dir: str, num_epochs: int | None = None,
+                   start_epoch: int = 0):
+        """Train on one task: register its data, add (from ``state_init``,
+        or from the active head for ``TRANSFER_HEADS``) or activate its
+        head, run the epoch loop with its checkpoints, update the manifest.
+        ``start_epoch`` continues an interrupted task from a restored
+        ``model_latest``; its ``before_training`` checkpoint stays as it
+        was."""
         num_epochs = num_epochs or self.opts.num_epochs
         self.register_task_data(task, stage_dir)
         self._ensure_initialized(task)
@@ -228,12 +274,13 @@ class MultiHeadTrainer:
         self.before_task(task)
         self._build_step()
         self._update_manifest(start_training_on=task, checkpoint_should_exist=False)
-        self.save_checkpoint("before_training")
+        if not start_epoch:
+            self.save_checkpoint("before_training")
         seed_offset = len(self.mh.tasks)
         prefetch = Prefetcher(self._make_sampler(task, True, seed_offset), self.device)
         val_sampler = self._make_sampler(task, False, seed_offset)
         try:
-            for epoch in range(num_epochs):
+            for epoch in range(start_epoch, num_epochs):
                 self.epoch = epoch
                 t0 = time.time()
                 self.model.train()
@@ -262,6 +309,8 @@ class MultiHeadTrainer:
                     self._update_manifest(checkpoint_should_exist=True,
                                           tasks_at_time_of_checkpoint=self.mh.tasks,
                                           active_task_at_time_of_checkpoint=task)
+                    if self.opts.use_progress_val:
+                        self._perform_validation(tag=f"epoch_{epoch}")
         finally:
             prefetch.stop()
         self.mh = self.mh.absorb(self.model.state_dict(), task)
@@ -293,6 +342,99 @@ class MultiHeadTrainer:
         with open(os.path.join(self.output_folder, "progress.json"), "w") as f:
             json.dump({"epochs": self._epoch_log, "step_losses": self.step_losses}, f)
 
+    # -------------------------------------------------------------- validation
+    def _perform_validation(self, tasks: list | None = None, use_head: str | None = None,
+                            always_use_last_head: bool = False, tag: str = "",
+                            call_for_eval: bool = False,
+                            mirror_axes: tuple | None = None) -> dict:
+        """Cross-task per-subject Dice/IoU: for every registered task (or
+        ``tasks``), its validation cases with its own head (or ``use_head``,
+        or the last head), by sliding window (window batch 4, no mirroring
+        unless ``call_for_eval``) or, with ``val_mode`` ``patches``, by
+        :meth:`_patch_validation`; written to ``val_metrics.json`` / ``.csv``
+        (``val_metrics_eval.*`` for ``call_for_eval``).  The trained
+        parameters are back in the model afterwards."""
+        if mirror_axes is None:
+            mirror_axes = (0, 1, 2) if call_for_eval else ()
+        mirror_axes = tuple(a for a in mirror_axes if a < len(self.patch_size))
+        trained = {k: v.clone() for k, v in self.model.state_dict().items()}
+        self.model.eval()
+        results = {}
+        try:
+            for t in tasks or list(self._datasets):
+                ds, _tr, val = self._datasets[t]
+                head = use_head or (self.mh.tasks[-1] if always_use_last_head else t)
+                if head not in self.mh.tasks:
+                    head = self.mh.tasks[-1]
+                self.model.load_state_dict(self.mh.assemble(head))
+                if self.opts.val_mode == "patches" and not call_for_eval:
+                    results[t] = {"head": head, "subjects": self._patch_validation(ds, val)}
+                    continue
+                subjects = {}
+                for case in val:
+                    arr = np.asarray(ds.load(case))
+                    probs = predict_sliding_window(
+                        self.model, np.moveaxis(arr[:-1], 0, -1), self.patch_size,
+                        self.num_classes, device=self.device, mirror_axes=mirror_axes,
+                        window_batch=4)
+                    subjects[case] = subject_metrics(np.argmax(probs, axis=-1),
+                                                     arr[-1].astype(np.int32),
+                                                     self.num_classes)
+                results[t] = {"head": head, "subjects": subjects}
+        finally:
+            self.model.load_state_dict(trained)
+        out = {"epoch": self.epoch, "tag": tag, "results": results}
+        self._val_history.append(out)
+        path = os.path.join(self.output_folder,
+                            "val_metrics_eval.json" if call_for_eval else "val_metrics.json")
+        hist = [out] if call_for_eval else self._val_history
+        with open(path, "w") as f:
+            json.dump(hist, f, indent=2)
+        self._write_val_csv(path.replace(".json", ".csv"), hist)
+        return results
+
+    def _patch_validation(self, ds, val_cases) -> dict:
+        """The reference's patch-sampled validation: ``val_iters`` batches
+        of foreground-oversampled patches of the validation cases (sampler
+        seed ``SEED + 4242``, no augmentation), hard tp/fp/fn summed per
+        subject over the draws, per-subject Dice/IoU."""
+        sampler = PatchSampler(ds, val_cases, self.patch_size, self.batch_size,
+                               oversample_foreground_percent=OVERSAMPLE_FOREGROUND,
+                               seed=SEED + 4242)
+        acc: dict = {}
+        for _ in range(self.opts.val_iters):
+            b = sampler.next_batch()
+            with torch.no_grad():
+                pred = self.model(torch.from_numpy(b["data"]).to(self.device))[0].argmax(1)
+            seg = torch.from_numpy(b["seg"]).to(self.device).long()
+            valid, dims = seg >= 0, tuple(range(1, seg.dim()))
+            per = []
+            for c in range(1, self.num_classes):
+                hit, lab = (pred == c) & valid, (seg == c) & valid
+                per.append(torch.stack([(hit & lab).sum(dims), (hit & ~lab).sum(dims),
+                                        (~hit & lab).sum(dims)], -1))
+            for key, row in zip(b["keys"], torch.stack(per, 1).cpu().numpy()):
+                acc[key] = acc.get(key, 0) + row
+        out = {}
+        for case, row in acc.items():
+            tp, fp, fn = row[:, 0], row[:, 1], row[:, 2]
+            out[case] = {"dice": (2 * tp / np.maximum(2 * tp + fp + fn, 1)).tolist(),
+                         "iou": (tp / np.maximum(tp + fp + fn, 1)).tolist()}
+        return out
+
+    @staticmethod
+    def _write_val_csv(path: str, history: list):
+        with open(path, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["epoch", "tag", "task", "head", "subject", "metric", "class", "value"])
+            for entry in history:
+                for task, r in entry["results"].items():
+                    for subj, metrics in r["subjects"].items():
+                        for metric, vals in metrics.items():
+                            for ci, v in enumerate(vals):
+                                w.writerow([entry["epoch"], entry["tag"], task,
+                                            r["head"], subj, metric, ci + 1, v])
+
     # -------------------------------------------------------------- checkpoints
     def manifest(self) -> dict:
         o = self.opts
@@ -304,11 +446,32 @@ class MultiHeadTrainer:
         man.update(patch_size=list(self.patch_size), batch_size=self.batch_size,
                    split_at=o.split_at, transfer_heads=self.TRANSFER_HEADS,
                    hyperparams={k: str(v) for k, v in self.hyperparams.items()})
+        man.update(self.extra_manifest())
         return man
 
     def save_checkpoint(self, name: str):
-        heads = {t: self.mh.assemble(t) for t in self.mh.tasks}
-        checkpoints.save_checkpoint(
-            os.path.join(self.output_folder, name), heads, self.manifest(),
+        # trainers whose new heads copy the active head never read
+        # state_init: it is left out, as in the JAX package
+        checkpoints.save_registry(
+            os.path.join(self.output_folder, name), self.mh, self.manifest(),
             optimizer=self.optimizer.state_dict() if self.optimizer else None,
-            step=self.global_step, epoch=self.epoch, active_task=self.mh.active_task)
+            step=self.global_step, epoch=self.epoch,
+            include_state_init=not self.TRANSFER_HEADS)
+
+    def load_checkpoint(self, name: str = "model_final_checkpoint",
+                        restore_opt: bool = True) -> dict:
+        """Restore the registry, epoch and global step of ``name`` in the
+        output folder, and with ``restore_opt`` the optimizer (momentum and
+        step count), kept for the ``_build_step`` of a following
+        ``train_task(..., start_epoch)``.  Returns the manifest."""
+        mh, blob, manifest = checkpoints.load_registry(
+            os.path.join(self.output_folder, name), self.device, self.model.module_order())
+        self.mh = mh
+        self.epoch = manifest["epoch"]
+        self.global_step = manifest["step"]
+        self._adopt_manifest(manifest)
+        self._build_step()
+        if restore_opt and manifest.get("has_opt_state"):
+            self.optimizer.load_state_dict(blob["optimizer"])
+            self._resume_opt = blob["optimizer"]
+        return manifest

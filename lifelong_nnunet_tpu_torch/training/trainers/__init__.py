@@ -1,14 +1,17 @@
 """Trainer registry of the port: extension name / class name -> trainer
-class.  The continual-learning trainers of the JAX package
-(``lifelong_nnunet_tpu/training/trainers/``) come with a later part of the
+class.  The other continual-learning trainers of the JAX package
+(``lifelong_nnunet_tpu/training/trainers/``: EWC, RW, LwF, MiB, PLOP,
+POD, the frozen-* and own-method trainers) come with later parts of the
 port; asking for one raises."""
 
 from ..trainer import MultiHeadTrainer
+from .rehearsal import RehearsalTrainer
 from .sequential import BaseUNetTrainer, SequentialTrainer, ViTUNetTrainer
 
 TRAINER_MAP = {
     "multihead": MultiHeadTrainer,
     "sequential": SequentialTrainer,
+    "rehearsal": RehearsalTrainer,
     "base_v2": BaseUNetTrainer,
     "vit_unet": ViTUNetTrainer,
 }
@@ -18,6 +21,7 @@ CLASS_NAME_MAP = {
     "nnUNetTrainerV2": BaseUNetTrainer,
     "nnUNetTrainerMultiHead": MultiHeadTrainer,
     "nnUNetTrainerSequential": SequentialTrainer,
+    "nnUNetTrainerRehearsal": RehearsalTrainer,
     "nnViTUNetTrainer": ViTUNetTrainer,
 }
 

