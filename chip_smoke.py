@@ -124,22 +124,54 @@ Phases (one line each; any failure raises, so the exit code is not 0):
      Dice of each head on each task recorded), one case's segmentation
      agreeing with the plain route's on >= 99% of voxels; seconds per
      task, warm s/step (synchronized per step), the progress validation's
-     seconds and peak memory.
-Phases 4, 6, 8 and 11 run with both switches set: at hippocampus scale the
+     seconds and peak memory;
+  12. the regularizing and freezing trainers: phase 11's tasks A and B and
+     a third, ``Task099_SynthC`` (made like B: seed 11, intensity shift
+     -0.6), planned and preprocessed the same way, each trained 1 epoch of
+     30 steps and 2 validation batches per task (``-save_interval 1
+     --use_progress_val --device cuda``) at full width by
+     ``nnUNet_torch_train_ewc 3d_fullres -t A B C`` (the main path),
+     ``_rw -t A B``, ``_frozen_body_seq -t A B``, and with ``--use_vit``
+     (V1, ViT-base) ``_ewc_ln -t A B`` and ``_frozen_vit -t A B``: the
+     launch counters of every run as the route predicts per train step,
+     per fisher batch (a forward and a backward), per validation batch and
+     per progress-validation forward; EWC's penalty 0 on A and finite and
+     > 0 on every step of B and C, its bf16 anchors of A and B after B and
+     of A, B and C after C in the checkpoints, the penalty and its
+     gradient from B's final checkpoint on the card and on the CPU within
+     1e-5 relative, a ``-c`` run after C training nothing, and a ``-c`` run
+     after a kill between C's ``model_latest`` and its fisher pass
+     restoring A's and B's anchors bit for bit and running that pass
+     alone; each of EWC's three heads served on each task's images
+     (launches as predicted, the 3 x 3 Dice matrix recorded); RW's running
+     state updated on iterations 0, 10, 20, ... only, finite, its anchor
+     f32 and its score sets bf16, its penalty > 0 on B;
+     ``frozen_body_seq``'s body after B equal to A's bit for bit and its
+     head moved; ``ewc_ln``'s anchors on the ViT's LayerNorms only;
+     ``frozen_vit``'s ViT unchanged bit for bit through B while the U-Net
+     moved.  Recorded: seconds per task, warm s/step per task (as phase
+     11, beside phase 11's Sequential), fisher-pass seconds per task,
+     ``model_final_checkpoint`` bytes per task, peak memory, and the
+     kernel launch calls of an EWC step with two anchors beside the same
+     step without the penalty (torch.profiler), both steps' CUDA-event
+     medians in turns, and the penalty's time.
+Phases 4, 6, 8, 11 and 12 run with both switches set: at hippocampus scale the
 gates admit nothing, so their launch counts are those of the ordinary
 routes.  The fused conv, its data gradient and flash attention (forward
 and backward) count every launch and, apart, those on the tensor-core
-kernels: on the eight main paths (bf16) every one must take them, in the f32
+kernels: on the ten main paths (bf16) every one must take them, in the f32
 checks of phases 4, 6, 8 and 10 none.  The line
 before the last is the kernels' JSON record (the U-Net's forward kernels
 per forward at the serving path's largest batch, its backward kernels per
 train step, the flash kernels per ViT-U-Net train step, the copy kernels
 per CT train step, the pack by device time with its CUDA-event median as
 ``event_ms`` and its time per CT serving forward as ``serve_ms`` beside
-``serve_bound_ms``; ``launches`` summed over the eight paths' runs, and per
+``serve_bound_ms``; ``launches`` summed over the ten paths' runs, and per
 path under ``launches_by_path``: ``serve``, ``train``, ``vit_train``,
 ``vit_serve``, ``ct_train``, ``ct_serve``, ``cl_train`` (both sequence
-trainings) and ``cl_serve`` (the four servings of phase 11); the two kernels of the fused
+trainings), ``cl_serve`` (the four servings of phase 11), ``cl_reg_train``
+(phase 12's five trainings and its resumed fisher pass) and
+``cl_reg_serve`` (the nine servings of EWC's heads); the two kernels of the fused
 conv, its data gradient and flash attention as ``conv3d_in_lrelu_tc`` /
 ``conv3d_dx_tc`` / ``flash_attention_tc`` / ``flash_attention_bwd_tc``
 (the tensor-core kernels) and ``conv3d_in_lrelu_f32`` / ``conv3d_dx_f32``
@@ -206,26 +238,33 @@ from lifelong_nnunet_tpu_torch.ops.kernels.conv3d import (  # noqa: E402
 from lifelong_nnunet_tpu_torch.ops.kernels.instance_norm import (  # noqa: E402
     FORMS, card_limits, instance_norm_leaky_bwd_cf, instance_norm_leaky_cf, launch_plan,
     plain_instance_norm_leaky, plain_instance_norm_leaky_bwd)
+from lifelong_nnunet_tpu_torch.models.multihead import name_filter_mask  # noqa: E402
+from lifelong_nnunet_tpu_torch.ops.cl_losses import QuadraticPenalty  # noqa: E402
 from lifelong_nnunet_tpu_torch.ops.losses import deep_supervision_loss  # noqa: E402
 from lifelong_nnunet_tpu_torch.planning.plans import Plans, plans_path  # noqa: E402
 from lifelong_nnunet_tpu_torch.run.plan_and_preprocess import plan_and_preprocess  # noqa: E402
 from lifelong_nnunet_tpu_torch.run.run_inference import run_inference  # noqa: E402
 from lifelong_nnunet_tpu_torch.run.run_training import (  # noqa: E402
-    output_folder, run_training, trainer_name)
+    METHOD_ARGS, output_folder, run_training, trainer_name)
 from lifelong_nnunet_tpu_torch.run.run_training_vit import run_training_vit  # noqa: E402
 from lifelong_nnunet_tpu_torch.tools import in_probe  # noqa: E402
 from lifelong_nnunet_tpu_torch.tools import pack_probe  # noqa: E402
 from lifelong_nnunet_tpu_torch.tools.flash_probe import device_ms  # noqa: E402
 from lifelong_nnunet_tpu_torch.training.checkpoints import (  # noqa: E402
-    base_manifest, save_checkpoint)
+    base_manifest, load_registry, save_checkpoint)
 from lifelong_nnunet_tpu_torch.training.optimizer import PolySGD  # noqa: E402
 from lifelong_nnunet_tpu_torch.training.output_paths import (  # noqa: E402
-    arch_dir, build_output_folder)
-from lifelong_nnunet_tpu_torch.training.restore import restore_model  # noqa: E402
+    arch_dir, build_output_folder, metadata_folder)
+from lifelong_nnunet_tpu_torch.training.restore import (  # noqa: E402
+    restore_model, restore_trainer)
 from lifelong_nnunet_tpu_torch.training.train_step import (  # noqa: E402
     StepConfig, make_train_step)
-from lifelong_nnunet_tpu_torch.training.trainer import MultiHeadTrainer  # noqa: E402
+from lifelong_nnunet_tpu_torch.training.trainer import (  # noqa: E402
+    MultiHeadTrainer, TrainerOptions)
+from lifelong_nnunet_tpu_torch.training.trainers import get_trainer  # noqa: E402
+from lifelong_nnunet_tpu_torch.training.trainers.ewc import EWCTrainer  # noqa: E402
 from lifelong_nnunet_tpu_torch.training.trainers.rehearsal import RehearsalTrainer  # noqa: E402
+from lifelong_nnunet_tpu_torch.training.trainers.rw import RWTrainer  # noqa: E402
 from lifelong_nnunet_tpu_torch.utilities.imageio import read_image  # noqa: E402
 from lifelong_nnunet_tpu_torch.utilities.synthetic import make_synthetic_task  # noqa: E402
 
@@ -269,6 +308,12 @@ CT_ROUTES = {"blocked_conv": True, "upsample": "interleave"}
 # the task sequence (phase 11): steps and validation batches per task, the
 # progress validation's window batch (the trainer's)
 SEQ_ITERS, SEQ_VAL_ITERS, SEQ_WINDOW_BATCH = 30, 2, 4
+# the regularizing trainers (phase 12): its third task, made like task B,
+# and the limit on the penalty's (and its gradient's) relative difference
+# between the card and the CPU from one checkpoint
+REG_TASK_C = dict(task_name="Task099_SynthC", shape=SMALL_SHAPE, num_cases=4, seed=11,
+                  intensity_shift=-0.6)
+PENALTY_RTOL = 1e-5
 DIRECT_ROUTES = {"blocked_conv": False, "upsample": "direct"}
 # f32 copies at the serving batch are checked where the kernel's input and
 # output fit in this many bytes (the largest, 64 x 64 x 128^3, would not fit
@@ -1340,11 +1385,12 @@ class _SequenceProbe:
     """Phase 11's measurements, by wrapping three trainer methods while the
     CLIs run: the seconds of each ``train_task`` and of each
     ``_perform_validation`` (synchronized), every train step's seconds
-    (synchronized before and after the step), and the rehearsal pool of
-    each task.  The wrappers only time and record."""
+    (synchronized before and after the step) and CL penalty, and the
+    rehearsal pool of each task.  The wrappers only time and record."""
 
     def __init__(self):
         self.tasks, self.steps, self.val_s, self.pools = [], {}, [], {}
+        self.penalties = {}     # task: [the step's CL penalty (a device tensor)]
         self._saved = {}
 
     def _wrap(self, cls, name, make):
@@ -1376,6 +1422,8 @@ class _SequenceProbe:
                     out = step(cl_state, batch)
                     torch.cuda.synchronize()
                     probe.steps.setdefault(task, []).append(time.perf_counter() - t0)
+                    probe.penalties.setdefault(task, []).extend(
+                        v for k, v in out[1].items() if k.endswith("_penalty"))
                     return out
                 self._train_step = timed
             return wrapped
@@ -1412,44 +1460,76 @@ class _SequenceProbe:
         return statistics.median(self.steps[task][skip:])
 
 
-def _sequence_path(task_dir, plans, shapes, work, pre, results, dev) -> dict:
+def _train_expect(dev, shapes, batch, steps, vals, progress, fisher=0, attn=0) -> dict:
+    """Every counter of a training run of a model whose blocks are
+    ``shapes`` (:func:`_block_shapes`): ``steps`` train steps and ``fisher``
+    fisher batches (a forward and a backward each) and ``vals`` validation
+    batches at ``batch``, and a progress-validation forward at each batch
+    of ``progress``; ``attn`` attention blocks per forward (the ViT's)."""
+    n_fused = sum(f for f, _, _ in shapes)
+    n_strided = len(shapes) - n_fused
+    back = steps + fisher
+    fwd = back + vals + len(progress)
+    return _expect(
+        conv3d_in_lrelu=n_fused * fwd, instance_norm_leaky=n_strided * fwd,
+        conv3d_dx=(n_fused - 1) * back, instance_norm_leaky_bwd=(n_fused + n_strided) * back,
+        flash_attention=attn * fwd, flash_attention_bwd=attn * back,
+        **_in_forms(dev, fwd=_at(_rows([o for f, _, o in shapes if not f]),
+                                 [(batch, back + vals)] + [(b, 1) for b in progress]),
+                    bwd=_at(_rows([o for _, _, o in shapes]), [(batch, back)])))
+
+
+def _task_stages(pre, tasks) -> tuple:
+    """({task: its preprocessed dataset}, {task: its fold-0 split})."""
+    stages = {t: PreprocessedDataset(os.path.join(pre, t, "nnUNetData_plans_v2.1_3d_fullres"))
+              for t in tasks}
+    return stages, {t: final_splits(os.path.join(pre, t), stages[t].cases)[0] for t in tasks}
+
+
+def _val_batches(stage, split, patch) -> list:
+    """The progress validation's window batches over a task's val cases
+    (the trainer's window batch)."""
+    out = []
+    for case in split["val"]:
+        n = len(window_grid(stage.load(case).shape[1:], patch)[2])
+        out += [min(SEQ_WINDOW_BATCH, n - i) for i in range(0, n, SEQ_WINDOW_BATCH)]
+    return out
+
+
+def _serve_batches(images, plans, patch) -> list:
+    """The model batches of serving a folder: windows per forward times the
+    mirror variants."""
+    out = []
+    for _, files in case_files(images):
+        data, _ = preprocess_for_inference(files, plans, "3d_fullres")
+        n = len(window_grid(data.shape[:-1], patch)[2])
+        out += [min(WINDOW_BATCH, n - i) * TTA for i in range(0, n, WINDOW_BATCH)]
+    return out
+
+
+def _sequence_path(task_dir, plans, shapes, work, pre, results, dev) -> tuple:
     """Phase 11: a sequence of two hippocampus-scale tasks through the CL
     entry points (see the module docstring).  Returns the launch counts of
     the training runs (``cl_train``) and of serving the heads
-    (``cl_serve``)."""
+    (``cl_serve``), and Sequential's warm s/step per task."""
     cfg = plans.config("3d_fullres")
     patch, b2, classes = tuple(cfg.patch_size), TRAIN_BATCH, plans.num_classes + 1
     n_fused = sum(f for f, _, _ in shapes)
     n_strided = len(shapes) - n_fused
     strided = _rows([o for f, _, o in shapes if not f])
-    all_rows = _rows([o for _, _, o in shapes])
     a_dir = task_dir
     b_dir = make_synthetic_task(os.path.dirname(task_dir), task_name="Task098_SynthB",
                                 shape=SMALL_SHAPE, num_cases=4, seed=7, intensity_shift=0.8)
     plan_and_preprocess([b_dir], pre, configs=("3d_fullres",), verbose=False)
     raw_dirs = {os.path.basename(d): d for d in (a_dir, b_dir)}
     tasks = list(raw_dirs)
-    stages = {t: PreprocessedDataset(os.path.join(pre, t, "nnUNetData_plans_v2.1_3d_fullres"))
-              for t in tasks}
-    splits = {t: final_splits(os.path.join(pre, t), stages[t].cases)[0] for t in tasks}
-
-    def val_batches(t):
-        """The progress validation's window batches over ``t``'s val cases."""
-        out = []
-        for case in splits[t]["val"]:
-            n = len(window_grid(stages[t].load(case).shape[1:], patch)[2])
-            out += [min(SEQ_WINDOW_BATCH, n - i) for i in range(0, n, SEQ_WINDOW_BATCH)]
-        return out
+    stages, splits = _task_stages(pre, tasks)
 
     # after A: A's val cases with head A; after B: A's and B's, each its head
-    progress = val_batches(tasks[0]) * 2 + val_batches(tasks[1])
+    progress = _val_batches(stages[tasks[0]], splits[tasks[0]], patch) * 2 + \
+        _val_batches(stages[tasks[1]], splits[tasks[1]], patch)
     steps, vals = 2 * SEQ_ITERS, 2 * SEQ_VAL_ITERS
-    forwards = steps + vals + len(progress)
-    expect_train = _expect(
-        conv3d_in_lrelu=n_fused * forwards, instance_norm_leaky=n_strided * forwards,
-        conv3d_dx=(n_fused - 1) * steps, instance_norm_leaky_bwd=(n_fused + n_strided) * steps,
-        **_in_forms(dev, fwd=_at(strided, [(b2, steps + vals)] + [(b, 1) for b in progress]),
-                    bwd=_at(all_rows, [(b2, steps)])))
+    expect_train = _train_expect(dev, shapes, b2, steps, vals, progress)
     argv = ["3d_fullres", "-t"] + tasks + [
         "-num_epochs", "1", "-num_iters", str(SEQ_ITERS), "-val_iters", str(SEQ_VAL_ITERS),
         "-save_interval", "1", "--use_progress_val", "--device", "cuda"]
@@ -1505,12 +1585,7 @@ def _sequence_path(task_dir, plans, shapes, work, pre, results, dev) -> dict:
     # serving each head on each task's images
     images = {t: os.path.join(raw_dirs[t], "imagesTr") for t in tasks}
     labels = {t: os.path.join(raw_dirs[t], "labelsTr") for t in tasks}
-    serve_batches = []
-    for t in tasks:
-        for _, files in case_files(images[t]):
-            data, _ = preprocess_for_inference(files, plans, "3d_fullres")
-            n = len(window_grid(data.shape[:-1], patch)[2])
-            serve_batches += [min(WINDOW_BATCH, n - i) * TTA for i in range(0, n, WINDOW_BATCH)]
+    serve_batches = [b for t in tasks for b in _serve_batches(images[t], plans, patch)]
     serve_batches *= len(tasks)            # every head on every task
     _reset_counts()
     dice, served = {}, {}
@@ -1575,7 +1650,354 @@ def _sequence_path(task_dir, plans, shapes, work, pre, results, dev) -> dict:
           f"(limit 0.99)", flush=True)
     cl_train = {k: train_launches["sequential"][k] + train_launches["rehearsal"][k]
                 for k in train_launches["sequential"]}
-    return {"cl_train": cl_train, "cl_serve": serve_launches}
+    return ({"cl_train": cl_train, "cl_serve": serve_launches},
+            {t: probes["sequential"].warm_step_s(t) for t in tasks})
+
+
+class _RegularizerProbe(_SequenceProbe):
+    """Phase 12's measurements on top of phase 11's: each fisher pass's
+    seconds (synchronized) and the EWC anchors it finds on entry, and, per
+    RW train step, the iteration counter and whether the running state
+    was updated."""
+
+    def __enter__(self):
+        super().__enter__()
+        probe = self
+        self.fisher_s, self.anchors_on_entry, self.gate = [], [], []
+
+        def fisher(orig):
+            def timed(self, task):
+                probe.anchors_on_entry.append((task, dict(self.cl_state["ewc_tasks"])))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                orig(self, task)
+                torch.cuda.synchronize()
+                probe.fisher_s.append((task, time.perf_counter() - t0))
+            return timed
+
+        def gate(orig):
+            def wrapped(self):
+                inner = orig(self)
+
+                def update(cl_state, model, loss):
+                    out = inner(cl_state, model, loss)
+                    probe.gate.append((cl_state["running"]["iter"], out["running"]["fisher"]
+                                       is not cl_state["running"]["fisher"]))
+                    return out
+                return update
+            return wrapped
+
+        self._wrap(EWCTrainer, "after_task", fisher)
+        self._wrap(RWTrainer, "cl_state_update", gate)
+        return self
+
+
+def _launch_calls(fn, reps: int = 3) -> float:
+    """Kernel launches the host issues per call of ``fn`` (the runtime's
+    launch calls in torch.profiler, which the device's event buffer cannot
+    drop), after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                            "cuLaunchKernelEx")) / reps
+
+
+def _regularizer_path(task_dir, plans, shapes, vit, work, pre, results, dev,
+                      seq_step_s) -> dict:
+    """Phase 12: the regularizing and freezing trainers through their entry
+    points on phase 11's tasks A and B and a third task C (see the module
+    docstring).  Returns the launch counts of the training runs, the
+    resumed one included (``cl_reg_train``), and of serving EWC's heads
+    (``cl_reg_serve``)."""
+    cfg = plans.config("3d_fullres")
+    patch, b2, classes = tuple(cfg.patch_size), TRAIN_BATCH, plans.num_classes + 1
+    raw_root = os.path.dirname(task_dir)
+    c_dir = make_synthetic_task(raw_root, **REG_TASK_C)
+    plan_and_preprocess([c_dir], pre, configs=("3d_fullres",), verbose=False)
+    tasks = [os.path.basename(task_dir), "Task098_SynthB", os.path.basename(c_dir)]
+    raw_dirs = {t: os.path.join(raw_root, t) for t in tasks}
+    stages, splits = _task_stages(pre, tasks)
+    val_b = {t: _val_batches(stages[t], splits[t], patch) for t in tasks}
+    ext_root = os.path.join(results, "nnUNet_ext")
+    vit_arch = dict(vit=True, vit_version="V1", vit_type="base", task_specific_ln=False,
+                    spt=False, lsa=False)
+    vit_b = max(1, b2 // 2)
+    steps_per, vals_per = SEQ_ITERS, SEQ_VAL_ITERS
+
+    def argv(run):
+        return ["3d_fullres", "-t"] + run + [
+            "-num_epochs", "1", "-num_iters", str(steps_per), "-val_iters", str(vals_per),
+            "-save_interval", "1", "--use_progress_val", "--device", "cuda"]
+
+    def folder(ext, run, upto, vit_run=False):
+        return build_output_folder(ext_root, "3d_fullres", run, run[: upto + 1],
+                                   trainer_name(ext), plans.plans_name, 0,
+                                   get_trainer(ext).TRANSFER_HEADS,
+                                   **(vit_arch if vit_run else {}))
+
+    def registry(base, device=torch.device("cpu")):
+        mh, blob, manifest = load_registry(os.path.join(base, "model_final_checkpoint"),
+                                           device, [])
+        return mh, blob.get("cl_state"), manifest
+
+    def progress(run):
+        """After each task its val cases and every earlier task's."""
+        return [b for i in range(len(run)) for t in run[: i + 1] for b in val_b[t]]
+
+    runs = [("ewc", tasks, False, True), ("rw", tasks[:2], False, False),
+            ("frozen_body_seq", tasks[:2], False, False), ("ewc_ln", tasks[:2], True, True),
+            ("frozen_vit", tasks[:2], True, False)]
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+    launches, probes, peak_gb, run_s = {}, {}, {}, {}
+    for ext, run, vit_run, fisher in runs:
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _RegularizerProbe() as probe:
+            run_training(ext, argv(run) + (["--use_vit"] if vit_run else []))
+        torch.cuda.synchronize()
+        run_s[ext] = time.perf_counter() - t0
+        peak_gb[ext] = torch.cuda.max_memory_allocated() / 1e9
+        launches[ext] = _counts()
+        steps = len(run) * steps_per
+        expect = _train_expect(dev, vit["shapes"] if vit_run else shapes,
+                               vit_b if vit_run else b2, steps, len(run) * vals_per,
+                               progress(run), fisher=steps if fisher else 0,
+                               attn=vit["n_attn"] if vit_run else 0)
+        assert launches[ext] == expect, (ext, launches[ext], expect)
+        probes[ext] = probe
+        final = folder(ext, run, len(run) - 1, vit_run)
+        with open(os.path.join(final, "progress.json")) as f:
+            record = json.load(f)
+        assert len(record["step_losses"]) == steps and all(map(math.isfinite,
+                                                              record["step_losses"])), ext
+        assert [t for t, _ in probe.tasks] == run and len(probe.val_s) == len(run), ext
+        assert [t for t, _ in probe.fisher_s] == (run if fisher else []), ext
+
+    # ---- EWC over A, B, C: the penalty, the anchors, the checkpoints
+    ewc = probes["ewc"]
+    pens = {t: torch.stack(ewc.penalties[t]).float().cpu() if ewc.penalties.get(t) else None
+            for t in tasks}
+    assert pens[tasks[0]] is None, "EWC ran a penalty on its first task"
+    assert all(bool(torch.isfinite(pens[t]).all() and (pens[t] > 0).all())
+               and len(pens[t]) == steps_per for t in tasks[1:]), pens
+    ckpt_bytes, anchored = [], []
+    for i, t in enumerate(tasks):
+        base = folder("ewc", tasks, i)
+        _, cl, manifest = registry(base)
+        assert manifest["has_cl_state"] and manifest["anchor_dtype"] == "bfloat16", manifest
+        assert list(cl["ewc_tasks"]) == tasks[: i + 1], list(cl["ewc_tasks"])
+        assert all(v.dtype == torch.bfloat16 for s in cl["ewc_tasks"].values()
+                   for part in s.values() for v in part.values())
+        ckpt_bytes.append(os.path.getsize(os.path.join(base, "model_final_checkpoint.pt")))
+        anchored.append(len(cl["ewc_tasks"][t]["fisher"]))
+
+    # the penalty and its gradient from B's final checkpoint, on the card
+    # and on the CPU
+    pen_on = {}
+    for device in (dev, torch.device("cpu")):
+        mh, cl, _ = registry(folder("ewc", tasks, 1), device)
+        named = {k: torch.nn.Parameter(v.float()) for k, v in mh.assemble(tasks[1]).items()}
+        pen = QuadraticPenalty(named, [{"weight": s["fisher"], "params": s["params"]}
+                                       for s in cl["ewc_tasks"].values()], 0.4)
+        value, _ = pen()
+        pen.add_grad()
+        pen_on[device.type] = (value.item(), {k: p.grad.cpu() for k, p in named.items()})
+    (pen_cuda, g_cuda), (pen_cpu, g_cpu) = pen_on["cuda"], pen_on["cpu"]
+    pen_rel = abs(pen_cuda - pen_cpu) / abs(pen_cpu)
+    grad_rel = max(((g_cuda[k] - g).abs().max() / g.abs().max().clamp(min=1e-30)).item()
+                   for k, g in g_cpu.items())
+    assert pen_cpu > 0 and pen_rel <= PENALTY_RTOL and grad_rel <= PENALTY_RTOL, (
+        pen_cuda, pen_cpu, grad_rel)
+
+    # the EWC step's launches beside the same step without the penalty, at
+    # C's first parameters (A's and B's anchors)
+    tr = restore_trainer(os.path.join(folder("ewc", tasks, 2), "before_training"),
+                         TrainerOptions(device="cuda"))
+    batch = PatchSampler(stages[tasks[2]], splits[tasks[2]]["train"], patch, b2,
+                         seed=SEED).next_batch()
+    batch = {k: torch.from_numpy(batch[k]).to(dev) for k in ("data", "seg")}
+    plain_step = make_train_step(tr.model, tr.optimizer, StepConfig(
+        ds_factors=tr.ds_factors, batch_dice=True, num_classes=classes))
+    ewc_step = make_train_step(tr.model, tr.optimizer, StepConfig(
+        ds_factors=tr.ds_factors, batch_dice=True, num_classes=classes),
+        loss_extras=tr.loss_extras())
+    penalty = tr.loss_extras()
+    calls = {"plain": _launch_calls(lambda: plain_step(tr.cl_state, batch)),
+             "ewc": _launch_calls(lambda: ewc_step(tr.cl_state, batch)),
+             "penalty": _launch_calls(lambda: (penalty(), penalty.add_grad()))}
+    pen_ms = _time_ms(lambda: (penalty(), penalty.add_grad()))
+    # the same step with and without the penalty, CUDA-event medians in
+    # turns (plain, EWC, EWC, plain)
+    step_ms = {"plain": [], "ewc": []}
+    for name in ("plain", "ewc", "ewc", "plain"):
+        step = plain_step if name == "plain" else ewc_step
+        step_ms[name].append(_time_ms(lambda: step(tr.cl_state, batch), reps=STEP_REPS))
+    del tr, plain_step, ewc_step, penalty
+
+    # -c after C trains nothing; -c after a kill between C's model_latest
+    # and its fisher pass restores A's and B's anchors and runs that pass
+    _reset_counts()
+    run_training("ewc", argv(tasks) + ["-c"])
+    assert _counts() == _expect(), _counts()
+    manifest_file = os.path.join(metadata_folder(ext_root, "3d_fullres", tasks,
+                                                 trainer_name("ewc"), plans.plans_name),
+                                 "ewc_trained_on.json")
+    with open(manifest_file) as f:
+        trained_on = json.load(f)
+    trained_on["0"].update(finished_training_on=tasks[:2], start_training_on=tasks[2],
+                           finished_validation_on=tasks[:2])
+    with open(manifest_file, "w") as f:
+        json.dump(trained_on, f)
+    _, cl_b, _ = registry(folder("ewc", tasks, 1))
+    _reset_counts()
+    with _RegularizerProbe() as resumed:
+        run_training("ewc", argv(tasks) + ["-c"])
+    resume_launches = _counts()
+    assert resume_launches == _train_expect(dev, shapes, b2, 0, 0, [], fisher=steps_per), \
+        resume_launches
+    (task_c, held), = resumed.anchors_on_entry
+    assert task_c == tasks[2] and list(held) == tasks[:2], list(held)
+    assert all(torch.equal(v.cpu(), cl_b["ewc_tasks"][t][part][k])
+               for t in tasks[:2] for part in ("fisher", "params")
+               for k, v in held[t][part].items())
+
+    # serving each of the 3 heads on each task's images
+    images = {t: os.path.join(raw_dirs[t], "imagesTr") for t in tasks}
+    labels = {t: os.path.join(raw_dirs[t], "labelsTr") for t in tasks}
+    serve_batches = [b for t in tasks for b in _serve_batches(images[t], plans, patch)]
+    serve_batches *= len(tasks)
+    n_fused = sum(f for f, _, _ in shapes)
+    n_strided = len(shapes) - n_fused
+    _reset_counts()
+    dice = {}
+    for head in tasks:
+        for t in tasks:
+            out = os.path.join(work, f"ewc_{head}_on_{t}")
+            run_inference(["3d_fullres", "ewc", "-i", images[t], "-o", out, "-trained_on"]
+                          + tasks + ["-use_head", head, "-window_batch", str(WINDOW_BATCH),
+                                     "--device", "cuda"])
+            per_case = []
+            for case, _ in case_files(images[t]):
+                seg = np.asarray(read_image(os.path.join(out, f"{case}.nii.gz")).data)
+                label = np.asarray(read_image(os.path.join(labels[t], f"{case}.nii.gz")).data)
+                assert seg.shape == label.shape and int(seg.max()) < classes
+                per_case.append(float(np.nanmean(subject_metrics(seg, label, classes)["Dice"])))
+            dice[(head, t)] = statistics.mean(per_case)
+    serve_launches = _counts()
+    assert serve_launches == _expect(
+        conv3d_in_lrelu=n_fused * len(serve_batches),
+        instance_norm_leaky=n_strided * len(serve_batches),
+        **_in_forms(dev, fwd=_at(_rows([o for f, _, o in shapes if not f]),
+                                 [(b, 1) for b in serve_batches]))), serve_launches
+
+    # ---- RW over A, B: the gate, the running state, the anchor
+    rw = probes["rw"]
+    gate_every = METHOD_ARGS["rw"]["fisher_update_after"][1]      # the CLI's default
+    assert rw.gate == [(i, i % gate_every == 0) for i in range(2 * steps_per)], rw.gate
+    _, cl, manifest = registry(folder("rw", tasks[:2], 1))
+    r, anchor = cl["running"], cl["anchor"]
+    assert r["iter"] == 2 * steps_per and cl["num_tasks_done"] == 2
+    assert all(bool(torch.isfinite(v.float()).all()) for part in (
+        r["fisher"], r["scores"], anchor["scores"], *cl["score_sets"]) for v in part.values())
+    assert all(v.dtype == torch.float32 for part in anchor.values() for v in part.values())
+    assert [all(v.dtype == torch.bfloat16 for v in s.values()) for s in cl["score_sets"]] \
+        == [True, True]
+    assert manifest["anchor_dtype"] == "float32" and manifest["score_sets_dtype"] == "bfloat16"
+    rw_pen = torch.stack(rw.penalties[tasks[1]]).float().cpu()
+    assert not rw.penalties.get(tasks[0]) and bool(torch.isfinite(rw_pen).all()
+                                                   and (rw_pen > 0).all())
+    fisher_sum = sum(float(v.double().sum()) for v in r["fisher"].values())
+    set_max = [max(float(v.float().max()) for v in s.values()) for s in cl["score_sets"]]
+
+    # ---- frozen_body_seq: B's body is A's bit for bit, its head moved
+    mh_a, _, _ = registry(folder("frozen_body_seq", tasks[:2], 0))
+    mh_b, _, _ = registry(folder("frozen_body_seq", tasks[:2], 1))
+    assert all(torch.equal(v, mh_a.body[k]) for k, v in mh_b.body.items())
+    assert any(not torch.equal(v, mh_a.heads[tasks[0]][k]) for k, v in mh_b.heads[tasks[1]].items())
+
+    # ---- ewc_ln (ViT-U-Net): anchors on the ViT's LayerNorms only
+    mh_ln, cl_ln, _ = registry(folder("ewc_ln", tasks[:2], 1, True))
+    ln_keys = sorted(k for k, on in name_filter_mask(mh_ln.assemble(), ["vit", "norm"],
+                                                     True).items() if on)
+    assert all(sorted(s[part]) == ln_keys for s in cl_ln["ewc_tasks"].values()
+               for part in ("fisher", "params")) and len(cl_ln["ewc_tasks"]) == 2
+    n_params = len(mh_ln.assemble())
+
+    # ---- frozen_vit: the ViT as after A, bit for bit; the U-Net moved
+    fa, _, _ = registry(folder("frozen_vit", tasks[:2], 0, True))
+    fb, _, _ = registry(folder("frozen_vit", tasks[:2], 1, True))
+    wa, wb = fa.assemble(tasks[0]), fb.assemble(tasks[1])
+    vit_keys = [k for k in wb if k.startswith("vit.")]
+    assert vit_keys and all(torch.equal(wb[k], wa[k]) for k in vit_keys)
+    assert any(not torch.equal(wb[k], wa[k]) for k in wb if not k.startswith("vit."))
+
+    # ---- the record
+    per_step = "per train step and per fisher batch {conv3d_in_lrelu: %d, " \
+        "instance_norm_leaky: %d, conv3d_dx: %d, instance_norm_leaky_bwd: %d%s}, +%d/+%d%s " \
+        "per val batch and per progress-validation forward"
+    u_step = per_step % (n_fused, n_strided, n_fused - 1, n_fused + n_strided, "", n_fused,
+                         n_strided, "")
+    v_fused = sum(f for f, _, _ in vit["shapes"])
+    v_strided = len(vit["shapes"]) - v_fused
+    v_step = per_step % (v_fused, v_strided, v_fused - 1, v_fused + v_strided,
+                         f", flash_attention: {vit['n_attn']}, flash_attention_bwd: "
+                         f"{vit['n_attn']}", v_fused, v_strided, f"/+{vit['n_attn']} flash")
+    for ext, run, vit_run, fisher in runs:
+        probe = probes[ext]
+        print(f"[phase 12] nnUNet_torch_train_{ext} -t {' '.join(run)}"
+              + (" --use_vit" if vit_run else "") + f" --device cuda, full width"
+              + (" (V1, ViT-base, batch 1)" if vit_run else f" (batch {b2})")
+              + f", 1 epoch x {steps_per} steps + {vals_per} val batches per task: "
+              f"{run_s[ext]:.2f} s, seconds per task "
+              + ", ".join(f"{t} {s:.2f}" for t, s in probe.tasks)
+              + "; warm s/step (median of steps 4-30, synchronized) "
+              + ", ".join(f"{t} {probe.warm_step_s(t):.4f}" for t in run)
+              + ("; fisher pass s " + ", ".join(f"{t} {s:.3f}" for t, s in probe.fisher_s)
+                 if fisher else "")
+              + f"; progress validation {[round(v, 3) for v in probe.val_s]} s; peak "
+              f"{peak_gb[ext]:.2f} GB; launches {launches[ext]} == predicted, "
+              + (v_step if vit_run else u_step), flush=True)
+    print(f"[phase 12] ewc: penalty per step 0 on {tasks[0]}, "
+          + ", ".join(f"{t} {float(pens[t].min()):.4e}..{float(pens[t].max()):.4e}"
+                      for t in tasks[1:])
+          + f"; anchors (bf16) {anchored} tensors per task; model_final_checkpoint bytes "
+          f"per task {ckpt_bytes}; from {tasks[1]}'s final checkpoint the penalty on the "
+          f"card {pen_cuda:.6e} vs the CPU {pen_cpu:.6e} (rel {pen_rel:.2e}, gradient "
+          f"{grad_rel:.2e}, limit {PENALTY_RTOL}); launch calls per step: Sequential-style "
+          f"{calls['plain']:.0f}, EWC with 2 anchors {calls['ewc']:.0f} (+"
+          f"{calls['ewc'] - calls['plain']:.0f}), the penalty and its gradient alone "
+          f"{calls['penalty']:.0f} in {pen_ms:.3f} ms (CUDA events); the step in turns "
+          f"(CUDA events, ms) plain {[round(v, 3) for v in step_ms['plain']]}, EWC "
+          f"{[round(v, 3) for v in step_ms['ewc']]}; warm s/step beside "
+          f"phase 11's Sequential " + ", ".join(f"{t} {v:.4f}" for t, v in seq_step_s.items())
+          + "; a -c run after C trained nothing (all launch counts 0); a -c run after a kill "
+          f"between {tasks[2]}'s model_latest and its fisher pass restored {tasks[:2]}'s "
+          f"anchors bit for bit and ran that pass alone (launches {resume_launches})",
+          flush=True)
+    print(f"[phase 12] nnUNet_torch_inference ewc -trained_on {' '.join(tasks)} -use_head "
+          f"<head>: {len(serve_batches)} forwards, launches {serve_launches} == predicted; "
+          f"mean foreground Dice (rows head, columns images) "
+          + "; ".join(f"head {h}: " + ", ".join(f"{t} {dice[(h, t)]:.4f}" for t in tasks)
+                      for h in tasks), flush=True)
+    print(f"[phase 12] rw: running state updated on iterations {[i for i, u in rw.gate if u]} "
+          f"of {len(rw.gate)} (every {gate_every}), finite (fisher sum {fisher_sum:.4e}; "
+          f"largest normalized score per task {set_max}); penalty on {tasks[1]} "
+          f"{float(rw_pen.min()):.4e}..{float(rw_pen.max()):.4e}; anchor f32, score sets "
+          f"bf16; frozen_body_seq: {tasks[1]}'s {len(mh_b.body)} body tensors equal "
+          f"{tasks[0]}'s bit for bit, its head moved; ewc_ln: anchors on {len(ln_keys)} of "
+          f"{n_params} tensors (the ViT's LayerNorms); frozen_vit: {len(vit_keys)} vit.* "
+          f"tensors unchanged bit for bit through {tasks[1]}, the U-Net's moved", flush=True)
+    cl_reg_train = {k: sum(c[k] for c in launches.values()) + resume_launches[k]
+                    for k in resume_launches}
+    return {"cl_reg_train": cl_reg_train, "cl_reg_serve": serve_launches}
 
 
 def main() -> int:
@@ -2232,7 +2654,12 @@ def main() -> int:
                                     results, dev)
 
         # ---- phase 11: a task sequence through the CL entry points
-        cl_paths = _sequence_path(task_dir, plans, shapes, work, pre, results, dev)
+        cl_paths, seq_step_s = _sequence_path(task_dir, plans, shapes, work, pre, results, dev)
+
+        # ---- phase 12: the regularizing and freezing trainers
+        reg_paths = _regularizer_path(task_dir, plans, shapes,
+                                      {"shapes": vit_shapes, "n_attn": n_attn}, work, pre,
+                                      results, dev, seq_step_s)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2284,7 +2711,7 @@ def main() -> int:
                                   ("interleave_up2", "interleave.cu", "interleave.py:58"),
                                   ("deinterleave2", "interleave.cu", "interleave.py:73"))]
     paths = {"serve": launches, "train": train_launches, "vit_train": vit_train_launches,
-             "vit_serve": vit_serve_launches, **ct_paths, **cl_paths}
+             "vit_serve": vit_serve_launches, **ct_paths, **cl_paths, **reg_paths}
     # the FMA kernel runs f32 input only, off the bf16 main paths (0
     # launches there, asserted above); its launches in the f32 checks of
     # phases 4, 6, 8 and 10 are kept apart, under ``check_launches``

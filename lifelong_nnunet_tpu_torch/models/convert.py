@@ -15,6 +15,12 @@ in]``; the patch projection's kernel ``[*p, C, E]`` becomes the conv layout
 ``LayerNorm_0`` scope of a ``TaskLayerNorm`` is dropped (SPT's own
 ``LayerNorm_0`` is its ``norm``); position embeddings and LSA temperatures
 are copied as they are.
+
+:func:`jax_cl_state_to_torch` carries a JAX continual-learning state
+(EWC's ``{"ewc_tasks": ...}`` or RW's ``{"running", "anchor", "score_sets",
+...}``, dicts keyed by flax paths ``enc0/block0/Conv_0/kernel``) over to
+the port's ``state_dict`` keys, each fisher, score and anchor permuted as
+the parameter it belongs to.
 """
 
 from __future__ import annotations
@@ -91,3 +97,68 @@ def jax_params_to_state_dict(params, model: GenericUNet) -> dict:
         diff = sorted(set(want.items()) ^ set(got.items()))
         raise ValueError(f"JAX params do not fit the model: {diff[:8]}")
     return out
+
+
+def _with_leaves(params, leaves) -> dict:
+    """The nested tree of ``params`` with its leaves, in :func:`_flatten`'s
+    order, replaced by ``leaves``."""
+    tree = {}
+    for (path, _), leaf in zip(_flatten(params), leaves):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def jax_key_map(params, model: GenericUNet) -> dict:
+    """{port key: flax path "a/b/c"}: each leaf of ``params`` filled with
+    its own index goes through :func:`jax_params_to_state_dict`."""
+    flat = list(_flatten(params))
+    marked = _with_leaves(params, [np.full(np.shape(v), i, np.float32)
+                                   for i, (_, v) in enumerate(flat)])
+    return {k: "/".join(flat[int(v.reshape(-1)[0])][0])
+            for k, v in jax_params_to_state_dict(marked, model).items()}
+
+
+def _convert_flat(flat: Mapping, params, model: GenericUNet, key_map: dict) -> dict:
+    """A flat {flax path: array} over some of the parameters -> {port key:
+    tensor} over the same ones, in the array's dtype (bf16 stays bf16)."""
+    leaves = [np.asarray(flat["/".join(path)], np.float32) if "/".join(path) in flat
+              else np.zeros(np.shape(value), np.float32) for path, value in _flatten(params)]
+    out = jax_params_to_state_dict(_with_leaves(params, leaves), model)
+    bf16 = {name for name, v in flat.items() if str(np.asarray(v).dtype) == "bfloat16"}
+    return {k: out[k].to(torch.bfloat16) if path in bf16 else out[k]
+            for k, path in key_map.items() if path in flat}
+
+
+def jax_cl_state_to_torch(cl_state: Mapping, params, model: GenericUNet) -> dict:
+    """``cl_state``: a JAX EWC (``{"ewc_tasks": {task: {"fisher",
+    "params"}}}``) or RW (``{"running": {"fisher", "scores", "prev_params",
+    "prev_loss", "iter"} or None, "anchor": {"fisher", "scores", "params"} or
+    None, "score_sets": [...], "num_tasks_done"}``) state of numpy or jax
+    arrays; ``params``: the JAX model's parameter tree.  Returns the port
+    trainer's ``cl_state`` (CPU tensors; scalars as 0-d tensors, counters as
+    ints)."""
+    key_map = jax_key_map(params, model)
+
+    def conv(flat):
+        return _convert_flat(flat, params, model, key_map)
+
+    if "ewc_tasks" in cl_state:
+        return {"ewc_tasks": {t: {"fisher": conv(s["fisher"]), "params": conv(s["params"])}
+                              for t, s in cl_state["ewc_tasks"].items()}}
+    r, a = cl_state.get("running"), cl_state.get("anchor")
+    sets = cl_state.get("score_sets") or []
+    if isinstance(sets, Mapping):        # a msgpack round trip keys a list by index
+        sets = [sets[k] for k in sorted(sets, key=int)]
+    return {
+        "running": None if r is None else {
+            "fisher": conv(r["fisher"]), "scores": conv(r["scores"]),
+            "prev_params": conv(r["prev_params"]),
+            "prev_loss": torch.tensor(float(np.asarray(r["prev_loss"])), dtype=torch.float32),
+            "iter": int(np.asarray(r["iter"]))},
+        "anchor": None if a is None else {k: conv(a[k]) for k in ("fisher", "scores", "params")},
+        "score_sets": [conv(s) for s in sets],
+        "num_tasks_done": int(np.asarray(cl_state.get("num_tasks_done", len(sets)))),
+    }

@@ -14,8 +14,9 @@ in-place updates of the model never write through into the registry.
 The freezing and name-filter masks (:meth:`MultiHeadParams.trainable_mask`,
 :func:`name_filter_mask`) are plain ``{key: bool}`` dicts, and
 :func:`replace_params` returns a new ``{key: tensor}`` dict: data only.
-Wiring a mask into the optimizer comes with the trainers that freeze
-parameters.
+The freezing trainers hand their mask to the optimizer
+(``training/optimizer.py:PolySGD``); the EWC variants select the
+regularized keys with :func:`name_filter_mask`.
 """
 
 from __future__ import annotations

@@ -1,6 +1,11 @@
 """CLI: continual training across a task sequence with the PyTorch port —
-``nnUNet_torch_train_<extension>`` for ``multihead``, ``sequential``,
-``rehearsal`` and ``base_v2``.
+``nnUNet_torch_train_<extension>`` for every trainer of the port's
+registry (``training/trainers/__init__.py``): ``multihead``,
+``sequential``, ``rehearsal``, ``base_v2``, the EWC family (``ewc``,
+``ewc_vit``, ``ewc_unet``, ``ewc_ln``: ``-ewc_lambda``), ``rw``
+(``-rw_lambda``, ``-rw_alpha``, ``-fisher_update_after``) and the freezing
+trainers (``frozen_vit``, ``frozen_nonln``, ``frozen_unet``,
+``frozen_body_seq``, ``froz_ewc``: ``-ewc_lambda``, ``--adaptive``).
 
 The JAX package's ``nnUNet_train_<method>``
 (``lifelong_nnunet_tpu/run/run_training.py``), with ``--device`` (default
@@ -41,8 +46,26 @@ from ..training.trainers import TRAINER_MAP, get_trainer
 from .plan_and_preprocess import resolve_task
 
 # per-method CLI hyperparameters of the ported trainers: flag -> (type,
-# default) (the JAX CLI's METHOD_ARGS)
-METHOD_ARGS = {"rehearsal": {"samples_in_perc": (float, 0.25)}}
+# default) (the JAX CLI's METHOD_ARGS); a bool is a store_true switch
+METHOD_ARGS = {
+    "rehearsal": {"samples_in_perc": (float, 0.25)},
+    "ewc": {"ewc_lambda": (float, 0.4)},
+    "ewc_vit": {"ewc_lambda": (float, 0.4)},
+    "ewc_unet": {"ewc_lambda": (float, 0.4)},
+    "ewc_ln": {"ewc_lambda": (float, 0.4)},
+    "froz_ewc": {"ewc_lambda": (float, 0.4), "adaptive": (bool, False)},
+    "rw": {"rw_lambda": (float, 0.4), "rw_alpha": (float, 0.9),
+           "fisher_update_after": (int, 10)},
+}
+
+# the JAX CLI's folder names, nnUNetTrainer<name> (its ``_camel``)
+TRAINER_NAMES = {
+    "ewc_vit": "EWCViT", "ewc_unet": "EWCUNet", "ewc_ln": "EWCLN", "ewc": "EWC",
+    "rw": "RW", "lwf": "LWF", "mib": "MiB", "plop": "PLOP", "pod": "POD",
+    "froz_ewc": "FrozEWC", "frozen_vit": "FrozenViT", "frozen_nonln": "FrozenNonLN",
+    "frozen_unet": "FrozenUNet", "frozen_body_seq": "FrozenBody", "ownm1": "OwnM1",
+    "ownm2": "OwnM2", "ownm3": "OwnM3", "ownm4": "OwnM4", "multihead": "MultiHead",
+    "sequential": "Sequential", "rehearsal": "Rehearsal"}
 
 # options kept for argument parity with the JAX CLI, with the value that
 # means "off"; any other value is refused
@@ -97,7 +120,10 @@ def build_parser(extension: str) -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to train on ('cuda', 'cuda:N' or 'cpu')")
     for name, (typ, default) in METHOD_ARGS.get(extension, {}).items():
-        p.add_argument(f"-{name}", f"--{name}", type=typ, default=default)
+        if typ is bool:
+            p.add_argument(f"--{name}", action="store_true", default=default)
+        else:
+            p.add_argument(f"-{name}", f"--{name}", type=typ, default=default)
     return p
 
 
@@ -119,9 +145,7 @@ def _refuse_unported(args) -> None:
 
 def trainer_name(extension: str) -> str:
     """The JAX CLI's ``nnUNetTrainer<Ext>`` folder name (its ``_camel``)."""
-    special = {"multihead": "MultiHead", "sequential": "Sequential",
-               "rehearsal": "Rehearsal"}
-    return f"nnUNetTrainer{special.get(extension, extension.capitalize())}"
+    return f"nnUNetTrainer{TRAINER_NAMES.get(extension, extension.capitalize())}"
 
 
 def arch_kwargs(args) -> dict:
@@ -252,7 +276,9 @@ def _make_main(ext):
     return main
 
 
-# console-script entry points: nnUNet_torch_train_<extension>
+# console-script entry points: nnUNet_torch_train_<extension> (setup.py
+# also names main_frozen_body_seq nnUNet_torch_train_body_froz, as the JAX
+# package does)
 for _ext in TRAINER_MAP:
     globals()[f"main_{_ext}"] = _make_main(_ext)
 

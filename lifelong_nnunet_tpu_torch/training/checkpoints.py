@@ -7,17 +7,22 @@ A trainer's checkpoint keeps the multi-head registry, as the JAX package's
                    "state_init": the initial head ({} for trainers whose
                    new heads copy the active head, JAX's
                    ``include_state_init``), "optimizer" (its state_dict),
-                   "step", "epoch"}
+                   "cl_state" (the method's continual-learning state: a
+                   nested dict of tensors, lists, ints and None, such as
+                   EWC's fisher and anchors), "step", "epoch"}
     <name>.json   the JAX manifest's keys (``trainer.py:660-684``: plans,
                   trainer, extension, config_name, widths, fold, ...) plus
                   "meta" {"split_at", "module_order", "active_task",
-                  "task_order"}, "step", "epoch" and "has_opt_state"
+                  "task_order"}, "step", "epoch", "has_opt_state" and
+                  "has_cl_state"
 
 A model saved by hand (:func:`save_checkpoint`) keeps one full
 ``state_dict`` per task instead: ``{"heads": {task: state_dict}}`` with
 "meta" {"task_order", "active_task"}.  :func:`load_checkpoint` gives one
 full ``state_dict`` per task from either, which is all that serving reads;
-:func:`load_registry` gives the registry of either.
+:func:`load_registry` gives the registry of either.  A checkpoint written
+before ``cl_state`` was kept (no "cl_state", no "has_cl_state") still
+loads, with no CL state.
 
 Names follow the JAX package and the reference: ``model_final_checkpoint``,
 ``model_latest``, ``model_best``.  The manifest stores no absolute path.
@@ -71,8 +76,15 @@ def base_manifest(plans, config_name: str, model, trainer: str = "nnUNetTrainerV
     }
 
 
-def _cpu(sd: dict) -> dict:
-    return {k: v.detach().cpu() for k, v in sd.items()}
+def _cpu(tree):
+    """A copy of a nested dict / list of tensors with every tensor on the CPU."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_cpu(v) for v in tree]
+    return tree
 
 
 def _write(path_base: str, blob: dict, manifest: dict, meta: dict, step: int,
@@ -81,7 +93,8 @@ def _write(path_base: str, blob: dict, manifest: dict, meta: dict, step: int,
     torch.save(dict(blob, step=int(step), epoch=int(epoch)), path_base + CKPT_SUFFIX)
     man = dict(manifest)
     man.update({"meta": meta, "step": int(step), "epoch": int(epoch),
-                "has_opt_state": "optimizer" in blob})
+                "has_opt_state": "optimizer" in blob,
+                "has_cl_state": blob.get("cl_state") is not None})
     with open(path_base + ".json", "w") as f:
         json.dump(man, f, indent=2, default=str)
 
@@ -97,13 +110,16 @@ def save_checkpoint(path_base: str, heads: dict, manifest: dict) -> None:
 
 def save_registry(path_base: str, mh: MultiHeadParams, manifest: dict,
                   optimizer: dict | None = None, step: int = 0, epoch: int = 0,
-                  include_state_init: bool = True) -> None:
+                  include_state_init: bool = True, cl_state=None) -> None:
     """A trainer's checkpoint: the registry ``mh`` (``state_init`` left out
-    unless ``include_state_init``) and the optimizer's state_dict."""
+    unless ``include_state_init``), the optimizer's state_dict and the
+    trainer's ``cl_state``."""
     blob = {"body": _cpu(mh.body), "heads": {t: _cpu(h) for t, h in mh.heads.items()},
             "state_init": _cpu(mh.state_init) if include_state_init else {}}
     if optimizer is not None:
         blob["optimizer"] = optimizer
+    if cl_state is not None:
+        blob["cl_state"] = _cpu(cl_state)
     _write(path_base, blob, manifest,
            {"split_at": mh.split_at, "module_order": list(mh.module_order),
             "active_task": mh.active_task, "task_order": mh.tasks}, step, epoch)
@@ -117,7 +133,8 @@ def _read(path_base: str, device: torch.device):
 
 
 def load_registry(path_base: str, device: torch.device, module_order: list):
-    """Returns (MultiHeadParams on ``device``, blob, manifest).  A model
+    """Returns (MultiHeadParams on ``device``, blob, manifest); the blob's
+    "cl_state", where the checkpoint has one, is on ``device`` too.  A model
     saved by hand is split at the manifest's ``split_at`` (default the seg
     heads) in ``module_order``, with no ``state_init``."""
     blob, manifest = _read(path_base, device)

@@ -99,9 +99,11 @@ def restore_model(checkpoint_base: str, device: torch.device, head: str | None =
 def restore_trainer(checkpoint_base: str, options=None, restore_opt: bool = False):
     """checkpoint_base: path WITHOUT extension.  A trainer of the manifest's
     class on ``options.device`` (``options`` is copied, then given the
-    manifest's fold, split, patch, batch, widths and ViT options), with the
-    registry, epoch and global step restored, and the optimizer with
-    ``restore_opt``; its output folder is the checkpoint's."""
+    manifest's fold, split, patch, batch, widths and ViT options) with the
+    manifest's hyperparameters, its registry, epoch, global step and
+    ``cl_state`` (EWC's fisher and anchors, RW's running state) restored,
+    and the optimizer with ``restore_opt``; its output folder is the
+    checkpoint's."""
     # the trainer imports route_switches from here
     from .trainer import TrainerOptions
     from .trainers import get_trainer

@@ -40,12 +40,18 @@ def make_train_step(model, optimizer, cfg: StepConfig,
 
     loss_extras(model, cl_state, {"outputs"}, {"data", "seg"}) -> (extra, aux)
         adds a CL term; with ``loss_extras.replace_base`` it is the whole
-        objective.
+        objective.  A term with an ``add_grad()`` method (the quadratic
+        penalties of ``ops/cl_losses.py``) returns its value without an
+        autograd graph and adds its own gradient to ``.grad`` after the
+        backward of the rest.
     cl_state_update(cl_state, model, loss) -> cl_state
-        per-iteration CL state upkeep; sees the parameters before the update
-        and their gradients in ``.grad``.
+        per-iteration CL state upkeep; sees the parameters before the
+        update, the gradients of the total loss before the clip in
+        ``.grad``, and the total loss (the JAX step's ``(cl_state, params,
+        grads, loss)``).
     """
     replace_base = getattr(loss_extras, "replace_base", False)
+    add_grad = getattr(loss_extras, "add_grad", None)
     if cfg.augment is not None and generator is None:
         raise ValueError("augmentation needs a torch.Generator on the batch's device")
 
@@ -67,6 +73,8 @@ def make_train_step(model, optimizer, cfg: StepConfig,
                                          {"data": data, "seg": seg})
                 loss = loss + extra
         loss.backward()
+        if add_grad is not None:
+            add_grad()
         if cl_state_update is not None:
             cl_state = cl_state_update(cl_state, model, loss.detach())
         optimizer.step()

@@ -22,7 +22,9 @@ JAX trainer.
 Continual-learning methods subclass it and override the hooks
 (``init_cl_state`` / ``loss_extras`` / ``cl_state_update`` /
 ``before_task`` / ``after_task`` / ``trainable_mask`` /
-``extra_manifest`` / ``_adopt_manifest``) and ``HYPERPARAMS``.
+``extra_manifest`` / ``_adopt_manifest``) and ``HYPERPARAMS``.  Their
+``cl_state`` rides in every checkpoint; ``trainable_mask`` ({key: bool})
+reaches the optimizer, which leaves the frozen parameters as they are.
 
 Not ported yet, and refused by ``run/run_training.py`` when asked for:
 task-specific LayerNorms, SPMD (``-n_devices`` / ``-model_parallel``) and
@@ -214,13 +216,14 @@ class MultiHeadTrainer:
                     f"batch {self.batch_size}, {self.model.dtype} on {self.device}")
 
     def _build_step(self):
-        if self.trainable_mask() is not None:
-            raise NotImplementedError("a trainable mask reaches the optimizer with the "
-                                      "freezing trainers, which are not ported yet")
+        """A fresh optimizer (over the parameters that ``trainable_mask``
+        leaves trainable) and the train and eval steps, with the hooks'
+        terms as they stand now (``before_task`` runs first)."""
         self.model.load_state_dict(self.mh.assemble())
-        self.optimizer = PolySGD(self.model.parameters(), max_epochs=self.opts.num_epochs,
+        self.optimizer = PolySGD(self.model.named_parameters(),
+                                 max_epochs=self.opts.num_epochs,
                                  iters_per_epoch=self.opts.iters_per_epoch,
-                                 initial_lr=INITIAL_LR)
+                                 initial_lr=INITIAL_LR, trainable_mask=self.trainable_mask())
         aug = AugmentConfig(dummy_2d=bool(getattr(self.cfg, "do_dummy_2d_aug", False))) \
             if self.opts.augment else None
         step_cfg = StepConfig(ds_factors=self.ds_factors, batch_dice=self.batch_dice,
@@ -456,20 +459,24 @@ class MultiHeadTrainer:
             os.path.join(self.output_folder, name), self.mh, self.manifest(),
             optimizer=self.optimizer.state_dict() if self.optimizer else None,
             step=self.global_step, epoch=self.epoch,
-            include_state_init=not self.TRANSFER_HEADS)
+            include_state_init=not self.TRANSFER_HEADS, cl_state=self.cl_state)
 
     def load_checkpoint(self, name: str = "model_final_checkpoint",
                         restore_opt: bool = True) -> dict:
-        """Restore the registry, epoch and global step of ``name`` in the
-        output folder, and with ``restore_opt`` the optimizer (momentum and
-        step count), kept for the ``_build_step`` of a following
-        ``train_task(..., start_epoch)``.  Returns the manifest."""
+        """Restore the registry, epoch, global step and ``cl_state`` (on the
+        trainer's device; a checkpoint without one keeps the fresh
+        ``init_cl_state``) of ``name`` in the output folder, and with
+        ``restore_opt`` the optimizer (momentum and step count), kept for
+        the ``_build_step`` of a following ``train_task(..., start_epoch)``.
+        Returns the manifest."""
         mh, blob, manifest = checkpoints.load_registry(
             os.path.join(self.output_folder, name), self.device, self.model.module_order())
         self.mh = mh
         self.epoch = manifest["epoch"]
         self.global_step = manifest["step"]
         self._adopt_manifest(manifest)
+        if manifest.get("has_cl_state") and blob.get("cl_state") is not None:
+            self.cl_state = blob["cl_state"]
         self._build_step()
         if restore_opt and manifest.get("has_opt_state"):
             self.optimizer.load_state_dict(blob["optimizer"])

@@ -1,11 +1,16 @@
 """Trainer registry of the port: extension name / class name -> trainer
-class.  The other continual-learning trainers of the JAX package
-(``lifelong_nnunet_tpu/training/trainers/``: EWC, RW, LwF, MiB, PLOP,
-POD, the frozen-* and own-method trainers) come with later parts of the
-port; asking for one raises."""
+class, as the JAX package's
+(``lifelong_nnunet_tpu/training/trainers/__init__.py:20-66``).  The
+distilling trainers of the JAX package (LwF, MiB, PLOP, POD) and the
+own-method trainers (``ownm1-4``) come with later parts of the port;
+asking for one raises."""
 
 from ..trainer import MultiHeadTrainer
+from .ewc import EWCLNTrainer, EWCTrainer, EWCUNetTrainer, EWCViTTrainer
+from .frozen import (FrozEWCTrainer, FrozenBodyTrainer, FrozenNonLNTrainer,
+                     FrozenUNetTrainer, FrozenViTTrainer)
 from .rehearsal import RehearsalTrainer
+from .rw import RWTrainer
 from .sequential import BaseUNetTrainer, SequentialTrainer, ViTUNetTrainer
 
 TRAINER_MAP = {
@@ -14,6 +19,16 @@ TRAINER_MAP = {
     "rehearsal": RehearsalTrainer,
     "base_v2": BaseUNetTrainer,
     "vit_unet": ViTUNetTrainer,
+    "ewc": EWCTrainer,
+    "ewc_vit": EWCViTTrainer,
+    "ewc_unet": EWCUNetTrainer,
+    "ewc_ln": EWCLNTrainer,
+    "rw": RWTrainer,
+    "frozen_vit": FrozenViTTrainer,
+    "frozen_nonln": FrozenNonLNTrainer,
+    "frozen_unet": FrozenUNetTrainer,
+    "frozen_body_seq": FrozenBodyTrainer,
+    "froz_ewc": FrozEWCTrainer,
 }
 
 # reference class names -> ours
@@ -23,6 +38,16 @@ CLASS_NAME_MAP = {
     "nnUNetTrainerSequential": SequentialTrainer,
     "nnUNetTrainerRehearsal": RehearsalTrainer,
     "nnViTUNetTrainer": ViTUNetTrainer,
+    "nnUNetTrainerEWC": EWCTrainer,
+    "nnUNetTrainerEWCViT": EWCViTTrainer,
+    "nnUNetTrainerEWCUNet": EWCUNetTrainer,
+    "nnUNetTrainerEWCLN": EWCLNTrainer,
+    "nnUNetTrainerRW": RWTrainer,
+    "nnUNetTrainerFrozenViT": FrozenViTTrainer,
+    "nnUNetTrainerFrozenNonLN": FrozenNonLNTrainer,
+    "nnUNetTrainerFrozenUNet": FrozenUNetTrainer,
+    "nnUNetTrainerFrozenBody": FrozenBodyTrainer,
+    "nnUNetTrainerFrozEWC": FrozEWCTrainer,
 }
 
 

@@ -25,8 +25,12 @@ console_scripts = [
     "nnUNet_torch_inference = lifelong_nnunet_tpu_torch.run.run_inference:main",
 ] + [
     f"nnUNet_torch_train_{ext} = lifelong_nnunet_tpu_torch.run.run_training:main_{ext}"
-    for ext in ("multihead", "sequential", "rehearsal", "base_v2")
+    for ext in ("multihead", "sequential", "rehearsal", "base_v2", "ewc", "ewc_vit",
+                "ewc_unet", "ewc_ln", "rw", "frozen_vit", "frozen_nonln", "frozen_unet",
+                "frozen_body_seq", "froz_ewc")
 ] + [
+    "nnUNet_torch_train_body_froz = "
+    "lifelong_nnunet_tpu_torch.run.run_training:main_frozen_body_seq",
     "nnUNet_torch_train_vit = lifelong_nnunet_tpu_torch.run.run_training_vit:main",
 ] + [
     "nnUNet_parameter_search = lifelong_nnunet_tpu.run.run_param_search:main",

@@ -1,9 +1,12 @@
 """The port's task-sequence CLIs on the CPU (``--device cpu``), tiny widths
 (4 -> 16 features, patch 16^3, no augmentation): ``nnUNet_torch_train_
-{sequential,multihead,rehearsal} -t A B`` write the JAX CLI's folder and
-metadata trees (``SEQ``, ``MH``, and ``--no_transfer_heads``, which renames
+{sequential,multihead,rehearsal,ewc,rw,frozen_body_seq} -t A B`` write the
+JAX CLI's folder and metadata trees (``SEQ``, ``MH``, the JAX folder names
+such as ``nnUNetTrainerEWC``, and ``--no_transfer_heads``, which renames
 the folder and leaves the trainer transferring heads, as in the JAX
-package); ``-c`` resumes an interrupted task from ``model_latest`` with the
+package), with ``cl_state`` in the checkpoints and a frozen body left as
+it was; every ``nnUNet_torch_train_*`` script of ``setup.py`` resolves to a
+ported trainer; ``-c`` resumes an interrupted task from ``model_latest`` with the
 optimizer's own step count, resumes after a finished task with the
 MultiHead head taken from ``state_init``, and trains nothing once the
 sequence is done; ``--init_seq`` starts from a trained model;
@@ -29,6 +32,7 @@ from lifelong_nnunet_tpu_torch.run.run_training import run_training
 from lifelong_nnunet_tpu_torch.training import checkpoints
 from lifelong_nnunet_tpu_torch.training.restore import restore_model, restore_trainer
 from lifelong_nnunet_tpu_torch.training.trainer import TrainerOptions
+from lifelong_nnunet_tpu_torch.training.trainers import TRAINER_MAP, get_trainer
 from lifelong_nnunet_tpu_torch.utilities.imageio import read_image
 
 torch.set_num_threads(4)
@@ -88,11 +92,18 @@ def _load(base, name):
     return checkpoints.load_registry(str(base / name), CPU_DEVICE, [])
 
 
+HYPERPARAMS = {"rehearsal": {"samples_in_perc": "0.25"}, "ewc": {"ewc_lambda": "0.4"},
+               "rw": {"rw_lambda": "0.4"}}
+
+
 @pytest.mark.parametrize("ext,extra,trainer,mode", [
     ("sequential", [], "nnUNetTrainerSequential", "SEQ"),
     ("multihead", [], "nnUNetTrainerMultiHead", "MH"),
     ("sequential", ["--no_transfer_heads"], "nnUNetTrainerSequential", "MH"),
-    ("rehearsal", [], "nnUNetTrainerRehearsal", "SEQ")])
+    ("rehearsal", [], "nnUNetTrainerRehearsal", "SEQ"),
+    ("ewc", [], "nnUNetTrainerEWC", "MH"),
+    ("rw", [], "nnUNetTrainerRW", "MH"),
+    ("frozen_body_seq", [], "nnUNetTrainerFrozenBody", "SEQ")])
 def test_sequence_writes_the_jax_trees(env, monkeypatch, ext, extra, trainer, mode):
     argv = ["3d_fullres", "-t", "97", "98", "-num_epochs", "1", "--use_progress_val"] + \
         TINY + extra
@@ -108,19 +119,26 @@ def test_sequence_writes_the_jax_trees(env, monkeypatch, ext, extra, trainer, mo
     final = _fold(base, SEQ_DIR, trainer, mode)
     manifest = json.loads((final / "model_final_checkpoint.json").read_text())
     assert manifest["meta"]["task_order"] == [A, B] and manifest["epoch"] == 0
-    assert manifest["hyperparams"] == (
-        {"samples_in_perc": "0.25"} if ext == "rehearsal" else {})
+    assert manifest["hyperparams"] == HYPERPARAMS.get(ext, {})
     history = json.loads((final / "val_metrics.json").read_text())
     # progress validation after A, then after B on both tasks, each with its head
     assert [{t: r["head"] for t, r in h["results"].items()} for h in history] == \
         [{A: A}, {A: A, B: B}]
     # the trainer's class decides head transfer, not --no_transfer_heads:
     # head B starts at the trained head A (Sequential) or at state_init
+    transfer = get_trainer(ext).TRANSFER_HEADS
     before_b, blob, _ = _load(final, "before_training")
     final_a, _, _ = _load(_fold(base, A, trainer, mode), "model_final_checkpoint")
-    source = final_a.heads[A] if ext != "multihead" else final_a.state_init
+    source = final_a.heads[A] if transfer else final_a.state_init
     assert all(torch.equal(v, source[k]) for k, v in before_b.heads[B].items())
-    assert (blob["state_init"] == {}) == (ext != "multihead")
+    assert (blob["state_init"] == {}) == transfer
+    final_b, blob, manifest = _load(final, "model_final_checkpoint")
+    assert manifest["has_cl_state"]
+    if ext == "ewc":
+        assert list(blob["cl_state"]["ewc_tasks"]) == [A, B]
+    if ext == "frozen_body_seq":
+        # the body froze after A: B's body is A's bit for bit
+        assert all(torch.equal(v, final_a.body[k]) for k, v in final_b.body.items())
 
 
 def test_continue_resumes_an_interrupted_task(env, monkeypatch, capsys):
@@ -254,3 +272,31 @@ def test_vit_trained_at_another_patch_is_served_with_it(env, monkeypatch):
     assert len(served) == 6
     label = read_image(os.path.join(env["raw"][A], "labelsTr", served[0])).data
     assert read_image(str(out / served[0])).data.shape == label.shape
+
+
+def test_every_torch_train_script_of_setup_py_resolves(monkeypatch):
+    """Each ``nnUNet_torch_train_*`` console script of ``setup.py`` names an
+    entry point of the port's CLI whose extension is a ported trainer, and
+    every ported sequence trainer has its script; ``body_froz`` is
+    ``frozen_body_seq``, as in the JAX package."""
+    import runpy
+
+    import setuptools
+    from lifelong_nnunet_tpu_torch.run import run_training as cli
+
+    seen = {}
+    monkeypatch.setattr(setuptools, "setup", lambda **kw: seen.update(kw))
+    runpy.run_path(os.path.join(os.path.dirname(os.path.dirname(__file__)), "setup.py"))
+    scripts = dict(line.replace(" ", "").split("=")
+                   for line in seen["entry_points"]["console_scripts"])
+    train = {name: target for name, target in scripts.items()
+             if name.startswith("nnUNet_torch_train_") and name != "nnUNet_torch_train_vit"}
+    exts = {}
+    for name, target in train.items():
+        module, func = target.split(":")
+        assert module == "lifelong_nnunet_tpu_torch.run.run_training", name
+        assert callable(getattr(cli, func)), name
+        exts[name] = func[len("main_"):]
+        assert get_trainer(exts[name]) is TRAINER_MAP[exts[name]], name
+    assert exts["nnUNet_torch_train_body_froz"] == "frozen_body_seq"
+    assert set(exts.values()) == set(TRAINER_MAP) - {"vit_unet"}

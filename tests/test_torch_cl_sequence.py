@@ -10,7 +10,8 @@ training it leaves head A as it was; ``_perform_validation`` gives the same
 subjects and Dice/IoU in both modes on the same parameters; a task
 interrupted mid-way and resumed from ``model_latest`` gives JAX's losses,
 with the poly LR following the optimizer's own step count; the multi-head
-registry's helpers match JAX's on mapped keys; checkpoints keep the
+registry's helpers match JAX's on mapped keys (the name filters on the
+ViT-U-Net's too); checkpoints keep the
 registry and still read the single-model format."""
 
 import os
@@ -24,6 +25,7 @@ import torch
 
 from lifelong_nnunet_tpu.models import multihead as jmh
 from lifelong_nnunet_tpu.models.unet import GenericUNet as JaxUNet
+from lifelong_nnunet_tpu.models.vit_unet import GenericViTUNet as JaxViTUNet
 from lifelong_nnunet_tpu.planning.plans import Plans as JaxPlans, plans_path
 from lifelong_nnunet_tpu.training import checkpoints as jax_checkpoints
 from lifelong_nnunet_tpu.training.restore import restore_trainer as jax_restore_trainer
@@ -32,8 +34,9 @@ from lifelong_nnunet_tpu.training.trainer import TrainerOptions as JaxOptions
 from lifelong_nnunet_tpu.training.trainers.rehearsal import RehearsalTrainer as JaxRehearsal
 from lifelong_nnunet_tpu.training.trainers.sequential import SequentialTrainer as JaxSequential
 from lifelong_nnunet_tpu_torch.models import multihead as pmh
-from lifelong_nnunet_tpu_torch.models.convert import jax_params_to_state_dict
+from lifelong_nnunet_tpu_torch.models.convert import jax_key_map, jax_params_to_state_dict
 from lifelong_nnunet_tpu_torch.models.unet import GenericUNet
+from lifelong_nnunet_tpu_torch.models.vit_unet import GenericViTUNet
 from lifelong_nnunet_tpu_torch.planning.plans import Plans
 from lifelong_nnunet_tpu_torch.run.plan_and_preprocess import plan_and_preprocess
 from lifelong_nnunet_tpu_torch.training import checkpoints
@@ -308,13 +311,35 @@ def test_trainable_mask_matches_jax(registries, freeze_body):
     assert any(got.values()) and (not all(got.values())) == freeze_body
 
 
-@pytest.mark.parametrize("substrings", [["norm"], ["conv"], ["enc1", "block0"], ["seg"]])
+@pytest.fixture(scope="module")
+def vit_registry():
+    """A depth-1 ViT-U-Net's JAX parameters, the port's state_dict of them
+    and {port key: JAX path}."""
+    pools = POOLS + ((1, 2, 1),)
+    vit = dict(vit_embed_dim=16, vit_depth=1, vit_heads=2)
+    jmodel = JaxViTUNet(num_classes=3, pool_op_kernel_sizes=pools,
+                        conv_kernel_sizes=CONVS + ((3, 3, 3),), base_num_features=4,
+                        max_num_features=16, vit_version="V1", **vit)
+    params = jax.tree_util.tree_map(np.asarray, jmodel.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 16, 32, 16, 1)))["params"])
+    port = GenericViTUNet(1, 3, pools, CONVS + ((3, 3, 3),), (16, 32, 16), 4, 16, **vit)
+    return params, jax_params_to_state_dict(params, port), jax_key_map(params, port)
+
+
+@pytest.mark.parametrize("substrings", [["norm"], ["conv"], ["enc1", "block0"], ["seg"],
+                                        ["vit"], ["vit", "norm"]])
 @pytest.mark.parametrize("include", [True, False])
-def test_name_filter_mask_matches_jax(registries, substrings, include):
-    _, _, params, sd = registries
+def test_name_filter_mask_matches_jax(registries, vit_registry, substrings, include):
+    """On the U-Net's registry, and for the ViT filters of the EWC and
+    freezing variants on the ViT-U-Net's."""
+    if "vit" in substrings:
+        params, sd, key_map = vit_registry
+    else:
+        _, _, params, sd = registries
+        key_map = {k: _jax_path(k) for k in sd}
     got = pmh.name_filter_mask(sd, substrings, include)
     want = jmh.flatten(jmh.name_filter_mask(params, substrings, include))
-    assert {_jax_path(k): v for k, v in got.items()} == want
+    assert {key_map[k]: v for k, v in got.items()} == want
     assert any(got.values()) and not all(got.values())
 
 

@@ -113,7 +113,7 @@ def test_cuda_without_a_gpu_raises(served, monkeypatch):
 REFUSED = {  # id: (trainer, extra arguments)
     "extra0": ("nnViTUNetTrainer", ["--task_specific_ln"]),
     "extra3": ("nnUNetTrainerV2", ["--task_specific_ln"]),
-    "extra6": ("ewc_vit", []), "extra7": ("frozen_vit", ["--use_vit"])}
+    "extra6": ("lwf", []), "extra7": ("mib", ["--use_vit"])}
 
 
 @pytest.mark.parametrize("trainer,extra", list(REFUSED.values()), ids=list(REFUSED))

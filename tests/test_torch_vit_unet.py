@@ -106,11 +106,14 @@ def test_v1_does_not_run_the_bottleneck():
     _, _, tm, x = _pair("V1")
     seen = []
     tm.bottleneck.register_forward_hook(lambda *a: seen.append(1))
+    # the counter is the process's: other tests in this worker may have
+    # counted launches of a stand-in extension before this one
+    before = flash_attention.launches
     deep_supervision_loss(tm(_cf(x)), torch.zeros((2,) + PATCH, dtype=torch.long),
                           DS).backward()
     assert not seen and all(p.grad is None for p in tm.bottleneck.parameters())
     assert all(p.grad is not None for p in tm.vit.parameters())
-    assert flash_attention.launches == 0
+    assert flash_attention.launches == before
 
 
 @pytest.fixture(scope="module")
