@@ -154,24 +154,49 @@ Phases (one line each; any failure raises, so the exit code is not 0):
      ``model_final_checkpoint`` bytes per task, peak memory, and the
      kernel launch calls of an EWC step with two anchors beside the same
      step without the penalty (torch.profiler), both steps' CUDA-event
-     medians in turns, and the penalty's time.
-Phases 4, 6, 8, 11 and 12 run with both switches set: at hippocampus scale the
+     medians in turns, and the penalty's time;
+  13. the distilling trainers and the evaluation CLIs, on the tasks of
+     phases 11-12 with their settings: ``nnUNet_torch_train_lwf 3d_fullres
+     -t A B C`` (a freeze phase, then a joint phase on B and C),
+     ``_mib -t A B`` and, with ViT-base (V1, batch 1), ``_lwf -t A B
+     --use_vit``: the launch counters of each run as the route predicts (a
+     freeze step as a Sequential step; a joint step at P earlier tasks
+     1 + P forwards and backwards and P forwards without grad, MiB's one
+     forward without grad), every conv, dx and flash launch on the
+     tensor-core kernels; the distillation term finite on every step it
+     runs and > 0 after the first of each phase; the body through each
+     freeze run equal to the task before's bit for bit, ``model_freezed``
+     and ``lwf_phase`` in the manifests, a ``-c`` run after C training
+     nothing; ``nnUNet_torch_evaluate2 ewc -trained_on A B C -use_head X``
+     for each head X giving phase 12's served Dice of each task within
+     1e-4; ``nnUNet_torch_evaluate`` on each stage checkpoint of EWC, LwF
+     (3 x 3), MiB and phase 11's Sequential (2 x 2), the accuracy matrices
+     with BWT and FWT (``cl_metrics.json``), its windows counted from
+     ``window_grid`` (batch 4, 8 mirrors); ``determine_postprocessing`` on
+     A, whose ``postprocessing.json`` ``nnUNet_torch_inference
+     --postprocess`` applies to phase 12's served segmentation.  Recorded:
+     seconds per task and phase, the LwF joint step at P = 1 and 2 beside
+     a Sequential-style step (CUDA-event medians in turns), evaluation
+     seconds per stage and head, peak memory.
+Phases 4, 6, 8 and 11-13 run with both switches set: at hippocampus scale the
 gates admit nothing, so their launch counts are those of the ordinary
 routes.  The fused conv, its data gradient and flash attention (forward
 and backward) count every launch and, apart, those on the tensor-core
-kernels: on the ten main paths (bf16) every one must take them, in the f32
+kernels: on the twelve main paths (bf16) every one must take them, in the f32
 checks of phases 4, 6, 8 and 10 none.  The line
 before the last is the kernels' JSON record (the U-Net's forward kernels
 per forward at the serving path's largest batch, its backward kernels per
 train step, the flash kernels per ViT-U-Net train step, the copy kernels
 per CT train step, the pack by device time with its CUDA-event median as
 ``event_ms`` and its time per CT serving forward as ``serve_ms`` beside
-``serve_bound_ms``; ``launches`` summed over the ten paths' runs, and per
+``serve_bound_ms``; ``launches`` summed over the twelve paths' runs, and per
 path under ``launches_by_path``: ``serve``, ``train``, ``vit_train``,
 ``vit_serve``, ``ct_train``, ``ct_serve``, ``cl_train`` (both sequence
 trainings), ``cl_serve`` (the four servings of phase 11), ``cl_reg_train``
-(phase 12's five trainings and its resumed fisher pass) and
-``cl_reg_serve`` (the nine servings of EWC's heads); the two kernels of the fused
+(phase 12's five trainings and its resumed fisher pass), ``cl_reg_serve``
+(the nine servings of EWC's heads), ``cl_distill_train`` (phase 13's
+three trainings) and ``cl_eval`` (its evaluations, the postprocessing
+decision and the postprocessed serving); the two kernels of the fused
 conv, its data gradient and flash attention as ``conv3d_in_lrelu_tc`` /
 ``conv3d_dx_tc`` / ``flash_attention_tc`` / ``flash_attention_bwd_tc``
 (the tensor-core kernels) and ``conv3d_in_lrelu_f32`` / ``conv3d_dx_f32``
@@ -219,9 +244,14 @@ from lifelong_nnunet_tpu_torch.data.dataset import (  # noqa: E402
     PreprocessedDataset, final_splits)
 from lifelong_nnunet_tpu_torch.data.sampler import PatchSampler  # noqa: E402
 from lifelong_nnunet_tpu_torch.device import resolve_device  # noqa: E402
+from lifelong_nnunet_tpu_torch.evaluation.cl_metrics import (  # noqa: E402
+    cl_report, mean_dice_of, write_cl_report)
 from lifelong_nnunet_tpu_torch.evaluation.metrics import subject_metrics  # noqa: E402
+from lifelong_nnunet_tpu_torch.inference.postprocessing import (  # noqa: E402
+    determine_postprocessing, load_postprocessing)
 from lifelong_nnunet_tpu_torch.inference.predict import (  # noqa: E402
-    case_files, predict_case, predict_from_folder, preprocess_for_inference)
+    case_files, predict_case, predict_from_folder, preprocess_for_inference,
+    remove_all_but_largest_component)
 from lifelong_nnunet_tpu_torch.inference.sliding_window import (  # noqa: E402
     predict_sliding_window, window_grid)
 from lifelong_nnunet_tpu_torch.models.unet import (  # noqa: E402
@@ -243,6 +273,8 @@ from lifelong_nnunet_tpu_torch.ops.cl_losses import QuadraticPenalty  # noqa: E4
 from lifelong_nnunet_tpu_torch.ops.losses import deep_supervision_loss  # noqa: E402
 from lifelong_nnunet_tpu_torch.planning.plans import Plans, plans_path  # noqa: E402
 from lifelong_nnunet_tpu_torch.run.plan_and_preprocess import plan_and_preprocess  # noqa: E402
+from lifelong_nnunet_tpu_torch.run.run_evaluation import (  # noqa: E402
+    run_evaluation, run_evaluation2_cli)
 from lifelong_nnunet_tpu_torch.run.run_inference import run_inference  # noqa: E402
 from lifelong_nnunet_tpu_torch.run.run_training import (  # noqa: E402
     METHOD_ARGS, output_folder, run_training, trainer_name)
@@ -314,6 +346,10 @@ SEQ_ITERS, SEQ_VAL_ITERS, SEQ_WINDOW_BATCH = 30, 2, 4
 REG_TASK_C = dict(task_name="Task099_SynthC", shape=SMALL_SHAPE, num_cases=4, seed=11,
                   intensity_shift=-0.6)
 PENALTY_RTOL = 1e-5
+# the distilling trainers (phase 13): their terms in the train step's
+# metrics; evaluator2's Dice against phase 12's served Dice
+DISTILL_TERMS = ("lwf_distill", "mib")
+EVAL2_DICE_TOL = 1e-4
 DIRECT_ROUTES = {"blocked_conv": False, "upsample": "direct"}
 # f32 copies at the serving batch are checked where the kernel's input and
 # output fit in this many bytes (the largest, 64 x 64 x 128^3, would not fit
@@ -1390,7 +1426,8 @@ class _SequenceProbe:
 
     def __init__(self):
         self.tasks, self.steps, self.val_s, self.pools = [], {}, [], {}
-        self.penalties = {}     # task: [the step's CL penalty (a device tensor)]
+        # task: [the step's CL penalty or distillation term (a device tensor)]
+        self.penalties = {}
         self._saved = {}
 
     def _wrap(self, cls, name, make):
@@ -1423,7 +1460,8 @@ class _SequenceProbe:
                     torch.cuda.synchronize()
                     probe.steps.setdefault(task, []).append(time.perf_counter() - t0)
                     probe.penalties.setdefault(task, []).extend(
-                        v for k, v in out[1].items() if k.endswith("_penalty"))
+                        v for k, v in out[1].items() if k.endswith("_penalty")
+                        or k in DISTILL_TERMS)
                     return out
                 self._train_step = timed
             return wrapped
@@ -1486,13 +1524,13 @@ def _task_stages(pre, tasks) -> tuple:
     return stages, {t: final_splits(os.path.join(pre, t), stages[t].cases)[0] for t in tasks}
 
 
-def _val_batches(stage, split, patch) -> list:
-    """The progress validation's window batches over a task's val cases
-    (the trainer's window batch)."""
+def _val_batches(stage, split, patch, batch=SEQ_WINDOW_BATCH) -> list:
+    """The window batches of a sliding window over a task's val cases (by
+    default the progress validation's, the trainer's window batch)."""
     out = []
     for case in split["val"]:
         n = len(window_grid(stage.load(case).shape[1:], patch)[2])
-        out += [min(SEQ_WINDOW_BATCH, n - i) for i in range(0, n, SEQ_WINDOW_BATCH)]
+        out += [min(batch, n - i) for i in range(0, n, batch)]
     return out
 
 
@@ -1507,6 +1545,39 @@ def _serve_batches(images, plans, patch) -> list:
     return out
 
 
+def _cl_argv(run) -> list:
+    """The CL CLIs' arguments of phases 11-13 for the task sequence ``run``."""
+    return ["3d_fullres", "-t"] + list(run) + [
+        "-num_epochs", "1", "-num_iters", str(SEQ_ITERS), "-val_iters", str(SEQ_VAL_ITERS),
+        "-save_interval", "1", "--use_progress_val", "--device", "cuda"]
+
+
+VIT_ARCH = dict(vit=True, vit_version="V1", vit_type="base", task_specific_ln=False,
+                spt=False, lsa=False)
+
+
+def _cl_folders(results, plans):
+    """``folder(ext, run, upto, vit_run=False)``: the output folder of
+    ``ext`` trained on ``run`` up to task ``upto`` (``--use_vit``: V1,
+    ViT-base)."""
+    def folder(ext, run, upto, vit_run=False) -> str:
+        return build_output_folder(os.path.join(results, "nnUNet_ext"), "3d_fullres", run,
+                                   run[: upto + 1], trainer_name(ext), plans.plans_name, 0,
+                                   get_trainer(ext).TRANSFER_HEADS,
+                                   **(VIT_ARCH if vit_run else {}))
+    return folder
+
+
+def _forward_expect(dev, shapes, batches) -> dict:
+    """Every counter of forwards (no backward) of a model whose blocks are
+    ``shapes`` at each model batch of ``batches``."""
+    n_fused = sum(f for f, _, _ in shapes)
+    return _expect(conv3d_in_lrelu=n_fused * len(batches),
+                   instance_norm_leaky=(len(shapes) - n_fused) * len(batches),
+                   **_in_forms(dev, fwd=_at(_rows([o for f, _, o in shapes if not f]),
+                                            [(b, 1) for b in batches])))
+
+
 def _sequence_path(task_dir, plans, shapes, work, pre, results, dev) -> tuple:
     """Phase 11: a sequence of two hippocampus-scale tasks through the CL
     entry points (see the module docstring).  Returns the launch counts of
@@ -1516,7 +1587,6 @@ def _sequence_path(task_dir, plans, shapes, work, pre, results, dev) -> tuple:
     patch, b2, classes = tuple(cfg.patch_size), TRAIN_BATCH, plans.num_classes + 1
     n_fused = sum(f for f, _, _ in shapes)
     n_strided = len(shapes) - n_fused
-    strided = _rows([o for f, _, o in shapes if not f])
     a_dir = task_dir
     b_dir = make_synthetic_task(os.path.dirname(task_dir), task_name="Task098_SynthB",
                                 shape=SMALL_SHAPE, num_cases=4, seed=7, intensity_shift=0.8)
@@ -1530,14 +1600,8 @@ def _sequence_path(task_dir, plans, shapes, work, pre, results, dev) -> tuple:
         _val_batches(stages[tasks[1]], splits[tasks[1]], patch)
     steps, vals = 2 * SEQ_ITERS, 2 * SEQ_VAL_ITERS
     expect_train = _train_expect(dev, shapes, b2, steps, vals, progress)
-    argv = ["3d_fullres", "-t"] + tasks + [
-        "-num_epochs", "1", "-num_iters", str(SEQ_ITERS), "-val_iters", str(SEQ_VAL_ITERS),
-        "-save_interval", "1", "--use_progress_val", "--device", "cuda"]
-    ext_root = os.path.join(results, "nnUNet_ext")
-
-    def folder(ext, upto):
-        return build_output_folder(ext_root, "3d_fullres", tasks, tasks[: upto + 1],
-                                   trainer_name(ext), plans.plans_name, 0, True)
+    argv = _cl_argv(tasks)
+    folder = _cl_folders(results, plans)
 
     torch.backends.cudnn.allow_tf32 = True
     torch.cuda.empty_cache()
@@ -1552,7 +1616,7 @@ def _sequence_path(task_dir, plans, shapes, work, pre, results, dev) -> tuple:
         train_launches[ext] = _counts()
         assert train_launches[ext] == expect_train, (ext, train_launches[ext], expect_train)
         probes[ext] = probe
-        final = folder(ext, 1)
+        final = folder(ext, tasks, 1)
         with open(os.path.join(final, "progress.json")) as f:
             record = json.load(f)
         assert len(record["step_losses"]) == steps, len(record["step_losses"])
@@ -1604,13 +1668,10 @@ def _sequence_path(task_dir, plans, shapes, work, pre, results, dev) -> tuple:
                 per_case.append(float(np.nanmean(subject_metrics(seg, label, classes)["Dice"])))
             dice[(head, t)] = statistics.mean(per_case)
     serve_launches = _counts()
-    assert serve_launches == _expect(
-        conv3d_in_lrelu=n_fused * len(serve_batches),
-        instance_norm_leaky=n_strided * len(serve_batches),
-        **_in_forms(dev, fwd=_at(strided, [(b, 1) for b in serve_batches]))), serve_launches
+    assert serve_launches == _forward_expect(dev, shapes, serve_batches), serve_launches
 
     # one case of B with head B on the plain route against the served one
-    ckpt = os.path.join(folder("sequential", 1), "model_final_checkpoint")
+    ckpt = os.path.join(folder("sequential", tasks, 1), "model_final_checkpoint")
     case, files = case_files(images[tasks[1]])[0]
     m, _, _ = restore_model(ckpt, dev, head=tasks[1], use_kernels=False)
     plain_seg, _, _ = predict_case([m], files, plans, "3d_fullres", device=dev,
@@ -1714,7 +1775,8 @@ def _regularizer_path(task_dir, plans, shapes, vit, work, pre, results, dev,
     points on phase 11's tasks A and B and a third task C (see the module
     docstring).  Returns the launch counts of the training runs, the
     resumed one included (``cl_reg_train``), and of serving EWC's heads
-    (``cl_reg_serve``)."""
+    (``cl_reg_serve``), and the mean Dice of each EWC head on each task
+    ({(head, task): Dice})."""
     cfg = plans.config("3d_fullres")
     patch, b2, classes = tuple(cfg.patch_size), TRAIN_BATCH, plans.num_classes + 1
     raw_root = os.path.dirname(task_dir)
@@ -1725,21 +1787,9 @@ def _regularizer_path(task_dir, plans, shapes, vit, work, pre, results, dev,
     stages, splits = _task_stages(pre, tasks)
     val_b = {t: _val_batches(stages[t], splits[t], patch) for t in tasks}
     ext_root = os.path.join(results, "nnUNet_ext")
-    vit_arch = dict(vit=True, vit_version="V1", vit_type="base", task_specific_ln=False,
-                    spt=False, lsa=False)
     vit_b = max(1, b2 // 2)
     steps_per, vals_per = SEQ_ITERS, SEQ_VAL_ITERS
-
-    def argv(run):
-        return ["3d_fullres", "-t"] + run + [
-            "-num_epochs", "1", "-num_iters", str(steps_per), "-val_iters", str(vals_per),
-            "-save_interval", "1", "--use_progress_val", "--device", "cuda"]
-
-    def folder(ext, run, upto, vit_run=False):
-        return build_output_folder(ext_root, "3d_fullres", run, run[: upto + 1],
-                                   trainer_name(ext), plans.plans_name, 0,
-                                   get_trainer(ext).TRANSFER_HEADS,
-                                   **(vit_arch if vit_run else {}))
+    folder = _cl_folders(results, plans)
 
     def registry(base, device=torch.device("cpu")):
         mh, blob, manifest = load_registry(os.path.join(base, "model_final_checkpoint"),
@@ -1761,7 +1811,7 @@ def _regularizer_path(task_dir, plans, shapes, vit, work, pre, results, dev,
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with _RegularizerProbe() as probe:
-            run_training(ext, argv(run) + (["--use_vit"] if vit_run else []))
+            run_training(ext, _cl_argv(run) + (["--use_vit"] if vit_run else []))
         torch.cuda.synchronize()
         run_s[ext] = time.perf_counter() - t0
         peak_gb[ext] = torch.cuda.max_memory_allocated() / 1e9
@@ -1845,7 +1895,7 @@ def _regularizer_path(task_dir, plans, shapes, vit, work, pre, results, dev,
     # -c after C trains nothing; -c after a kill between C's model_latest
     # and its fisher pass restores A's and B's anchors and runs that pass
     _reset_counts()
-    run_training("ewc", argv(tasks) + ["-c"])
+    run_training("ewc", _cl_argv(tasks) + ["-c"])
     assert _counts() == _expect(), _counts()
     manifest_file = os.path.join(metadata_folder(ext_root, "3d_fullres", tasks,
                                                  trainer_name("ewc"), plans.plans_name),
@@ -1859,7 +1909,7 @@ def _regularizer_path(task_dir, plans, shapes, vit, work, pre, results, dev,
     _, cl_b, _ = registry(folder("ewc", tasks, 1))
     _reset_counts()
     with _RegularizerProbe() as resumed:
-        run_training("ewc", argv(tasks) + ["-c"])
+        run_training("ewc", _cl_argv(tasks) + ["-c"])
     resume_launches = _counts()
     assert resume_launches == _train_expect(dev, shapes, b2, 0, 0, [], fisher=steps_per), \
         resume_launches
@@ -1892,11 +1942,7 @@ def _regularizer_path(task_dir, plans, shapes, vit, work, pre, results, dev,
                 per_case.append(float(np.nanmean(subject_metrics(seg, label, classes)["Dice"])))
             dice[(head, t)] = statistics.mean(per_case)
     serve_launches = _counts()
-    assert serve_launches == _expect(
-        conv3d_in_lrelu=n_fused * len(serve_batches),
-        instance_norm_leaky=n_strided * len(serve_batches),
-        **_in_forms(dev, fwd=_at(_rows([o for f, _, o in shapes if not f]),
-                                 [(b, 1) for b in serve_batches]))), serve_launches
+    assert serve_launches == _forward_expect(dev, shapes, serve_batches), serve_launches
 
     # ---- RW over A, B: the gate, the running state, the anchor
     rw = probes["rw"]
@@ -1997,7 +2043,255 @@ def _regularizer_path(task_dir, plans, shapes, vit, work, pre, results, dev,
           f"tensors unchanged bit for bit through {tasks[1]}, the U-Net's moved", flush=True)
     cl_reg_train = {k: sum(c[k] for c in launches.values()) + resume_launches[k]
                     for k in resume_launches}
-    return {"cl_reg_train": cl_reg_train, "cl_reg_serve": serve_launches}
+    return {"cl_reg_train": cl_reg_train, "cl_reg_serve": serve_launches}, dice
+
+
+def _distill_eval_path(task_dir, plans, shapes, vit, work, pre, results, dev,
+                       ewc_dice) -> dict:
+    """Phase 13: the distilling trainers through their entry points on the
+    tasks of phases 11-12, and the evaluation CLIs on the sequences of
+    phases 11-13 (see the module docstring).  ``ewc_dice``: phase 12's
+    {(head, task): mean Dice}.  Returns the launch counts of the trainings
+    and the resumed run (``cl_distill_train``) and of the evaluations, the
+    postprocessing decision and the postprocessed serving (``cl_eval``)."""
+    cfg = plans.config("3d_fullres")
+    patch, b2 = tuple(cfg.patch_size), TRAIN_BATCH
+    raw_root = os.path.dirname(task_dir)
+    tasks = [os.path.basename(task_dir), "Task098_SynthB", REG_TASK_C["task_name"]]
+    images = {t: os.path.join(raw_root, t, "imagesTr") for t in tasks}
+    stages, splits = _task_stages(pre, tasks)
+    val_b = {t: _val_batches(stages[t], splits[t], patch) for t in tasks}
+    ext_root = os.path.join(results, "nnUNet_ext")
+
+    folder = _cl_folders(results, plans)
+
+    def registry(base, name="model_final_checkpoint"):
+        return load_registry(os.path.join(base, name), torch.device("cpu"), [])
+
+    def progress(run, phases):
+        """The progress validation's batches: after the first task its val
+        cases, after each phase of a later task those of every task so far."""
+        return val_b[run[0]] + [b for i in range(1, len(run)) for _ in range(phases)
+                                for t in run[: i + 1] for b in val_b[t]]
+
+    # per train step a forward and a backward; LwF's joint step at P earlier
+    # tasks adds P of both (the earlier heads) and P forwards without grad
+    # (the teachers), MiB's step one forward without grad; each counted like
+    # a train step or a validation batch at the train batch
+    def lwf_expect(run, vit_run):
+        earlier = range(1, len(run))
+        return _train_expect(
+            dev, vit["shapes"] if vit_run else shapes, max(1, b2 // 2) if vit_run else b2,
+            SEQ_ITERS * (1 + sum(2 + p for p in earlier)),
+            SEQ_VAL_ITERS * (1 + 2 * len(earlier)) + SEQ_ITERS * sum(earlier),
+            progress(run, 2), attn=vit["n_attn"] if vit_run else 0)
+
+    runs = [("lwf", tasks, False), ("mib", tasks[:2], False), ("lwf", tasks[:2], True)]
+    expects = [lwf_expect(tasks, False),
+               _train_expect(dev, shapes, b2, 2 * SEQ_ITERS, 2 * SEQ_VAL_ITERS + SEQ_ITERS,
+                             progress(tasks[:2], 1)),
+               lwf_expect(tasks[:2], True)]
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+    launches, probes, peak_gb, run_s = [], [], [], []
+    for (ext, run, vit_run), expect in zip(runs, expects):
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _SequenceProbe() as probe:
+            run_training(ext, _cl_argv(run) + (["--use_vit"] if vit_run else []))
+        torch.cuda.synchronize()
+        run_s.append(time.perf_counter() - t0)
+        peak_gb.append(torch.cuda.max_memory_allocated() / 1e9)
+        launches.append(_counts())
+        assert launches[-1] == expect, (ext, vit_run, launches[-1], expect)
+        probes.append(probe)
+        phases = [t for t, _ in probe.tasks]
+        assert phases == ([run[0]] + [t for t in run[1:] for _ in range(2)]
+                          if ext == "lwf" else run), (ext, phases)
+        with open(os.path.join(folder(ext, run, len(run) - 1, vit_run),
+                               "progress.json")) as f:
+            record = json.load(f)
+        assert all(map(math.isfinite, record["step_losses"])), ext
+        # the distillation term on every step it runs: LwF's joint steps, 0
+        # (to roundoff) on the first, where the earlier heads and the body
+        # are their teachers; MiB's steps on B
+        assert not probe.penalties.get(run[0]), ext
+        for t in run[1:]:
+            terms = torch.stack(probe.penalties[t]).float().cpu()
+            assert len(terms) == SEQ_ITERS and bool(torch.isfinite(terms).all()), (ext, t)
+            assert bool((terms[1:] > 0).all()), (ext, t, terms)
+
+    # LwF's checkpoints: the freeze run leaves the body as it was, each
+    # phase in the manifest
+    phases = {}
+    for i, t in enumerate(tasks):
+        base = folder("lwf", tasks, i)
+        _, _, manifest = registry(base)
+        phases[t] = [manifest["lwf_phase"]]
+        if i:
+            frozen, _, m_frozen = registry(base, "model_freezed")
+            before, _, _ = registry(folder("lwf", tasks, i - 1))
+            assert all(torch.equal(v, before.body[k]) for k, v in frozen.body.items()), t
+            phases[t].insert(0, m_frozen["lwf_phase"])
+    assert phases == {tasks[0]: [0], tasks[1]: [1, 2], tasks[2]: [1, 2]}, phases
+    # -c after C trains nothing
+    _reset_counts()
+    run_training("lwf", _cl_argv(tasks) + ["-c"])
+    assert _counts() == _expect(), _counts()
+    train_launches = {k: sum(c[k] for c in launches) for k in launches[0]}
+
+    # ---- evaluator2 on each of EWC's heads: phase 12's served Dice
+    os.environ["EVALUATION_FOLDER"] = os.path.join(work, "evaluation")
+    eval_root = os.path.join(work, "evaluation", "nnUNet_ext")
+
+    def evaluated(ext, run, upto):
+        return os.path.join(eval_root, os.path.relpath(folder(ext, run, upto), ext_root))
+
+    _reset_counts()
+    eval2_dice, eval2_s = {}, []
+    for head in tasks:
+        t0 = time.perf_counter()
+        run_evaluation2_cli(["3d_fullres", "ewc", "-trained_on"] + tasks + ["-evaluate_on"]
+                            + tasks + ["-use_head", head, "--device", "cuda"])
+        eval2_s.append(time.perf_counter() - t0)
+        with open(os.path.join(evaluated("ewc", tasks, 2), "eval2", "eval2_metrics.json")) as f:
+            res = json.load(f)
+        for t in tasks:
+            assert res[t]["head"] == head, res[t]["head"]
+            eval2_dice[(head, t)] = statistics.mean(
+                float(np.nanmean(m["Dice"])) for m in res[t]["cases"].values())
+    eval2_launches = _counts()
+    serve_batches = [b for t in tasks for b in _serve_batches(images[t], plans, patch)]
+    assert eval2_launches == _forward_expect(dev, shapes, serve_batches * len(tasks)), \
+        eval2_launches
+    eval2_err = max(abs(eval2_dice[k] - v) for k, v in ewc_dice.items())
+    assert eval2_err <= EVAL2_DICE_TOL, (eval2_dice, ewc_dice)
+
+    # ---- the accuracy matrices through nnUNet_torch_evaluate, stage by stage
+    sequences = {"ewc": tasks, "lwf": tasks, "mib": tasks[:2], "sequential": tasks[:2]}
+    reports, eval_s, eval_batches = {}, {}, []
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for ext, run in sequences.items():
+        acc = np.full((len(run), len(run)), np.nan)
+        eval_s[ext] = []
+        for s in range(len(run)):
+            t0 = time.perf_counter()
+            run_evaluation(["3d_fullres", ext, "-trained_on"] + run + ["-use_model"]
+                           + run[: s + 1] + ["-evaluate_on"] + run + ["--device", "cuda"])
+            eval_s[ext].append(time.perf_counter() - t0)
+            with open(os.path.join(evaluated(ext, run, s), "val_metrics_eval.json")) as f:
+                res = json.load(f)[-1]["results"]
+            assert {t: r["head"] for t, r in res.items()} == \
+                {t: t if i <= s else run[s] for i, t in enumerate(run)}, res
+            acc[s] = [mean_dice_of(res, t) for t in run]
+            eval_batches += [b * TTA for t in run for b in val_b[t]]
+        assert np.isfinite(acc).all(), (ext, acc)
+        reports[ext] = cl_report(acc, run)
+        write_cl_report(reports[ext], evaluated(ext, run, len(run) - 1))
+    eval_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    eval_launches = _counts()
+    assert eval_launches == _forward_expect(dev, shapes, eval_batches), eval_launches
+    # the matrix's diagonal after the last stage is the validation split's
+    # Dice of each head: BWT and FWT from it
+    for ext, rep in reports.items():
+        a = np.asarray(rep["accuracy_matrix"])
+        assert rep["BWT"] == statistics.mean(a[-1, i] - a[i, i] for i in range(len(a) - 1))
+
+    # ---- the postprocessing decision on task A, read by the serving CLI
+    final = folder("ewc", tasks, 2)
+    tr = restore_trainer(os.path.join(final, "model_final_checkpoint"),
+                         TrainerOptions(device="cuda"))
+    tr.register_task_data(tasks[0], stages[tasks[0]].stage_dir)
+    _reset_counts()
+    decision = determine_postprocessing(tr, tasks[0], final)
+    del tr
+    out = os.path.join(work, "ewc_pp_on_A")
+    run_inference(["3d_fullres", "ewc", "-i", images[tasks[0]], "-o", out, "-trained_on"]
+                  + tasks + ["-window_batch", str(WINDOW_BATCH), "--postprocess",
+                             "--device", "cuda"])
+    pp_launches = _counts()
+    assert pp_launches == _forward_expect(
+        dev, shapes, _val_batches(stages[tasks[0]], splits[tasks[0]], patch, WINDOW_BATCH)
+        + _serve_batches(images[tasks[0]], plans, patch)), pp_launches
+    kept = load_postprocessing(final)
+    assert kept == decision["for_which_classes"], (kept, decision)
+    for case, _ in case_files(images[tasks[0]]):
+        served = np.asarray(read_image(os.path.join(work, f"ewc_{tasks[2]}_on_{tasks[0]}",
+                                                    f"{case}.nii.gz")).data)
+        pp = np.asarray(read_image(os.path.join(out, f"{case}.nii.gz")).data)
+        assert np.array_equal(pp, remove_all_but_largest_component(served, kept)), case
+
+    # ---- LwF's joint step at P = 1 and 2 beside a Sequential-style step, at
+    # the same parameters, CUDA-event medians in turns
+    batch = PatchSampler(stages[tasks[2]], splits[tasks[2]]["train"], patch, b2,
+                         seed=SEED).next_batch()
+    batch = {k: torch.from_numpy(batch[k]).to(dev) for k in ("data", "seg")}
+    steps = {}
+    for p in (1, 2):
+        tr = restore_trainer(os.path.join(folder("lwf", tasks, p), "model_final_checkpoint"),
+                             TrainerOptions(device="cuda"))
+        assert len(tr.extra_params()) == p * len(tr.mh.heads[tasks[0]]), p
+        step_cfg = StepConfig(ds_factors=tr.ds_factors, batch_dice=True,
+                              num_classes=tr.num_classes)
+        steps[f"P={p}"] = (make_train_step(tr.model, tr.optimizer, step_cfg,
+                                           loss_extras=tr.loss_extras()), tr.cl_state)
+        if p == 1:
+            steps["plain"] = (make_train_step(tr.model, tr.optimizer, step_cfg), tr.cl_state)
+    step_ms = {name: [] for name in steps}
+    for name in ("plain", "P=1", "P=2", "P=2", "P=1", "plain"):
+        step, cl_state = steps[name]
+        step_ms[name].append(_time_ms(lambda: step(cl_state, batch), reps=STEP_REPS))
+    del steps, tr
+
+    # ---- the record
+    for (ext, run, vit_run), probe, secs, peak, counts in zip(runs, probes, run_s, peak_gb,
+                                                               launches):
+        print(f"[phase 13] nnUNet_torch_train_{ext} -t {' '.join(run)}"
+              + (" --use_vit" if vit_run else "") + " --device cuda, full width"
+              + (" (V1, ViT-base, batch 1)" if vit_run else f" (batch {b2})")
+              + f", 1 epoch x {SEQ_ITERS} steps + {SEQ_VAL_ITERS} val batches per task and "
+              f"phase: {secs:.2f} s, seconds per task and phase "
+              + ", ".join(f"{t} {s:.2f}" for t, s in probe.tasks)
+              + f"; warm s/step of each task's last phase (median of steps 4-{SEQ_ITERS}, "
+              "synchronized) " + ", ".join(f"{t} {probe.warm_step_s(t):.4f}" for t in run)
+              + f"; {'lwf_distill' if ext == 'lwf' else 'mib'} per step "
+              + ", ".join(f"{t} {float(torch.stack(probe.penalties[t]).min()):.4e}.."
+                          f"{float(torch.stack(probe.penalties[t]).max()):.4e}"
+                          for t in run[1:])
+              + f"; progress validation {[round(v, 3) for v in probe.val_s]} s; peak "
+              f"{peak:.2f} GB; launches {counts} == predicted", flush=True)
+    print(f"[phase 13] lwf: lwf_phase per checkpoint (model_freezed, final) {phases}; the "
+          f"body after each freeze run equal to the task before's bit for bit; a -c run "
+          f"after {tasks[2]} trained nothing (all launch counts 0); the joint step "
+          f"(CUDA events, ms, in turns; one augmentation-free batch of {tasks[2]}) "
+          + ", ".join(f"{k} {[round(v, 3) for v in step_ms[k]]}" for k in ("plain", "P=1", "P=2"))
+          + f"; step time over the plain step's: P=1 "
+          f"{statistics.mean(step_ms['P=1']) / statistics.mean(step_ms['plain']):.3f}, P=2 "
+          f"{statistics.mean(step_ms['P=2']) / statistics.mean(step_ms['plain']):.3f}",
+          flush=True)
+    print(f"[phase 13] nnUNet_torch_evaluate2 ewc -trained_on {' '.join(tasks)} -use_head "
+          f"<head>: per head {[round(v, 2) for v in eval2_s]} s, {len(serve_batches) * 3} "
+          f"forwards, launches == predicted; mean Dice against phase 12's served matrix, "
+          f"largest |diff| {eval2_err:.2e} (limit {EVAL2_DICE_TOL})", flush=True)
+    for ext, rep in reports.items():
+        print(f"[phase 13] nnUNet_torch_evaluate {ext} -trained_on "
+              f"{' '.join(sequences[ext])} -use_model <prefix>: seconds per stage "
+              f"{[round(v, 2) for v in eval_s[ext]]}; accuracy matrix (rows stages, columns "
+              f"tasks, validation split, TTA 8) "
+              + "; ".join(", ".join(f"{v:.4f}" for v in row) for row in rep["accuracy_matrix"])
+              + f"; BWT {rep['BWT']:.4f}, FWT {rep['FWT']:.4f}, final mean Dice "
+              f"{rep['final_mean_dice']:.4f} (cl_metrics.json)", flush=True)
+    print(f"[phase 13] evaluation peak {eval_peak_gb:.2f} GB, {len(eval_batches)} forwards "
+          f"(window batches of 4 x 8 mirrors), launches == predicted; "
+          f"determine_postprocessing on {tasks[0]}: classes {decision['for_which_classes']}, "
+          f"Dice raw {decision['dice_raw']}, largest component {decision['dice_pp']}; "
+          f"nnUNet_torch_inference --postprocess applied {kept} (launches == predicted)",
+          flush=True)
+    return {"cl_distill_train": train_launches,
+            "cl_eval": {k: eval2_launches[k] + eval_launches[k] + pp_launches[k]
+                        for k in eval_launches}}
 
 
 def main() -> int:
@@ -2657,9 +2951,13 @@ def main() -> int:
         cl_paths, seq_step_s = _sequence_path(task_dir, plans, shapes, work, pre, results, dev)
 
         # ---- phase 12: the regularizing and freezing trainers
-        reg_paths = _regularizer_path(task_dir, plans, shapes,
-                                      {"shapes": vit_shapes, "n_attn": n_attn}, work, pre,
-                                      results, dev, seq_step_s)
+        vit = {"shapes": vit_shapes, "n_attn": n_attn}
+        reg_paths, ewc_dice = _regularizer_path(task_dir, plans, shapes, vit, work, pre,
+                                                results, dev, seq_step_s)
+
+        # ---- phase 13: the distilling trainers and the evaluation CLIs
+        distill_paths = _distill_eval_path(task_dir, plans, shapes, vit, work, pre, results,
+                                           dev, ewc_dice)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2711,7 +3009,8 @@ def main() -> int:
                                   ("interleave_up2", "interleave.cu", "interleave.py:58"),
                                   ("deinterleave2", "interleave.cu", "interleave.py:73"))]
     paths = {"serve": launches, "train": train_launches, "vit_train": vit_train_launches,
-             "vit_serve": vit_serve_launches, **ct_paths, **cl_paths, **reg_paths}
+             "vit_serve": vit_serve_launches, **ct_paths, **cl_paths, **reg_paths,
+             **distill_paths}
     # the FMA kernel runs f32 input only, off the bf16 main paths (0
     # launches there, asserted above); its launches in the f32 checks of
     # phases 4, 6, 8 and 10 are kept apart, under ``check_launches``

@@ -20,7 +20,8 @@ are copied as they are.
 (EWC's ``{"ewc_tasks": ...}`` or RW's ``{"running", "anchor", "score_sets",
 ...}``, dicts keyed by flax paths ``enc0/block0/Conv_0/kernel``) over to
 the port's ``state_dict`` keys, each fisher, score and anchor permuted as
-the parameter it belongs to.
+the parameter it belongs to; LwF's ``old_models`` and MiB's ``teacher``
+are nested flax parameter trees and become ``state_dict`` s.
 """
 
 from __future__ import annotations
@@ -136,10 +137,19 @@ def jax_cl_state_to_torch(cl_state: Mapping, params, model: GenericUNet) -> dict
     """``cl_state``: a JAX EWC (``{"ewc_tasks": {task: {"fisher",
     "params"}}}``) or RW (``{"running": {"fisher", "scores", "prev_params",
     "prev_loss", "iter"} or None, "anchor": {"fisher", "scores", "params"} or
-    None, "score_sets": [...], "num_tasks_done"}``) state of numpy or jax
-    arrays; ``params``: the JAX model's parameter tree.  Returns the port
-    trainer's ``cl_state`` (CPU tensors; scalars as 0-d tensors, counters as
-    ints)."""
+    None, "score_sets": [...], "num_tasks_done"}``), LwF (``{"old_models":
+    {task: params} or None}``) or MiB (``{"teacher": params or None}``)
+    state of numpy or jax arrays; ``params``: the JAX model's parameter
+    tree.  Returns the port trainer's ``cl_state`` (CPU tensors; scalars as
+    0-d tensors, counters as ints)."""
+    if "old_models" in cl_state:
+        old = cl_state["old_models"]
+        return {"old_models": None if old is None else {
+            t: jax_params_to_state_dict(p, model) for t, p in old.items()}}
+    if "teacher" in cl_state:
+        teacher = cl_state["teacher"]
+        return {"teacher": None if teacher is None
+                else jax_params_to_state_dict(teacher, model)}
     key_map = jax_key_map(params, model)
 
     def conv(flat):

@@ -1,10 +1,16 @@
-"""The regularizing continual-learning terms, EWC and RW: the port of the
-EWC/RW part of ``lifelong_nnunet_tpu/ops/cl_losses.py`` (``:29-92``).
+"""The continual-learning loss terms: the port of the EWC/RW and LwF/MiB
+parts of ``lifelong_nnunet_tpu/ops/cl_losses.py`` (``:29-170``).
 
   * EWC (the reference's ``deep_supervision.py:15-83``):
     lam/2 sum_t sum_i F_ti (theta_i - theta*_ti)^2
   * RW  (``deep_supervision.py:86-135``): lam sum_i (F_i + S_i)(theta_i - theta*_i)^2,
     with the EWC++ fisher EMA and the Riemannian-walk scores updated online
+  * LwF (``deep_supervision.py:138-214``): KL of the earlier heads' logits
+    to their teachers' at temperature T ('batchmean', no T^2 factor, as the
+    JAX code computes it)
+  * MiB (``deep_supervision.py:383-416``, ``knowledge_distillation.py:3-60``,
+    ``crossentropy.py``): the unbiased cross-entropy and the unbiased
+    knowledge distillation
 
 Parameters, fishers, scores and anchors are ``{state_dict key: tensor}``
 dicts; a mask ``{key: bool}`` restricts the regularized keys.  Anchors may
@@ -14,13 +20,19 @@ the plain formulas, differentiable by autograd.  The train step uses
 :class:`QuadraticPenalty` instead: the same sum over the model's parameter
 list with ``torch._foreach_*`` ops (a few launches per anchor, not a few
 per tensor), its gradient written into ``.grad`` after the backward of the
-base loss.  The distilling terms of the JAX file (LwF, MiB, POD, PLOP) are
-not ported yet.
+base loss.
+
+The distilling terms take channels-first logits ``[B, C, *spatial]``, the
+U-Net's layout, so the class axis the JAX functions reduce over
+(``axis=-1``) is axis 1 here; they are plain autograd formulas, as the JAX
+package's are plain XLA.  POD and PLOP (``:173-373``) are not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .losses import cross_entropy_loss, downsample_target
 
 
 def quadratic_penalty(params: dict, anchors: list, lam: float, mask: dict | None = None,
@@ -152,3 +164,72 @@ class QuadraticPenalty:
         torch._foreach_add_([p.grad for p in self.params], self._grad,
                             alpha=2.0 * self.factor)
         self._grad = None
+
+
+# ------------------------------------------------------------------ LwF / MiB
+
+def lwf_distill_loss(current_logits: list, target_logits: list,
+                     temperature: float = 2.0) -> torch.Tensor:
+    """Sum over the earlier heads of KL(teacher^T || current^T) with
+    'batchmean' reduction: the sum over voxels and classes divided by the
+    batch size only (the reference's ``F.kl_div(..., reduction='batchmean',
+    log_target=True)``).  The logits are the full-resolution outputs."""
+    total = 0.0
+    for cur, tgt in zip(current_logits, target_logits):
+        logp = torch.log_softmax(cur.float() / temperature, dim=1)
+        logq = torch.log_softmax(tgt.float() / temperature, dim=1)
+        total = total + (logq.exp() * (logq - logp)).sum() / cur.shape[0]
+    return total
+
+
+def unbiased_cross_entropy(logits: torch.Tensor, target: torch.Tensor,
+                           old_num_classes: int, ignore: int = -1) -> torch.Tensor:
+    """MiB's unbiased CE: the background's log-probability absorbs every
+    old class (< ``old_num_classes``), and every target label below
+    ``old_num_classes`` collapses to 0; the mean over the voxels whose
+    target is not ``ignore``."""
+    num_classes = logits.shape[1]
+    logits = logits.float()
+    den = torch.logsumexp(logits, dim=1)
+    log_old_bg = torch.logsumexp(logits[:, :old_num_classes], dim=1) - den
+    log_probs = torch.log_softmax(logits, dim=1)
+    labels = torch.where((target >= 0) & (target < old_num_classes),
+                         torch.zeros_like(target), target)
+    tgt = labels.clamp(0, num_classes - 1).long()
+    picked = log_probs.gather(1, tgt.unsqueeze(1)).squeeze(1)
+    picked = torch.where(labels == 0, log_old_bg, picked)
+    valid = (target != ignore).float()
+    return -(picked * valid).sum() / valid.sum().clamp(min=1.0)
+
+
+def unbiased_kd_loss(logits: torch.Tensor, teacher_logits: torch.Tensor,
+                     old_num_classes: int, alpha: float = 1.0) -> torch.Tensor:
+    """MiB's unbiased knowledge distillation: the teacher's probabilities
+    over its ``old_num_classes`` channels against the student's
+    log-probabilities where the background absorbs every new class; each
+    voxel's sum is divided by ``old_num_classes`` before the mean."""
+    x = logits.float()
+    t = teacher_logits.float() * alpha
+    den = torch.logsumexp(x, dim=1, keepdim=True)
+    log_bg = torch.logsumexp(torch.cat([x[:, :1], x[:, old_num_classes:]], dim=1),
+                             dim=1, keepdim=True) - den
+    student_log = torch.cat([log_bg, x[:, 1:old_num_classes] - den], dim=1)
+    q = torch.softmax(t[:, :old_num_classes], dim=1)
+    return -((q * student_log).sum(dim=1) / old_num_classes).mean()
+
+
+def mib_loss(outputs: list, teacher_outputs: list, target: torch.Tensor, ds_weights,
+             ds_factors, old_num_classes: int, lkd: float = 10.0,
+             alpha: float = 0.9) -> torch.Tensor:
+    """MiB's objective: per deep-supervision output of nonzero weight, the
+    plain CE (the reference's ``RobustCrossEntropyLoss``, not the unbiased
+    one) plus ``lkd`` times the unbiased KD, weighted; ``target`` is the
+    full-resolution label map, downsampled by ``ds_factors``."""
+    total = 0.0
+    for w, out, tout, f in zip(ds_weights, outputs, teacher_outputs, ds_factors):
+        if w == 0.0:
+            continue
+        ce = cross_entropy_loss(out.float(), downsample_target(target, f))
+        kd = unbiased_kd_loss(out, tout, old_num_classes, alpha)
+        total = total + float(w) * (ce + lkd * kd)
+    return total

@@ -16,26 +16,29 @@ does:
   (``<network>/<task>/<task>/nnUNetTrainerBase_v2__<plans>/<arch>/SEQ/fold_X``;
   the JAX CLI reads ``base_v2`` from the base-trainer layout, where its
   trainer does not write);
-* the continual-learning trainers the port trains (``multihead``,
-  ``sequential``, ``rehearsal`` or their class names) in the sequence's
-  folder ``<network>/<trained_on>/<use or trained_on>/<Trainer>__<plans>/
-  <arch>/<MH|SEQ>/fold_X``, ``SEQ`` for a head-transferring trainer unless
-  ``--no_transfer_heads``.
+* the continual-learning trainers of the port's registry
+  (``training/trainers/__init__.py``, by extension or class name) in the
+  sequence's folder ``<network>/<trained_on>/<use or trained_on>/
+  <Trainer>__<plans>/<arch>/<MH|SEQ>/fold_X``, ``SEQ`` for a
+  head-transferring trainer unless ``--no_transfer_heads``.
 
-``-use_head`` picks the head (default the last task's).  The checkpoint's
-manifest says whether the network is a U-Net or a ViT-U-Net.  Other
-trainers and task-specific LayerNorms come with later parts of the port and
-are refused here.
+``nnUNet_torch_evaluate`` / ``nnUNet_torch_evaluate2`` locate models the
+same way.  ``-use_head`` picks the head (default the last task's).  The
+checkpoint's manifest says whether the network is a U-Net or a ViT-U-Net.
+``--postprocess`` keeps the largest component of the classes that the
+``postprocessing.json`` beside the checkpoint names
+(``inference/postprocessing.py``), of every class where there is none.
+Trainers not ported yet and task-specific LayerNorms are refused.
 """
 
 from __future__ import annotations
 
 import argparse
-import json
 import os
 
 from .. import paths
 from ..device import resolve_device
+from ..inference.postprocessing import load_postprocessing
 from ..inference.predict import predict_from_folder
 from ..run.plan_and_preprocess import resolve_task
 from ..run.run_training import arch_kwargs, output_folder, trainer_name
@@ -131,16 +134,6 @@ def _locate_model(args, results: str, fold: int) -> str:
     return ckpt
 
 
-def _load_postprocessing(folder: str):
-    """Classes to largest-component-filter from ``postprocessing.json``, or
-    None when there is no decision file."""
-    p = os.path.join(folder, "postprocessing.json")
-    if not os.path.isfile(p):
-        return None
-    with open(p) as f:
-        return json.load(f).get("for_which_classes") or None
-
-
 def run_inference(argv=None) -> int:
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
@@ -159,7 +152,8 @@ def run_inference(argv=None) -> int:
         models.append(model)
     post = None
     if args.postprocess:
-        post = _load_postprocessing(os.path.dirname(base)) or plans.all_classes
+        post = load_postprocessing(os.path.dirname(base))
+        post = plans.all_classes if post is None else post
     written = predict_from_folder(
         models, plans, config_name, args.input_folder, args.output_folder,
         device=device, do_tta=not args.disable_tta,

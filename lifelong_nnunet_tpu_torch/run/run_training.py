@@ -3,9 +3,11 @@
 registry (``training/trainers/__init__.py``): ``multihead``,
 ``sequential``, ``rehearsal``, ``base_v2``, the EWC family (``ewc``,
 ``ewc_vit``, ``ewc_unet``, ``ewc_ln``: ``-ewc_lambda``), ``rw``
-(``-rw_lambda``, ``-rw_alpha``, ``-fisher_update_after``) and the freezing
+(``-rw_lambda``, ``-rw_alpha``, ``-fisher_update_after``), the freezing
 trainers (``frozen_vit``, ``frozen_nonln``, ``frozen_unet``,
-``frozen_body_seq``, ``froz_ewc``: ``-ewc_lambda``, ``--adaptive``).
+``frozen_body_seq``, ``froz_ewc``: ``-ewc_lambda``, ``--adaptive``) and the
+distilling trainers ``lwf`` (``-lwf_temperature``) and ``mib``
+(``-mib_alpha``, ``-mib_lkd``).
 
 The JAX package's ``nnUNet_train_<method>``
 (``lifelong_nnunet_tpu/run/run_training.py``), with ``--device`` (default
@@ -27,7 +29,9 @@ trainer.  ``--use_vit`` trains the ViT-U-Net (``-v``, ``-v_type``,
 trains on the plain route (no hand-written kernels).
 
 The trained model is served by ``nnUNet_torch_inference <network>
-<extension> -trained_on <tasks> [-use_head <task>]``.
+<extension> -trained_on <tasks> [-use_head <task>]`` and scored by
+``nnUNet_torch_evaluate`` / ``nnUNet_torch_evaluate2`` with the same
+arguments.
 """
 
 from __future__ import annotations
@@ -56,6 +60,8 @@ METHOD_ARGS = {
     "froz_ewc": {"ewc_lambda": (float, 0.4), "adaptive": (bool, False)},
     "rw": {"rw_lambda": (float, 0.4), "rw_alpha": (float, 0.9),
            "fisher_update_after": (int, 10)},
+    "lwf": {"lwf_temperature": (float, 2.0)},
+    "mib": {"mib_alpha": (float, 0.9), "mib_lkd": (float, 10.0)},
 }
 
 # the JAX CLI's folder names, nnUNetTrainer<name> (its ``_camel``)

@@ -21,10 +21,17 @@ JAX trainer.
 
 Continual-learning methods subclass it and override the hooks
 (``init_cl_state`` / ``loss_extras`` / ``cl_state_update`` /
-``before_task`` / ``after_task`` / ``trainable_mask`` /
-``extra_manifest`` / ``_adopt_manifest``) and ``HYPERPARAMS``.  Their
+``before_task`` / ``after_task`` / ``trainable_mask`` / ``extra_params``
+/ ``extra_manifest`` / ``_adopt_manifest``) and ``HYPERPARAMS``.  Their
 ``cl_state`` rides in every checkpoint; ``trainable_mask`` ({key: bool})
-reaches the optimizer, which leaves the frozen parameters as they are.
+reaches the optimizer, which leaves the frozen parameters as they are;
+``extra_params`` gives it tensors to train beside the model's (LwF's
+earlier heads in its joint phase, the JAX trainer's ``_wrap_params``).  A
+trainer that trains one task in phases (LwF) sets ``_skip_before_ckpt``
+(a later phase keeps the task's ``before_training``) and
+``_suppress_finalize`` (a phase that is not the last ends with no
+``after_task``, no final checkpoint and no manifest update), as the JAX
+``train_task`` reads them.
 
 Not ported yet, and refused by ``run/run_training.py`` when asked for:
 task-specific LayerNorms, SPMD (``-n_devices`` / ``-model_parallel``) and
@@ -155,6 +162,9 @@ class MultiHeadTrainer:
         # the optimizer state of a restored checkpoint, adopted by the next
         # _build_step (a resumed task continues its momentum and LR count)
         self._resume_opt: dict | None = None
+        # the phases of a multi-phase trainer (LwF), see the module docstring
+        self._skip_before_ckpt = False
+        self._suppress_finalize = False
 
     # ------------------------------------------------------------------ hooks
     def init_cl_state(self):
@@ -175,6 +185,11 @@ class MultiHeadTrainer:
     def trainable_mask(self):
         """Override for the freezing methods; None = everything trainable."""
         return None
+
+    def extra_params(self) -> list:
+        """(name, tensor) pairs the optimizer trains beside the model's
+        parameters, made by ``_build_step`` before the optimizer."""
+        return []
 
     def extra_manifest(self) -> dict:
         """Per-trainer additions to the checkpoint manifest."""
@@ -220,7 +235,7 @@ class MultiHeadTrainer:
         leaves trainable) and the train and eval steps, with the hooks'
         terms as they stand now (``before_task`` runs first)."""
         self.model.load_state_dict(self.mh.assemble())
-        self.optimizer = PolySGD(self.model.named_parameters(),
+        self.optimizer = PolySGD(list(self.model.named_parameters()) + self.extra_params(),
                                  max_epochs=self.opts.num_epochs,
                                  iters_per_epoch=self.opts.iters_per_epoch,
                                  initial_lr=INITIAL_LR, trainable_mask=self.trainable_mask())
@@ -269,7 +284,7 @@ class MultiHeadTrainer:
         head, run the epoch loop with its checkpoints, update the manifest.
         ``start_epoch`` continues an interrupted task from a restored
         ``model_latest``; its ``before_training`` checkpoint stays as it
-        was."""
+        was, as it does in a later phase (``_skip_before_ckpt``)."""
         num_epochs = num_epochs or self.opts.num_epochs
         self.register_task_data(task, stage_dir)
         self._ensure_initialized(task)
@@ -277,7 +292,7 @@ class MultiHeadTrainer:
         self.before_task(task)
         self._build_step()
         self._update_manifest(start_training_on=task, checkpoint_should_exist=False)
-        if not start_epoch:
+        if not (start_epoch or self._skip_before_ckpt):
             self.save_checkpoint("before_training")
         seed_offset = len(self.mh.tasks)
         prefetch = Prefetcher(self._make_sampler(task, True, seed_offset), self.device)
@@ -317,6 +332,8 @@ class MultiHeadTrainer:
         finally:
             prefetch.stop()
         self.mh = self.mh.absorb(self.model.state_dict(), task)
+        if self._suppress_finalize:
+            return
         self.after_task(task)
         self.save_checkpoint("model_final_checkpoint")
         fold_state = self.already_trained_on.get(str(self.opts.fold), {})

@@ -1,14 +1,15 @@
 """Trainer registry of the port: extension name / class name -> trainer
 class, as the JAX package's
-(``lifelong_nnunet_tpu/training/trainers/__init__.py:20-66``).  The
-distilling trainers of the JAX package (LwF, MiB, PLOP, POD) and the
-own-method trainers (``ownm1-4``) come with later parts of the port;
-asking for one raises."""
+(``lifelong_nnunet_tpu/training/trainers/__init__.py:20-66``).  The JAX
+package's PLOP and POD trainers and the own-method trainers (``ownm1-4``)
+come with later parts of the port; asking for one raises."""
 
 from ..trainer import MultiHeadTrainer
 from .ewc import EWCLNTrainer, EWCTrainer, EWCUNetTrainer, EWCViTTrainer
 from .frozen import (FrozEWCTrainer, FrozenBodyTrainer, FrozenNonLNTrainer,
                      FrozenUNetTrainer, FrozenViTTrainer)
+from .lwf import LwFTrainer
+from .mib import MiBTrainer
 from .rehearsal import RehearsalTrainer
 from .rw import RWTrainer
 from .sequential import BaseUNetTrainer, SequentialTrainer, ViTUNetTrainer
@@ -29,6 +30,8 @@ TRAINER_MAP = {
     "frozen_unet": FrozenUNetTrainer,
     "frozen_body_seq": FrozenBodyTrainer,
     "froz_ewc": FrozEWCTrainer,
+    "lwf": LwFTrainer,
+    "mib": MiBTrainer,
 }
 
 # reference class names -> ours
@@ -48,6 +51,8 @@ CLASS_NAME_MAP = {
     "nnUNetTrainerFrozenUNet": FrozenUNetTrainer,
     "nnUNetTrainerFrozenBody": FrozenBodyTrainer,
     "nnUNetTrainerFrozEWC": FrozEWCTrainer,
+    "nnUNetTrainerLWF": LwFTrainer,
+    "nnUNetTrainerMiB": MiBTrainer,
 }
 
 

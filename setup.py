@@ -21,13 +21,15 @@ console_scripts = [
     "nnUNet_evaluate = lifelong_nnunet_tpu.run.run_evaluation:main",
     "nnUNet_evaluate2 = lifelong_nnunet_tpu.run.run_evaluation:main2",
     "nnUNet_inference = lifelong_nnunet_tpu.run.run_inference:main",
-    # the PyTorch port (lifelong_nnunet_tpu_torch/): serving and training
+    # the PyTorch port (lifelong_nnunet_tpu_torch/): serving, evaluation and training
     "nnUNet_torch_inference = lifelong_nnunet_tpu_torch.run.run_inference:main",
+    "nnUNet_torch_evaluate = lifelong_nnunet_tpu_torch.run.run_evaluation:main",
+    "nnUNet_torch_evaluate2 = lifelong_nnunet_tpu_torch.run.run_evaluation:main2",
 ] + [
     f"nnUNet_torch_train_{ext} = lifelong_nnunet_tpu_torch.run.run_training:main_{ext}"
     for ext in ("multihead", "sequential", "rehearsal", "base_v2", "ewc", "ewc_vit",
                 "ewc_unet", "ewc_ln", "rw", "frozen_vit", "frozen_nonln", "frozen_unet",
-                "frozen_body_seq", "froz_ewc")
+                "frozen_body_seq", "froz_ewc", "lwf", "mib")
 ] + [
     "nnUNet_torch_train_body_froz = "
     "lifelong_nnunet_tpu_torch.run.run_training:main_frozen_body_seq",
