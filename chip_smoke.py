@@ -177,26 +177,52 @@ Phases (one line each; any failure raises, so the exit code is not 0):
      --postprocess`` applies to phase 12's served segmentation.  Recorded:
      seconds per task and phase, the LwF joint step at P = 1 and 2 beside
      a Sequential-style step (CUDA-event medians in turns), evaluation
-     seconds per stage and head, peak memory.
-Phases 4, 6, 8 and 11-13 run with both switches set: at hippocampus scale the
+     seconds per stage and head, peak memory;
+  14. the POD trainers on the tasks of phases 11-13 with their settings
+     but 15 steps a task: ``nnUNet_torch_train_plop 3d_fullres -t A B C``,
+     ``_pod -t A B``,
+     ``_ownm2 -t A B``, ``_ownm4 -t A B`` and, with ViT-base (V1, batch 1),
+     ``_ownm1 -t A B --use_vit``: the launch counters of each run as the
+     route predicts (from the second task on a step is a forward+backward
+     unit and a teacher forward without grad, both capturing taps, which
+     with the ViT runs V1's bottleneck stage forward; PLOP's threshold
+     pass 15 teacher forwards a task; OwnM's fisher pass after each task), every
+     conv, dx and flash launch on the tensor-core kernels; every step's
+     loss finite, the first of each later task included (the student's
+     taps equal the teacher's there) with the hippocampus bottleneck's 5x7
+     tap in PLOP's and POD's sum; the POD term > 0 after that step; each
+     PLOP threshold in [0.001, 1] for every deep-supervision output;
+     OwnM4's pseudo iterations those its counter gives when it runs on
+     across tasks (26 of B's 15-29); ``nnUNet_torch_inference plop
+     -trained_on A B C -use_head X`` for each head X on its task's images
+     (Dice recorded); ``nnUNet_torch_evaluate`` on each stage of PLOP (3 x
+     3) and POD (2 x 2), the accuracy matrices with BWT and FWT.  Recorded:
+     seconds per task, warm s/step, the threshold pass's seconds, peak
+     memory, checkpoint bytes, and at C's first parameters the PLOP and POD
+     steps beside a plain step (CUDA-event medians in turns), their launch
+     calls, and the POD term alone (forward and backward) with its launch
+     calls and its share of the PLOP step.
+Phases 4, 6, 8 and 11-14 run with both switches set: at hippocampus scale the
 gates admit nothing, so their launch counts are those of the ordinary
 routes.  The fused conv, its data gradient and flash attention (forward
 and backward) count every launch and, apart, those on the tensor-core
-kernels: on the twelve main paths (bf16) every one must take them, in the f32
+kernels: on the fourteen main paths (bf16) every one must take them, in the f32
 checks of phases 4, 6, 8 and 10 none.  The line
 before the last is the kernels' JSON record (the U-Net's forward kernels
 per forward at the serving path's largest batch, its backward kernels per
 train step, the flash kernels per ViT-U-Net train step, the copy kernels
 per CT train step, the pack by device time with its CUDA-event median as
 ``event_ms`` and its time per CT serving forward as ``serve_ms`` beside
-``serve_bound_ms``; ``launches`` summed over the twelve paths' runs, and per
+``serve_bound_ms``; ``launches`` summed over the fourteen paths' runs, and per
 path under ``launches_by_path``: ``serve``, ``train``, ``vit_train``,
 ``vit_serve``, ``ct_train``, ``ct_serve``, ``cl_train`` (both sequence
 trainings), ``cl_serve`` (the four servings of phase 11), ``cl_reg_train``
 (phase 12's five trainings and its resumed fisher pass), ``cl_reg_serve``
 (the nine servings of EWC's heads), ``cl_distill_train`` (phase 13's
-three trainings) and ``cl_eval`` (its evaluations, the postprocessing
-decision and the postprocessed serving); the two kernels of the fused
+three trainings), ``cl_eval`` (its evaluations, the postprocessing
+decision and the postprocessed serving), ``cl_pod_train`` (phase 14's five
+trainings) and ``cl_pod_serve`` (its servings of PLOP's heads and the
+evaluations of PLOP's and POD's stages); the two kernels of the fused
 conv, its data gradient and flash attention as ``conv3d_in_lrelu_tc`` /
 ``conv3d_dx_tc`` / ``flash_attention_tc`` / ``flash_attention_bwd_tc``
 (the tensor-core kernels) and ``conv3d_in_lrelu_f32`` / ``conv3d_dx_f32``
@@ -269,7 +295,8 @@ from lifelong_nnunet_tpu_torch.ops.kernels.instance_norm import (  # noqa: E402
     FORMS, card_limits, instance_norm_leaky_bwd_cf, instance_norm_leaky_cf, launch_plan,
     plain_instance_norm_leaky, plain_instance_norm_leaky_bwd)
 from lifelong_nnunet_tpu_torch.models.multihead import name_filter_mask  # noqa: E402
-from lifelong_nnunet_tpu_torch.ops.cl_losses import QuadraticPenalty  # noqa: E402
+from lifelong_nnunet_tpu_torch.ops.cl_losses import (  # noqa: E402
+    QuadraticPenalty, local_pod_loss, pod_regions, pod_scales)
 from lifelong_nnunet_tpu_torch.ops.losses import deep_supervision_loss  # noqa: E402
 from lifelong_nnunet_tpu_torch.planning.plans import Plans, plans_path  # noqa: E402
 from lifelong_nnunet_tpu_torch.run.plan_and_preprocess import plan_and_preprocess  # noqa: E402
@@ -282,6 +309,7 @@ from lifelong_nnunet_tpu_torch.run.run_training_vit import run_training_vit  # n
 from lifelong_nnunet_tpu_torch.tools import in_probe  # noqa: E402
 from lifelong_nnunet_tpu_torch.tools import pack_probe  # noqa: E402
 from lifelong_nnunet_tpu_torch.tools.flash_probe import device_ms  # noqa: E402
+from lifelong_nnunet_tpu_torch.training import checkpoints as checkpoint_io  # noqa: E402
 from lifelong_nnunet_tpu_torch.training.checkpoints import (  # noqa: E402
     base_manifest, load_registry, save_checkpoint)
 from lifelong_nnunet_tpu_torch.training.optimizer import PolySGD  # noqa: E402
@@ -295,6 +323,8 @@ from lifelong_nnunet_tpu_torch.training.trainer import (  # noqa: E402
     MultiHeadTrainer, TrainerOptions)
 from lifelong_nnunet_tpu_torch.training.trainers import get_trainer  # noqa: E402
 from lifelong_nnunet_tpu_torch.training.trainers.ewc import EWCTrainer  # noqa: E402
+from lifelong_nnunet_tpu_torch.training.trainers.own import OwnM4Trainer  # noqa: E402
+from lifelong_nnunet_tpu_torch.training.trainers.plop import PLOPTrainer  # noqa: E402
 from lifelong_nnunet_tpu_torch.training.trainers.rehearsal import RehearsalTrainer  # noqa: E402
 from lifelong_nnunet_tpu_torch.training.trainers.rw import RWTrainer  # noqa: E402
 from lifelong_nnunet_tpu_torch.utilities.imageio import read_image  # noqa: E402
@@ -350,6 +380,13 @@ PENALTY_RTOL = 1e-5
 # metrics; evaluator2's Dice against phase 12's served Dice
 DISTILL_TERMS = ("lwf_distill", "mib")
 EVAL2_DICE_TOL = 1e-4
+# the POD trainers (phase 14): steps per task (half of phases 11-13's, to
+# keep the script's time), their terms in the train step's metrics, and
+# OwnM4's pseudo iterations on task B (its counter runs on across tasks:
+# B sees iterations POD_ITERS .. 2 POD_ITERS - 1, every 13th a pseudo one)
+POD_ITERS = 15
+POD_TERMS = ("pod", "plop_pseudo", "mib_kd", "pseudo_mse", "ewc_penalty")
+OWNM4_PSEUDO = [i for i in range(POD_ITERS, 2 * POD_ITERS) if i % 13 == 0]
 DIRECT_ROUTES = {"blocked_conv": False, "upsample": "direct"}
 # f32 copies at the serving batch are checked where the kernel's input and
 # output fit in this many bytes (the largest, 64 x 64 x 128^3, would not fit
@@ -1428,6 +1465,8 @@ class _SequenceProbe:
         self.tasks, self.steps, self.val_s, self.pools = [], {}, [], {}
         # task: [the step's CL penalty or distillation term (a device tensor)]
         self.penalties = {}
+        # task: [{name: device tensor} of the step's terms in POD_TERMS]
+        self.terms = {}
         self._saved = {}
 
     def _wrap(self, cls, name, make):
@@ -1462,6 +1501,8 @@ class _SequenceProbe:
                     probe.penalties.setdefault(task, []).extend(
                         v for k, v in out[1].items() if k.endswith("_penalty")
                         or k in DISTILL_TERMS)
+                    probe.terms.setdefault(task, []).append(
+                        {k: v for k, v in out[1].items() if k in POD_TERMS})
                     return out
                 self._train_step = timed
             return wrapped
@@ -1545,10 +1586,11 @@ def _serve_batches(images, plans, patch) -> list:
     return out
 
 
-def _cl_argv(run) -> list:
-    """The CL CLIs' arguments of phases 11-13 for the task sequence ``run``."""
+def _cl_argv(run, iters=SEQ_ITERS) -> list:
+    """The CL CLIs' arguments of phases 11-14 for the task sequence ``run``
+    at ``iters`` steps a task."""
     return ["3d_fullres", "-t"] + list(run) + [
-        "-num_epochs", "1", "-num_iters", str(SEQ_ITERS), "-val_iters", str(SEQ_VAL_ITERS),
+        "-num_epochs", "1", "-num_iters", str(iters), "-val_iters", str(SEQ_VAL_ITERS),
         "-save_interval", "1", "--use_progress_val", "--device", "cuda"]
 
 
@@ -2294,6 +2336,315 @@ def _distill_eval_path(task_dir, plans, shapes, vit, work, pre, results, dev,
                         for k in eval_launches}}
 
 
+class _PodProbe(_SequenceProbe):
+    """Phase 14's measurements on top of phase 11's: each PLOP threshold
+    pass's seconds (synchronized) and thresholds, and each of OwnM4's
+    pseudo-weight readings (iteration, epoch, weight)."""
+
+    def __enter__(self):
+        super().__enter__()
+        probe = self
+        self.threshold_s, self.weights = [], []
+
+        def thresholds(orig):
+            def timed(self, task, teacher):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = orig(self, task, teacher)
+                torch.cuda.synchronize()
+                probe.threshold_s.append((task, time.perf_counter() - t0, out))
+                return out
+            return timed
+
+        def weight(orig):
+            def recorded(self, it, epoch):
+                out = orig(self, it, epoch)
+                probe.weights.append((it, epoch, out))
+                return out
+            return recorded
+
+        self._wrap(PLOPTrainer, "compute_thresholds", thresholds)
+        self._wrap(OwnM4Trainer, "pseudo_weight", weight)
+        return self
+
+
+class _CheckpointBytes:
+    """While active, every checkpoint blob that ``training/checkpoints.py``
+    saves is serialized into memory and its size recorded ({file: bytes})
+    instead of being written (the JSON manifests still are).  Phase 14 runs
+    the OwnM trainings under it: nothing reads their checkpoints back, and
+    with OwnM1's ViT-base blobs on disk (up to 2.2 GB each: model,
+    momentum, teacher, two anchor sets; ~10.6 GB in all) the whole script
+    writes ~47 GB to disk, ~35 GB without them."""
+
+    def __init__(self):
+        self.sizes = {}
+
+    def __enter__(self):
+        sizes = self.sizes
+
+        class Torch:
+            def __getattr__(self, name):
+                return getattr(torch, name)
+
+            @staticmethod
+            def save(obj, path):
+                # a spooled file this large never leaves memory
+                with tempfile.SpooledTemporaryFile(max_size=1 << 40) as buf:
+                    torch.save(obj, buf)
+                    sizes[path] = buf.tell()
+
+        checkpoint_io.torch = Torch()
+        return self
+
+    def __exit__(self, *exc):
+        checkpoint_io.torch = torch
+
+
+def _pod_path(task_dir, plans, shapes, vit, work, pre, results, dev) -> dict:
+    """Phase 14: the POD trainers through their entry points on the tasks of
+    phases 11-13, PLOP's heads served and PLOP's and POD's stages scored
+    (see the module docstring).  Returns the launch counts of the trainings
+    (``cl_pod_train``) and of the servings and evaluations
+    (``cl_pod_serve``)."""
+    cfg = plans.config("3d_fullres")
+    patch, b2, classes = tuple(cfg.patch_size), TRAIN_BATCH, plans.num_classes + 1
+    raw_root = os.path.dirname(task_dir)
+    tasks = [os.path.basename(task_dir), "Task098_SynthB", REG_TASK_C["task_name"]]
+    images = {t: os.path.join(raw_root, t, "imagesTr") for t in tasks}
+    labels = {t: os.path.join(raw_root, t, "labelsTr") for t in tasks}
+    stages, splits = _task_stages(pre, tasks)
+    val_b = {t: _val_batches(stages[t], splits[t], patch) for t in tasks}
+    ext_root = os.path.join(results, "nnUNet_ext")
+    folder = _cl_folders(results, plans)
+    S, V, vit_b = POD_ITERS, SEQ_VAL_ITERS, max(1, b2 // 2)
+
+    def progress(run):
+        """After each task its val cases and every earlier task's."""
+        return [b for i in range(len(run)) for t in run[: i + 1] for b in val_b[t]]
+
+    def expect(ext, run, vit_run):
+        """From the second task on a step is a forward+backward unit and a
+        teacher forward without grad; PLOP's threshold pass adds S forwards
+        a task, EWC's fisher pass S forward+backward units after each task.
+        With the ViT the taps path runs V1's bottleneck stage forward (the
+        U-Net's blocks, in the student's and the teacher's forwards); OwnM
+        distils the decoder taps only, so no loss reaches that stage and its
+        backward does not run."""
+        later = len(run) - 1
+        fisher = S * len(run) if ext.startswith("ownm") else 0
+        thresholds = S * later if ext == "plop" else 0
+        if not vit_run:
+            return _train_expect(dev, shapes, b2, S * len(run),
+                                 V * len(run) + S * later + thresholds, progress(run),
+                                 fisher=fisher)
+        base = _train_expect(dev, vit["shapes"], vit_b, S * len(run),
+                             V * len(run) + S * later, progress(run), fisher=fisher,
+                             attn=vit["n_attn"])
+        taps = 2 * S * later
+        with_stage = _train_expect(dev, shapes, vit_b, 0, taps, [])
+        without = _train_expect(dev, vit["shapes"], vit_b, 0, taps, [])
+        return {k: base[k] + with_stage[k] - without[k] for k in base}
+
+    runs = [("plop", tasks, False), ("pod", tasks[:2], False), ("ownm2", tasks[:2], False),
+            ("ownm4", tasks[:2], False), ("ownm1", tasks[:2], True)]
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+    launches, probes, peak_gb, run_s, ckpt_mb, kept_gb = {}, {}, {}, {}, {}, {}
+    for ext, run, vit_run in runs:
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        kept = _CheckpointBytes() if ext.startswith("ownm") else None
+        with _PodProbe() as probe:
+            if kept:
+                with kept:
+                    run_training(ext, _cl_argv(run, S) + (["--use_vit"] if vit_run else []))
+            else:
+                run_training(ext, _cl_argv(run, S))
+        torch.cuda.synchronize()
+        run_s[ext] = time.perf_counter() - t0
+        peak_gb[ext] = torch.cuda.max_memory_allocated() / 1e9
+        launches[ext] = _counts()
+        assert launches[ext] == expect(ext, run, vit_run), (ext, launches[ext])
+        probes[ext] = probe
+        final = folder(ext, run, len(run) - 1, vit_run)
+        with open(os.path.join(final, "progress.json")) as f:
+            record = json.load(f)
+        # finite on every step, the first of each later task included (the
+        # student's taps equal the teacher's there)
+        assert len(record["step_losses"]) == S * len(run), ext
+        assert all(map(math.isfinite, record["step_losses"])), (ext, record["step_losses"])
+        assert [t for t, _ in probe.tasks] == run and len(probe.val_s) == len(run), ext
+        assert not any(probe.terms[run[0]]), ext
+        for t in run[1:]:
+            terms = {k: torch.stack([d[k] for d in probe.terms[t]]).float().cpu()
+                     for k in probe.terms[t][0]}
+            assert "pod" in terms and all(len(v) == S for v in terms.values()), (ext, t)
+            assert all(bool(torch.isfinite(v).all()) for v in terms.values()), (ext, t, terms)
+            assert bool((terms["pod"][1:] > 0).all()), (ext, t, terms["pod"])
+        ckpt = os.path.join(final, "model_final_checkpoint.pt")
+        ckpt_mb[ext] = (kept.sizes[ckpt] if kept else os.path.getsize(ckpt)) / 1e6
+        if kept:
+            kept_gb[ext] = (len(kept.sizes), sum(kept.sizes.values()) / 1e9)
+
+    # ---- PLOP's thresholds, from the model after the task before
+    plop = probes["plop"]
+    assert [t for t, _, _ in plop.threshold_s] == tasks[1:], plop.threshold_s
+    n_out = len(ds_scale_factors(cfg.pool_op_kernel_sizes))
+    for i, t in enumerate(tasks[1:], start=1):
+        _, blob, _ = load_registry(os.path.join(folder("plop", tasks, i),
+                                                "model_final_checkpoint"), torch.device("cpu"),
+                                   [])
+        thr = blob["cl_state"]["thresholds"]
+        assert len(thr) == n_out and all(v.shape == (classes,) for v in thr), thr
+        assert all(bool(((v >= 0.001) & (v <= 1.0)).all()) for v in thr), thr
+        probed = [v.cpu() for v in plop.threshold_s[i - 1][2]]
+        assert all(torch.equal(a, b) for a, b in zip(probed, thr)), (probed, thr)
+    thresholds = {t: [[round(float(x), 3) for x in v] for v in out]
+                  for t, _, out in plop.threshold_s}
+    # ---- OwnM4's pseudo iterations: its counter runs on across tasks
+    weights = probes["ownm4"].weights
+    assert [it for it, _, _ in weights] == list(range(S, 2 * S)), weights
+    assert [it for it, _, w in weights if w > 0] == OWNM4_PSEUDO, weights
+    assert {w for it, _, w in weights if w > 0} == {METHOD_ARGS["ownm4"]["pseudo_alpha"][1]}
+    train_launches = {k: sum(c[k] for c in launches.values()) for k in launches["plop"]}
+
+    # ---- PLOP's heads served, each on its task's images
+    _reset_counts()
+    dice = {}
+    for head in tasks:
+        out = os.path.join(work, f"plop_{head}")
+        run_inference(["3d_fullres", "plop", "-i", images[head], "-o", out, "-trained_on"]
+                      + tasks + ["-use_head", head, "-window_batch", str(WINDOW_BATCH),
+                                 "--device", "cuda"])
+        per_case = []
+        for case, _ in case_files(images[head]):
+            seg = np.asarray(read_image(os.path.join(out, f"{case}.nii.gz")).data)
+            label = np.asarray(read_image(os.path.join(labels[head], f"{case}.nii.gz")).data)
+            assert seg.shape == label.shape and int(seg.max()) < classes
+            per_case.append(float(np.nanmean(subject_metrics(seg, label, classes)["Dice"])))
+        dice[head] = statistics.mean(per_case)
+    serve_batches = [b for t in tasks for b in _serve_batches(images[t], plans, patch)]
+    serve_launches = _counts()
+    assert serve_launches == _forward_expect(dev, shapes, serve_batches), serve_launches
+
+    # ---- PLOP's and POD's accuracy matrices through nnUNet_torch_evaluate
+    os.environ["EVALUATION_FOLDER"] = os.path.join(work, "evaluation")
+    eval_root = os.path.join(work, "evaluation", "nnUNet_ext")
+    sequences = {"plop": tasks, "pod": tasks[:2]}
+    reports, eval_s, eval_batches = {}, {}, []
+    _reset_counts()
+    for ext, run in sequences.items():
+        acc = np.full((len(run), len(run)), np.nan)
+        eval_s[ext] = []
+        for s in range(len(run)):
+            t0 = time.perf_counter()
+            run_evaluation(["3d_fullres", ext, "-trained_on"] + run + ["-use_model"]
+                           + run[: s + 1] + ["-evaluate_on"] + run + ["--device", "cuda"])
+            eval_s[ext].append(time.perf_counter() - t0)
+            where = os.path.join(eval_root, os.path.relpath(folder(ext, run, s), ext_root))
+            with open(os.path.join(where, "val_metrics_eval.json")) as f:
+                res = json.load(f)[-1]["results"]
+            acc[s] = [mean_dice_of(res, t) for t in run]
+            eval_batches += [b * TTA for t in run for b in val_b[t]]
+        assert np.isfinite(acc).all(), (ext, acc)
+        reports[ext] = cl_report(acc, run)
+        write_cl_report(reports[ext], where)
+    eval_launches = _counts()
+    assert eval_launches == _forward_expect(dev, shapes, eval_batches), eval_launches
+
+    # ---- the PLOP and POD steps beside a plain step at C's first
+    # parameters (teacher: the model after B), CUDA-event medians in turns,
+    # and the POD term alone (forward and backward) with its launch calls
+    tr = restore_trainer(os.path.join(folder("plop", tasks, 2), "before_training"),
+                         TrainerOptions(device="cuda"))
+    batch = PatchSampler(stages[tasks[2]], splits[tasks[2]]["train"], patch, b2,
+                         seed=SEED).next_batch()
+    batch = {k: torch.from_numpy(batch[k]).to(dev) for k in ("data", "seg")}
+    step_cfg = StepConfig(ds_factors=tr.ds_factors, batch_dice=True, num_classes=classes)
+    plop_extras = tr.loss_extras()
+    tr.PSEUDO = False                 # the same teacher and taps through POD's loss
+    pod_extras = tr.loss_extras()
+    del tr.PSEUDO
+    steps = {"plain": make_train_step(tr.model, tr.optimizer, step_cfg),
+             "pod": make_train_step(tr.model, tr.optimizer, step_cfg, loss_extras=pod_extras),
+             "plop": make_train_step(tr.model, tr.optimizer, step_cfg,
+                                     loss_extras=plop_extras)}
+    step_ms = {name: [] for name in steps}
+    for name in ("plain", "pod", "plop", "plop", "pod", "plain"):
+        step_ms[name].append(_time_ms(lambda: steps[name](tr.cl_state, batch), reps=STEP_REPS))
+    with torch.no_grad():
+        _, t_taps = tr.model(batch["data"], capture_taps=True)
+    s_taps = {k: (v.detach().float() + 0.01).to(v.dtype).requires_grad_(True)
+              for k, v in t_taps.items()}
+
+    def pod_term():
+        local_pod_loss(s_taps, t_taps, tr.pod_scales, tr.pod_lambda).backward()
+
+    pod_ms = _time_ms(pod_term, reps=STEP_REPS)
+    pod_calls = _launch_calls(pod_term)
+    step_calls = {name: _launch_calls(lambda: steps[name](tr.cl_state, batch))
+                  for name in steps}
+    regions = {k: len(pod_regions(*v.shape[-2:], pod_scales(*v.shape[-2:], tr.pod_scales)))
+               for k, v in t_taps.items()}
+    del tr, steps, s_taps, t_taps
+
+    # ---- the record
+    for ext, run, vit_run in runs:
+        probe = probes[ext]
+        terms = {t: {k: torch.stack([d[k] for d in probe.terms[t]]).float().cpu()
+                     for k in probe.terms[t][0]} for t in run[1:]}
+        print(f"[phase 14] nnUNet_torch_train_{ext} -t {' '.join(run)}"
+              + (" --use_vit" if vit_run else "") + " --device cuda, full width"
+              + (" (V1, ViT-base, batch 1)" if vit_run else f" (batch {b2})")
+              + f", 1 epoch x {S} steps + {V} val batches per task: {run_s[ext]:.2f} s, "
+              "seconds per task " + ", ".join(f"{t} {s:.2f}" for t, s in probe.tasks)
+              + f"; warm s/step (median of steps 4-{S}, synchronized) "
+              + ", ".join(f"{t} {probe.warm_step_s(t):.4f}" for t in run)
+              + "; every step's loss finite; the POD term on each later task's first step "
+              + ", ".join(f"{t} {float(d['pod'][0]):.3e}" for t, d in terms.items())
+              + "; per step on later tasks "
+              + "; ".join(f"{t}: " + ", ".join(f"{k} {float(v.min()):.4e}..{float(v.max()):.4e}"
+                                               for k, v in sorted(d.items()))
+                          for t, d in terms.items())
+              + f"; progress validation {[round(v, 3) for v in probe.val_s]} s; peak "
+              f"{peak_gb[ext]:.2f} GB; model_final_checkpoint {ckpt_mb[ext]:.1f} MB"
+              + (f" ({kept_gb[ext][0]} checkpoint blobs, {kept_gb[ext][1]:.2f} GB, serialized "
+                 "in memory, not written)" if ext in kept_gb else "")
+              + f"; launches {launches[ext]} == predicted", flush=True)
+    print(f"[phase 14] plop: threshold pass ({S} teacher forwards, 100-bin histograms) "
+          + ", ".join(f"{t} {s:.3f} s" for t, s, _ in plop.threshold_s)
+          + f"; thresholds per DS output (classes 0..{classes - 1}) {thresholds}, every one in "
+          f"[0.001, 1]; ownm4: pseudo iterations {OWNM4_PSEUDO} of {S}..{2 * S - 1} at weight "
+          f"{METHOD_ARGS['ownm4']['pseudo_alpha'][1]} (the counter runs on across tasks)",
+          flush=True)
+    print(f"[phase 14] the step at {tasks[2]}'s first parameters (CUDA events, ms, in turns; "
+          f"one augmentation-free batch) " + ", ".join(
+              f"{k} {[round(v, 3) for v in step_ms[k]]}" for k in ("plain", "pod", "plop"))
+          + f"; over the plain step: pod {statistics.mean(step_ms['pod']) / statistics.mean(step_ms['plain']):.3f}, "
+          f"plop {statistics.mean(step_ms['plop']) / statistics.mean(step_ms['plain']):.3f}; "
+          f"launch calls per step plain {step_calls['plain']:.0f}, pod {step_calls['pod']:.0f}, "
+          f"plop {step_calls['plop']:.0f}; the POD term alone (forward and backward over "
+          f"{len(regions)} taps, {sum(regions.values())} regions {regions}) {pod_ms:.3f} ms in "
+          f"{pod_calls:.0f} launch calls, {pod_ms / statistics.mean(step_ms['plop']):.3f} of "
+          f"the PLOP step", flush=True)
+    print(f"[phase 14] nnUNet_torch_inference plop -trained_on {' '.join(tasks)} -use_head "
+          f"<head> on its task's images: mean foreground Dice "
+          + ", ".join(f"{t} {d:.4f}" for t, d in dice.items())
+          + f"; {len(serve_batches)} forwards, launches == predicted", flush=True)
+    for ext, rep in reports.items():
+        print(f"[phase 14] nnUNet_torch_evaluate {ext} -trained_on "
+              f"{' '.join(sequences[ext])} -use_model <prefix>: seconds per stage "
+              f"{[round(v, 2) for v in eval_s[ext]]}; accuracy matrix (rows stages, columns "
+              f"tasks, validation split, TTA 8) "
+              + "; ".join(", ".join(f"{v:.4f}" for v in row) for row in rep["accuracy_matrix"])
+              + f"; BWT {rep['BWT']:.4f}, FWT {rep['FWT']:.4f}, final mean Dice "
+              f"{rep['final_mean_dice']:.4f} (cl_metrics.json)", flush=True)
+    return {"cl_pod_train": train_launches,
+            "cl_pod_serve": {k: serve_launches[k] + eval_launches[k] for k in serve_launches}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs an NVIDIA GPU: "
@@ -2958,6 +3309,9 @@ def main() -> int:
         # ---- phase 13: the distilling trainers and the evaluation CLIs
         distill_paths = _distill_eval_path(task_dir, plans, shapes, vit, work, pre, results,
                                            dev, ewc_dice)
+
+        # ---- phase 14: the POD trainers (PLOP, POD, OwnM1-4)
+        pod_paths = _pod_path(task_dir, plans, shapes, vit, work, pre, results, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3010,7 +3364,7 @@ def main() -> int:
                                   ("deinterleave2", "interleave.cu", "interleave.py:73"))]
     paths = {"serve": launches, "train": train_launches, "vit_train": vit_train_launches,
              "vit_serve": vit_serve_launches, **ct_paths, **cl_paths, **reg_paths,
-             **distill_paths}
+             **distill_paths, **pod_paths}
     # the FMA kernel runs f32 input only, off the bf16 main paths (0
     # launches there, asserted above); its launches in the f32 checks of
     # phases 4, 6, 8 and 10 are kept apart, under ``check_launches``

@@ -20,8 +20,11 @@ are copied as they are.
 (EWC's ``{"ewc_tasks": ...}`` or RW's ``{"running", "anchor", "score_sets",
 ...}``, dicts keyed by flax paths ``enc0/block0/Conv_0/kernel``) over to
 the port's ``state_dict`` keys, each fisher, score and anchor permuted as
-the parameter it belongs to; LwF's ``old_models`` and MiB's ``teacher``
-are nested flax parameter trees and become ``state_dict`` s.
+the parameter it belongs to; LwF's ``old_models`` and the ``teacher`` of
+MiB, PLOP / POD and OwnM1-4 are nested flax parameter trees and become
+``state_dict`` s; PLOP's ``thresholds`` (one ``[C]`` array per
+deep-supervision output) become f32 tensors, OwnM4's ``iter`` / ``epoch``
+ints.
 """
 
 from __future__ import annotations
@@ -133,35 +136,52 @@ def _convert_flat(flat: Mapping, params, model: GenericUNet, key_map: dict) -> d
             for k, path in key_map.items() if path in flat}
 
 
+def _as_list(value) -> list:
+    """A list, or the ``{"0": ..., "1": ...}`` a msgpack round trip makes of
+    one, as a list."""
+    if isinstance(value, Mapping):
+        return [value[k] for k in sorted(value, key=int)]
+    return list(value)
+
+
 def jax_cl_state_to_torch(cl_state: Mapping, params, model: GenericUNet) -> dict:
     """``cl_state``: a JAX EWC (``{"ewc_tasks": {task: {"fisher",
     "params"}}}``) or RW (``{"running": {"fisher", "scores", "prev_params",
     "prev_loss", "iter"} or None, "anchor": {"fisher", "scores", "params"} or
     None, "score_sets": [...], "num_tasks_done"}``), LwF (``{"old_models":
-    {task: params} or None}``) or MiB (``{"teacher": params or None}``)
-    state of numpy or jax arrays; ``params``: the JAX model's parameter
-    tree.  Returns the port trainer's ``cl_state`` (CPU tensors; scalars as
-    0-d tensors, counters as ints)."""
+    {task: params} or None}``), MiB (``{"teacher": params or None}``), PLOP /
+    POD (``{"teacher", "thresholds": [array] or None}``) or OwnM1-4
+    (``{"ewc_tasks", "teacher"}``, OwnM4 also ``"iter"``, ``"epoch"``) state
+    of numpy or jax arrays; ``params``: the JAX model's parameter tree.
+    Returns the port trainer's ``cl_state`` (CPU tensors; scalars as 0-d
+    tensors, counters as ints)."""
     if "old_models" in cl_state:
         old = cl_state["old_models"]
         return {"old_models": None if old is None else {
             t: jax_params_to_state_dict(p, model) for t, p in old.items()}}
-    if "teacher" in cl_state:
-        teacher = cl_state["teacher"]
-        return {"teacher": None if teacher is None
-                else jax_params_to_state_dict(teacher, model)}
     key_map = jax_key_map(params, model)
 
     def conv(flat):
         return _convert_flat(flat, params, model, key_map)
 
+    out = {}
     if "ewc_tasks" in cl_state:
-        return {"ewc_tasks": {t: {"fisher": conv(s["fisher"]), "params": conv(s["params"])}
-                              for t, s in cl_state["ewc_tasks"].items()}}
+        out["ewc_tasks"] = {t: {"fisher": conv(s["fisher"]), "params": conv(s["params"])}
+                            for t, s in cl_state["ewc_tasks"].items()}
+    if "teacher" in cl_state:
+        teacher = cl_state["teacher"]
+        out["teacher"] = None if teacher is None else jax_params_to_state_dict(teacher, model)
+    if "thresholds" in cl_state:
+        thr = cl_state["thresholds"]
+        out["thresholds"] = None if thr is None else [
+            torch.from_numpy(np.array(t, dtype=np.float32)) for t in _as_list(thr)]
+    for counter in ("iter", "epoch"):
+        if counter in cl_state:
+            out[counter] = int(np.asarray(cl_state[counter]))
+    if out:
+        return out
     r, a = cl_state.get("running"), cl_state.get("anchor")
-    sets = cl_state.get("score_sets") or []
-    if isinstance(sets, Mapping):        # a msgpack round trip keys a list by index
-        sets = [sets[k] for k in sorted(sets, key=int)]
+    sets = _as_list(cl_state.get("score_sets") or [])
     return {
         "running": None if r is None else {
             "fisher": conv(r["fisher"]), "scores": conv(r["scores"]),

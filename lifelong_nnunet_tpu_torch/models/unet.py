@@ -182,8 +182,8 @@ class ConvStage(nn.Module):
 
 
 class GenericUNet(nn.Module):
-    """Plans-driven U-Net.  ``forward(x [B, C_in, *spatial])`` returns the
-    deep-supervision logits, highest resolution first, each
+    """Plans-driven U-Net.  ``forward(x [B, C_in, *spatial], capture_taps=False)``
+    returns the deep-supervision logits, highest resolution first, each
     ``[B, num_classes, *spatial_i]`` float32 (float64 for an f64 model);
     with ``deep_supervision=False`` only the full-resolution head runs and
     the list has one entry.  ``blocked_conv`` and ``upsample`` (one of
@@ -278,15 +278,21 @@ class GenericUNet(nn.Module):
             skips.append(h)
         return skips
 
-    def forward(self, x: torch.Tensor) -> list:
+    def forward(self, x: torch.Tensor, capture_taps: bool = False):
+        """The logits; with ``capture_taps`` also the stage outputs that POD
+        distils, ``(outputs, taps)`` with taps ``enc{s}``, ``bottleneck`` and
+        ``dec{d}`` (the tensors the stages return, no copies)."""
         skips = self._encode(x)
         h = self.bottleneck(skips[-1])
+        taps = {f"enc{s}": skip for s, skip in enumerate(skips)}
+        taps["bottleneck"] = h
         outputs = []
         for d in range(self.num_pool):
             h = getattr(self, f"dec{d}")(torch.cat([self._up(d, h), skips[-1 - d]], dim=1))
+            taps[f"dec{d}"] = h
             if self.deep_supervision or d == self.num_pool - 1:
                 outputs.append(self._seg(d, h))
-        return outputs[::-1]
+        return (outputs[::-1], taps) if capture_taps else outputs[::-1]
 
     def interleaved(self, d: int, h_shape) -> bool:
         """Whether ``up{d}`` takes the interleave route for an input of

@@ -7,7 +7,8 @@ Vision Transformer at one of four placements.
     decoder input.  The bottleneck's output is dead, so it is not run (XLA
     drops the dead stage in the JAX package); its parameters stay, get zero
     gradients from the optimizer, and keep checkpoints and the multi-head
-    split unchanged.
+    split unchanged.  Only a forward that captures taps runs it, for its
+    ``bottleneck`` tap (POD then reaches its parameters).
   * **V2**: the ViT takes the first skip plus the bottleneck taken through
     the whole transposed-conv chain.
   * **V3**: the ViT takes the sum of all skips (each through the remaining
@@ -124,24 +125,34 @@ class GenericViTUNet(GenericUNet):
             order.append("vit")
         return order + [f"seg{d}" for d in range(self.num_pool)]
 
-    def forward(self, x: torch.Tensor) -> list:
+    def forward(self, x: torch.Tensor, capture_taps: bool = False):
+        """The logits; with ``capture_taps`` also ``(outputs, taps)``, the JAX
+        model's taps: ``enc{s}``, ``bottleneck`` (V1 then runs its
+        bottleneck stage), ``vit`` (V1-V3: the ViT's output grid before the
+        resize), ``dec{d}`` and, in V4, ``vit_dec{d}`` (the resized ViT
+        output that replaces ``dec{d}``'s)."""
         skips = self._encode(x)
         n = self.num_pool
-        if self.vit_version == "V1":
+        taps = {f"enc{s}": skip for s, skip in enumerate(skips)}
+        if self.vit_version == "V1" and not capture_taps:
             h, size = None, _conv_out(skips[-1].shape[2:], self.bottleneck.block0.conv)
         else:
             h = self.bottleneck(skips[-1])
-            size = h.shape[2:]
+            taps["bottleneck"], size = h, h.shape[2:]
+            h = None if self.vit_version == "V1" else h
         if self.vit_version != "V4":
-            h = linear_resize(self.vit(self._vit_input(skips, h)), size).to(self.dtype)
+            taps["vit"] = self.vit(self._vit_input(skips, h))
+            h = linear_resize(taps["vit"], size).to(self.dtype)
         outputs = []
         for d in range(n):
             h = getattr(self, f"dec{d}")(torch.cat([self._up(d, h), skips[-1 - d]], dim=1))
+            taps[f"dec{d}"] = h
             if self.vit_version == "V4":
                 h = linear_resize(self.vit(h, idx=d), h.shape[2:]).to(self.dtype)
+                taps[f"vit_dec{d}"] = h
             if self.deep_supervision or d == n - 1:
                 outputs.append(self._seg(d, h))
-        return outputs[::-1]
+        return (outputs[::-1], taps) if capture_taps else outputs[::-1]
 
     def _vit_input(self, skips: list, bottleneck: torch.Tensor | None) -> torch.Tensor:
         """V1-V3 ViT input; the transposed convs are the decoder's."""

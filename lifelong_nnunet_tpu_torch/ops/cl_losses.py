@@ -1,5 +1,5 @@
-"""The continual-learning loss terms: the port of the EWC/RW and LwF/MiB
-parts of ``lifelong_nnunet_tpu/ops/cl_losses.py`` (``:29-170``).
+"""The continual-learning loss terms: the port of
+``lifelong_nnunet_tpu/ops/cl_losses.py``.
 
   * EWC (the reference's ``deep_supervision.py:15-83``):
     lam/2 sum_t sum_i F_ti (theta_i - theta*_ti)^2
@@ -11,6 +11,10 @@ parts of ``lifelong_nnunet_tpu/ops/cl_losses.py`` (``:29-170``).
   * MiB (``deep_supervision.py:383-416``, ``knowledge_distillation.py:3-60``,
     ``crossentropy.py``): the unbiased cross-entropy and the unbiased
     knowledge distillation
+  * PLOP / POD (``deep_supervision.py:217-380``, ``embeddings.py:3-42``):
+    the multi-scale local POD distance between the student's and the
+    teacher's intermediate activations, the entropy-thresholded pseudo-label
+    loss and the per-class median-entropy thresholds
 
 Parameters, fishers, scores and anchors are ``{state_dict key: tensor}``
 dicts; a mask ``{key: bool}`` restricts the regularized keys.  Anchors may
@@ -22,10 +26,22 @@ list with ``torch._foreach_*`` ops (a few launches per anchor, not a few
 per tensor), its gradient written into ``.grad`` after the backward of the
 base loss.
 
-The distilling terms take channels-first logits ``[B, C, *spatial]``, the
-U-Net's layout, so the class axis the JAX functions reduce over
-(``axis=-1``) is axis 1 here; they are plain autograd formulas, as the JAX
-package's are plain XLA.  POD and PLOP (``:173-373``) are not ported yet.
+The distilling terms take channels-first logits and activations ``[B, C,
+*spatial]``, the U-Net's layout, so the class axis the JAX functions reduce
+over (``axis=-1``) is axis 1 here, and the two pooled axes of POD (the JAX
+taps' axes -3 and -2, H and W) are dims -2 and -1; they are plain autograd
+formulas, as the JAX package's are plain XLA.
+
+Two departures from the JAX POD (``:201-243``), both where its value or
+gradient is NaN: the row norms are ``torch.linalg.vector_norm``, whose
+gradient at a zero norm is 0 (the reference's ``torch.norm``; JAX's
+``sqrt(sum(d**2))`` gives NaN there, which is every first step of a new
+task, where the student's taps equal the teacher's); and a region whose
+slice is empty on either pooled axis is left out (on a non-square map the
+reference's loop, which steps the H axis by the W-derived width and the W
+axis by the H-derived height, runs past the shorter axis; JAX takes the
+mean of that empty slice, NaN).  On every input where the JAX value is
+finite both give it.
 """
 
 from __future__ import annotations
@@ -137,7 +153,9 @@ class QuadraticPenalty:
     def __call__(self, *_unused):
         grad, total = None, None
         with torch.no_grad():
-            for weight, anchor in self.anchors:
+            # an anchor may hold none of these parameters (EWC on the ViT's
+            # parameters of a U-Net): the penalty is then 0
+            for weight, anchor in self.anchors if self.params else ():
                 diff = torch._foreach_sub(self.params, anchor)
                 wd = torch._foreach_mul(diff, weight)
                 sums = torch._foreach_norm(torch._foreach_mul(wd, diff), 1)
@@ -233,3 +251,189 @@ def mib_loss(outputs: list, teacher_outputs: list, target: torch.Tensor, ds_weig
         kd = unbiased_kd_loss(out, tout, old_num_classes, alpha)
         total = total + float(w) * (ce + lkd * kd)
     return total
+
+
+# ------------------------------------------------------------------ PLOP / POD
+
+def entropy(probs: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Per-voxel entropy as the reference computes it: ``-(1 / log(C + eps))
+    * mean_c p log(p + eps)`` over the class axis (dim 1) -- the channel
+    MEAN, so values lie in [0, 1/C]."""
+    # in f32, as the JAX package computes it
+    factor = 1.0 / torch.log(torch.tensor(probs.shape[1] + eps, device=probs.device))
+    return -factor * (probs * torch.log(probs + eps)).mean(dim=1)
+
+
+def entropy_confidence(probs: torch.Tensor) -> torch.Tensor:
+    """The statistic PLOP's thresholds live in: :func:`entropy` over
+    ``log(C)``."""
+    return entropy(probs) / torch.log(torch.tensor(float(probs.shape[1]),
+                                                   device=probs.device))
+
+
+def pod_embed(act: torch.Tensor) -> torch.Tensor:
+    """The reference's ``pod_embed``: ``act [B, C, *lead, h, w]`` mean-pooled
+    over w and over h separately, concatenated over channels ->
+    ``[B, 2C, *lead, h]`` (needs h == w)."""
+    return torch.cat([act.mean(dim=-1), act.mean(dim=-2)], dim=1)
+
+
+def pod_regions(H: int, W: int, scales: int) -> list:
+    """(i, j, w, h) of each region of the reference's ``local_POD`` sweep on
+    a map of pooled dims H x W: at scale s, w = int(W / 2^s) and h = int(H /
+    2^s); ``i`` runs over ``range(0, W - w, w)`` and slices the H axis, ``j``
+    over ``range(0, H - h, h)`` and slices W (the reference's axis swap;
+    slices past an edge are clamped), so scale 0 and the last region of
+    every scale add nothing.  A region whose slice would be empty on either
+    axis is left out (the module docstring)."""
+    out = []
+    for scale in range(scales):
+        w, h = int(W / (2 ** scale)), int(H / (2 ** scale))
+        if w <= 0 or h <= 0:
+            raise ValueError(f"POD scales={scales} too large for spatial dims ({H},{W})")
+        out += [(i, j, w, h) for i in range(0, W - w, w) for j in range(0, H - h, h)
+                if i < H and j < W]
+    return out
+
+
+def pod_scales(H: int, W: int, scales: int) -> int:
+    """The scales ``local_pod_loss`` sweeps on an H x W map: ``scales``
+    clamped to ``min(H, W).bit_length()`` (the JAX package's, where the
+    reference's loop would take a zero step)."""
+    return max(1, min(scales, min(H, W).bit_length()))
+
+
+def _pod_blocks(act: torch.Tensor, scales: int):
+    """The width-pooled rows ``[B, C, *lead, sum of the regions' heights]``
+    and the height-pooled rows (the regions' widths) of ``act [B, C, *lead,
+    H, W]`` over :func:`pod_regions`, or (None, None) without a region."""
+    regions = pod_regions(act.shape[-2], act.shape[-1], scales)
+    if not regions:
+        return None, None
+    actf = act.float()
+    slices = [actf[..., i:i + w, j:j + h] for i, j, w, h in regions]
+    return (torch.cat([sl.mean(dim=-1) for sl in slices], dim=-1),
+            torch.cat([sl.mean(dim=-2) for sl in slices], dim=-1))
+
+
+def local_pod_distance(act: torch.Tensor, teacher_act: torch.Tensor,
+                       scales: int = 3) -> torch.Tensor:
+    """The reference's ``local_POD``: the L2 norm of each (channel, pooled
+    axis) row of the concatenated regions' differences, then the mean over
+    all rows, both pooled blocks weighted alike; 0 without a region."""
+    pw, ph = _pod_blocks(act, scales)
+    ow, oh = _pod_blocks(teacher_act, scales)
+    if pw is None:
+        return torch.zeros((), device=act.device)
+    dw = torch.linalg.vector_norm(pw - ow, dim=-1)
+    dh = torch.linalg.vector_norm(ph - oh, dim=-1)
+    return (dw.mean() + dh.mean()) / 2.0
+
+
+def pod_embedding(act: torch.Tensor, scales: int = 3) -> torch.Tensor:
+    """The flattened multi-scale POD rows ``[B, F]`` (both blocks of
+    :func:`_pod_blocks`; :func:`pod_embed` when there is no region).  L2
+    distances between these are not the reference metric: that is
+    :func:`local_pod_distance`."""
+    pw, ph = _pod_blocks(act, scales)
+    if pw is None:
+        e = pod_embed(act.float())
+        return e.reshape(e.shape[0], -1)
+    b = pw.shape[0]
+    return torch.cat([pw.reshape(b, -1), ph.reshape(b, -1)], dim=-1)
+
+
+def local_pod_loss(taps: dict, teacher_taps: dict, scales: int = 3,
+                   pod_lambda: float = 1e-2) -> torch.Tensor:
+    """The POD term as the reference composes it: over the common tap names
+    in ``sorted()`` order, add ``pod_lambda * local_POD`` and divide the
+    RUNNING total by the number of layers inside the loop.  Each map's
+    scales are clamped by :func:`pod_scales`."""
+    keys = sorted(set(taps) & set(teacher_taps))
+    if not keys:
+        return torch.zeros(())
+    dist = 0.0
+    for k in keys:
+        eff = pod_scales(taps[k].shape[-2], taps[k].shape[-1], scales)
+        dist = (dist + pod_lambda * local_pod_distance(taps[k], teacher_taps[k], eff)) \
+            / len(keys)
+    return dist
+
+
+def _teacher_stats(teacher_logits: torch.Tensor):
+    """The teacher's (entropy confidence, argmax) per voxel, in f32."""
+    probs = torch.softmax(teacher_logits.float(), dim=1)
+    return entropy_confidence(probs), probs.argmax(dim=1)
+
+
+def plop_pseudo_targets(target: torch.Tensor, teacher_logits: torch.Tensor,
+                        thresholds: torch.Tensor, num_classes: int):
+    """PLOP's pseudo-labels: where the ground truth is background, the
+    teacher's argmax if its entropy confidence is below that class's
+    threshold, else ignore (-1).  Returns (pseudo target, the confident
+    share of the background voxels)."""
+    ent, pred = _teacher_stats(teacher_logits)
+    confident = ent < thresholds[pred]
+    is_bg = target == 0
+    pseudo = torch.where(is_bg & confident, pred, target)
+    pseudo = torch.where(is_bg & ~confident, torch.full_like(pseudo, -1), pseudo)
+    num = (is_bg & confident).float().sum()
+    den = is_bg.float().sum().clamp(min=1.0)
+    return pseudo.int(), num / den
+
+
+def _ce_mean(logits: torch.Tensor, target: torch.Tensor, ignore: int = -1) -> torch.Tensor:
+    """Mean CE over the voxels whose target is not ``ignore``, over the
+    whole batch; 0 when every voxel is ignored (``F.cross_entropy``'s mean
+    is NaN there)."""
+    logp = torch.log_softmax(logits.float(), dim=1)
+    tgt = target.clamp(0, logits.shape[1] - 1).long()
+    picked = logp.gather(1, tgt.unsqueeze(1)).squeeze(1)
+    valid = (target != ignore).float()
+    return -(picked * valid).sum() / valid.sum().clamp(min=1.0)
+
+
+def plop_pseudo_label_loss(logits: torch.Tensor, teacher_logits: torch.Tensor,
+                           target: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
+    """One deep-supervision output's PLOP objective: with B the background
+    mask and V the teacher-confident mask, the CE on B & V against the
+    teacher's argmax plus the CE on the rest against the true labels, both
+    means over the batch, times the batch mean of each item's |B & V| / |B|."""
+    ent, pseudo = _teacher_stats(teacher_logits)
+    confident = ent < thresholds[pseudo]
+    is_bg = target == 0
+    pv = is_bg & confident
+    ignore = torch.full_like(target, -1)
+    lab_not = torch.where(pv, ignore, target)
+    lab_ps = torch.where(pv, pseudo.to(target.dtype), ignore)
+    axes = tuple(range(1, target.dim()))
+    num = pv.float().sum(dim=axes)
+    den = is_bg.float().sum(dim=axes).clamp(min=1.0)
+    factor = (num / den).mean()
+    return factor * (_ce_mean(logits, lab_ps) + _ce_mean(logits, lab_not))
+
+
+def median_entropy_thresholds(entropy_sums: torch.Tensor,
+                              base_threshold: float = 0.001) -> torch.Tensor:
+    """Per-class thresholds ``[C]`` from the confidence histogram ``[C, BINS]``
+    over [0, 1]: the centre of the median bin, floored at
+    ``base_threshold``."""
+    bins = entropy_sums.shape[1]
+    cum = torch.cumsum(entropy_sums, dim=1)
+    half = cum[:, -1:] / 2.0
+    median_bin = torch.argmax((cum >= half).to(torch.uint8), dim=1)
+    return ((median_bin.float() + 0.5) / bins).clamp(min=base_threshold)
+
+
+def accumulate_entropy_histogram(hist: torch.Tensor, teacher_logits: torch.Tensor,
+                                 target: torch.Tensor, num_classes: int,
+                                 bins: int = 100) -> torch.Tensor:
+    """``hist [C, bins]`` plus one batch's counts: over the background voxels
+    of ``target``, the teacher's entropy confidence binned over [0, 1] in the
+    row of the teacher's argmax class."""
+    ent, pred = _teacher_stats(teacher_logits)
+    idx = (ent * bins).to(torch.int64).clamp(0, bins - 1)
+    cls = torch.where(target == 0, pred, torch.full_like(pred, num_classes))
+    counts = torch.bincount((cls * bins + idx).reshape(-1),
+                            minlength=(num_classes + 1) * bins)
+    return hist + counts[: num_classes * bins].view(num_classes, bins).float()

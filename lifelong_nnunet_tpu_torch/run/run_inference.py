@@ -28,7 +28,8 @@ checkpoint's manifest says whether the network is a U-Net or a ViT-U-Net.
 ``--postprocess`` keeps the largest component of the classes that the
 ``postprocessing.json`` beside the checkpoint names
 (``inference/postprocessing.py``), of every class where there is none.
-Trainers not ported yet and task-specific LayerNorms are refused.
+The cascade trainer (not ported yet) and task-specific LayerNorms are
+refused.
 """
 
 from __future__ import annotations

@@ -5,9 +5,13 @@ registry (``training/trainers/__init__.py``): ``multihead``,
 ``ewc_vit``, ``ewc_unet``, ``ewc_ln``: ``-ewc_lambda``), ``rw``
 (``-rw_lambda``, ``-rw_alpha``, ``-fisher_update_after``), the freezing
 trainers (``frozen_vit``, ``frozen_nonln``, ``frozen_unet``,
-``frozen_body_seq``, ``froz_ewc``: ``-ewc_lambda``, ``--adaptive``) and the
+``frozen_body_seq``, ``froz_ewc``: ``-ewc_lambda``, ``--adaptive``), the
 distilling trainers ``lwf`` (``-lwf_temperature``) and ``mib``
-(``-mib_alpha``, ``-mib_lkd``).
+(``-mib_alpha``, ``-mib_lkd``), ``plop`` and ``pod`` (``-pod_lambda``,
+``-pod_scales``) and the own-method trainers ``ownm1``-``ownm3``
+(``-mib_alpha``, ``-mib_lkd``, ``-pod_lambda``, ``-pod_scales``,
+``-ewc_lambda``) and ``ownm4`` (``-pseudo_alpha``, ``-pod_lambda``,
+``-pod_scales``, ``-ewc_lambda``).
 
 The JAX package's ``nnUNet_train_<method>``
 (``lifelong_nnunet_tpu/run/run_training.py``), with ``--device`` (default
@@ -22,11 +26,11 @@ and ``--use_progress_val``, and the per-method hyperparameters of
 ``--no_transfer_heads`` changes only the folder (``SEQ`` -> ``MH``), as in
 the JAX CLI: the trainer still follows its class's ``TRANSFER_HEADS``.
 Options whose parts are not ported yet (task-specific LayerNorms, SPMD,
-rematerialization) are refused, as are the extensions without a ported
-trainer.  ``--use_vit`` trains the ViT-U-Net (``-v``, ``-v_type``,
-``--do_LSA``, ``--do_SPT``, ``-vit_depth``) into the
-``Generic_ViT_UNetV{v}/...`` folder of the JAX CLI.  ``--no_pallas_conv``
-trains on the plain route (no hand-written kernels).
+rematerialization) are refused, as is the cascade trainer.  ``--use_vit``
+trains the ViT-U-Net (``-v``, ``-v_type``, ``--do_LSA``, ``--do_SPT``,
+``-vit_depth``) into the ``Generic_ViT_UNetV{v}/...`` folder of the JAX
+CLI.  ``--no_pallas_conv`` trains on the plain route (no hand-written
+kernels).
 
 The trained model is served by ``nnUNet_torch_inference <network>
 <extension> -trained_on <tasks> [-use_head <task>]`` and scored by
@@ -62,6 +66,13 @@ METHOD_ARGS = {
            "fisher_update_after": (int, 10)},
     "lwf": {"lwf_temperature": (float, 2.0)},
     "mib": {"mib_alpha": (float, 0.9), "mib_lkd": (float, 10.0)},
+    "plop": {"pod_lambda": (float, 1e-2), "pod_scales": (int, 3)},
+    "pod": {"pod_lambda": (float, 1e-2), "pod_scales": (int, 3)},
+    **{ext: {"mib_alpha": (float, 1.0), "mib_lkd": (float, 10.0),
+             "pod_lambda": (float, 1e-2), "pod_scales": (int, 3),
+             "ewc_lambda": (float, 0.4)} for ext in ("ownm1", "ownm2", "ownm3")},
+    "ownm4": {"pseudo_alpha": (float, 3.0), "pod_lambda": (float, 1e-2),
+              "pod_scales": (int, 3), "ewc_lambda": (float, 0.4)},
 }
 
 # the JAX CLI's folder names, nnUNetTrainer<name> (its ``_camel``)

@@ -38,9 +38,10 @@ def make_train_step(model, optimizer, cfg: StepConfig,
     model's parameters; ``generator``: the augmentation's, on the batch's
     device.
 
-    loss_extras(model, cl_state, {"outputs"}, {"data", "seg"}) -> (extra, aux)
+    loss_extras(model, cl_state, {"outputs", "taps"}, {"data", "seg"}) -> (extra, aux)
         adds a CL term; with ``loss_extras.replace_base`` it is the whole
-        objective.  A term with an ``add_grad()`` method (the quadratic
+        objective.  With ``loss_extras.needs_taps`` the forward captures the
+        model's taps (``models/unet.py``), else ``"taps"`` is None.  A term with an ``add_grad()`` method (the quadratic
         penalties of ``ops/cl_losses.py``) returns its value without an
         autograd graph and adds its own gradient to ``.grad`` after the
         backward of the rest.
@@ -51,6 +52,7 @@ def make_train_step(model, optimizer, cfg: StepConfig,
         grads, loss)``).
     """
     replace_base = getattr(loss_extras, "replace_base", False)
+    needs_taps = getattr(loss_extras, "needs_taps", False)
     add_grad = getattr(loss_extras, "add_grad", None)
     if cfg.augment is not None and generator is None:
         raise ValueError("augmentation needs a torch.Generator on the batch's device")
@@ -61,15 +63,15 @@ def make_train_step(model, optimizer, cfg: StepConfig,
             data, seg = augment_batch(data, seg, cfg.augment, generator)
         seg = seg.long()
         optimizer.zero_grad()
-        outputs = model(data)
+        outputs, taps = model(data, capture_taps=True) if needs_taps else (model(data), None)
+        model_out = {"outputs": outputs, "taps": taps}
         aux = {}
         if replace_base:
-            loss, aux = loss_extras(model, cl_state, {"outputs": outputs},
-                                    {"data": data, "seg": seg})
+            loss, aux = loss_extras(model, cl_state, model_out, {"data": data, "seg": seg})
         else:
             loss = deep_supervision_loss(outputs, seg, cfg.ds_factors, cfg.batch_dice)
             if loss_extras is not None:
-                extra, aux = loss_extras(model, cl_state, {"outputs": outputs},
+                extra, aux = loss_extras(model, cl_state, model_out,
                                          {"data": data, "seg": seg})
                 loss = loss + extra
         loss.backward()

@@ -1,8 +1,8 @@
 """Trainer registry of the port: extension name / class name -> trainer
 class, as the JAX package's
 (``lifelong_nnunet_tpu/training/trainers/__init__.py:20-66``).  The JAX
-package's PLOP and POD trainers and the own-method trainers (``ownm1-4``)
-come with later parts of the port; asking for one raises."""
+package's cascade trainer (``cascade_fullres``) is not ported yet; asking
+for it raises."""
 
 from ..trainer import MultiHeadTrainer
 from .ewc import EWCLNTrainer, EWCTrainer, EWCUNetTrainer, EWCViTTrainer
@@ -10,6 +10,8 @@ from .frozen import (FrozEWCTrainer, FrozenBodyTrainer, FrozenNonLNTrainer,
                      FrozenUNetTrainer, FrozenViTTrainer)
 from .lwf import LwFTrainer
 from .mib import MiBTrainer
+from .own import OwnM1Trainer, OwnM2Trainer, OwnM3Trainer, OwnM4Trainer
+from .plop import PLOPTrainer, PODTrainer
 from .rehearsal import RehearsalTrainer
 from .rw import RWTrainer
 from .sequential import BaseUNetTrainer, SequentialTrainer, ViTUNetTrainer
@@ -32,6 +34,12 @@ TRAINER_MAP = {
     "froz_ewc": FrozEWCTrainer,
     "lwf": LwFTrainer,
     "mib": MiBTrainer,
+    "plop": PLOPTrainer,
+    "pod": PODTrainer,
+    "ownm1": OwnM1Trainer,
+    "ownm2": OwnM2Trainer,
+    "ownm3": OwnM3Trainer,
+    "ownm4": OwnM4Trainer,
 }
 
 # reference class names -> ours
@@ -53,6 +61,12 @@ CLASS_NAME_MAP = {
     "nnUNetTrainerFrozEWC": FrozEWCTrainer,
     "nnUNetTrainerLWF": LwFTrainer,
     "nnUNetTrainerMiB": MiBTrainer,
+    "nnUNetTrainerPLOP": PLOPTrainer,
+    "nnUNetTrainerPOD": PODTrainer,
+    "nnUNetTrainerOwnM1": OwnM1Trainer,
+    "nnUNetTrainerOwnM2": OwnM2Trainer,
+    "nnUNetTrainerOwnM3": OwnM3Trainer,
+    "nnUNetTrainerOwnM4": OwnM4Trainer,
 }
 
 

@@ -29,7 +29,8 @@ console_scripts = [
     f"nnUNet_torch_train_{ext} = lifelong_nnunet_tpu_torch.run.run_training:main_{ext}"
     for ext in ("multihead", "sequential", "rehearsal", "base_v2", "ewc", "ewc_vit",
                 "ewc_unet", "ewc_ln", "rw", "frozen_vit", "frozen_nonln", "frozen_unet",
-                "frozen_body_seq", "froz_ewc", "lwf", "mib")
+                "frozen_body_seq", "froz_ewc", "lwf", "mib", "plop", "pod", "ownm1",
+                "ownm2", "ownm3", "ownm4")
 ] + [
     "nnUNet_torch_train_body_froz = "
     "lifelong_nnunet_tpu_torch.run.run_training:main_frozen_body_seq",

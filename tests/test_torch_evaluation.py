@@ -385,4 +385,4 @@ def test_evaluation_clis_refuse_what_the_port_lacks(env, monkeypatch):
         with pytest.raises(NotImplementedError):
             cli(argv + ["--task_specific_ln"])
         with pytest.raises(NotImplementedError):
-            cli(["3d_fullres", "plop"] + argv[2:])
+            cli(["3d_fullres", "cascade_fullres"] + argv[2:])

@@ -113,7 +113,7 @@ def test_cuda_without_a_gpu_raises(served, monkeypatch):
 REFUSED = {  # id: (trainer, extra arguments)
     "extra0": ("nnViTUNetTrainer", ["--task_specific_ln"]),
     "extra3": ("nnUNetTrainerV2", ["--task_specific_ln"]),
-    "extra6": ("plop", []), "extra7": ("pod", ["--use_vit"])}
+    "extra6": ("cascade_fullres", []), "extra7": ("cascade_fullres", ["--use_vit"])}
 
 
 @pytest.mark.parametrize("trainer,extra", list(REFUSED.values()), ids=list(REFUSED))

@@ -3,8 +3,8 @@ installed (the GPU host has none of them), and imports nothing of the JAX
 package ``lifelong_nnunet_tpu``, not even its jax-free modules: a fresh
 interpreter whose ``sys.meta_path`` refuses those imports loads every module
 of ``lifelong_nnunet_tpu_torch`` (the CT routes' ``ops/kernels/block_pack.py``
-and ``ops/kernels/interleave.py``, the evaluation modules and the LwF and MiB
-trainers among them) and ``chip_smoke.py``, runs one
+and ``ops/kernels/interleave.py``, the evaluation modules and the LwF, MiB,
+PLOP / POD and OwnM trainers among them) and ``chip_smoke.py``, runs one
 tiny CPU forward through the model and the sliding window and one through
 the CT routes (the blocked conv and the interleave upsample), and one CPU
 training run
@@ -57,7 +57,7 @@ SCRIPT = BLOCKER + textwrap.dedent("""
     new |= {"lifelong_nnunet_tpu_torch." + m for m in (
         "evaluation.cl_metrics", "evaluation.evaluator", "evaluation.evaluator2",
         "inference.postprocessing", "run.run_evaluation", "training.trainers.lwf",
-        "training.trainers.mib")}
+        "training.trainers.mib", "training.trainers.plop", "training.trainers.own")}
     assert new <= set(names), new - set(names)
     import chip_smoke
     from lifelong_nnunet_tpu_torch.inference.sliding_window import predict_sliding_window

@@ -123,8 +123,8 @@ def test_unported_options_are_refused(env, extra):
 
 def test_only_the_ported_trainers_are_registered():
     assert get_trainer("nnUNetTrainerV2") is BaseUNetTrainer
-    with pytest.raises(NotImplementedError, match="plop"):
-        get_trainer("plop")
+    with pytest.raises(NotImplementedError, match="cascade_fullres"):
+        get_trainer("cascade_fullres")
 
 
 def test_trainers_give_the_jax_trainers_losses(env, tmp_path):
