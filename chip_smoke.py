@@ -201,19 +201,60 @@ Phases (one line each; any failure raises, so the exit code is not 0):
      memory, checkpoint bytes, and at C's first parameters the PLOP and POD
      steps beside a plain step (CUDA-event medians in turns), their launch
      calls, and the POD term alone (forward and backward) with its launch
-     calls and its share of the PLOP step.
-Phases 4, 6, 8 and 11-14 run with both switches set: at hippocampus scale the
+     calls and its share of the PLOP step;
+  15. the ViT-U-Net's other placements and its task-specific LayerNorms,
+     at full width on phase 11's tasks A and B, and rematerialization:
+     ``nnUNet_torch_train_vit 3d_fullres A 0 -v 2 --do_LSA --do_SPT``,
+     ``-v 3`` and ``-v 4`` (ViT-base, batch 1, 1 epoch of 15 steps and 2
+     validation batches) each served on one case by ``nnUNet_torch_inference
+     nnViTUNetTrainer --use_vit``: the launch counters as the route predicts
+     (every block runs; a flash forward and backward per transformer block
+     and ViT call: 12 on V3, 4 stages x 12 = 48 on V4 at 490 tokens each, 0
+     on V2, whose LSA takes the plain route; SPT's patch embedding takes 5 x
+     32 channels), a finite loss that falls (the mean of the last 5 steps
+     below the first 5's), the f32 step check of phase 8 on each, peak
+     memory, warm s/step, and the V1 and V4 steps in turns (V1, V4, V4, V1);
+     ``nnUNet_torch_train_sequential`` and ``_ewc_ln 3d_fullres -t A B
+     --use_vit --task_specific_ln`` (15 steps a task, progress validation):
+     launches as predicted, the sets ``ln_A`` and ``ln_B`` of every LayerNorm
+     in the registry after B with the manifest's ``ln_tasks`` and
+     ``active_task_idx``, Sequential's ``ln_A`` after B equal to its value
+     after A under weight decay alone (an f64 recurrence, within one f32
+     rounding of each tensor's largest value per step), EWC-LN's anchors of
+     A on ``ln_A`` only, a ``-c`` run training nothing, and each head served
+     with ``-use_head X --use_vit --task_specific_ln`` (Dice recorded);
+     ``nnUNet_torch_train_multihead 3d_fullres -t A --remat`` (10 steps):
+     launches as predicted, each train step's forward kernels twice (the
+     recompute), then one step with and without ``remat`` from the same
+     weights and batch, f32 and bf16: the loss and every gradient within the
+     f32 check's limits, the forward launches doubled, the peak memory of
+     both;
+  16. the orchestration: ``nnUNet_torch_parameter_search 3d_fullres ewc -t A
+     B -g ewc_lambda:0.1,0.4 -num_epochs 1 -num_iters 10 --device cuda``
+     (two experiments in this process, each task trained on the 80:20
+     split of its train cases and then validated in evaluation mode):
+     launches as predicted, each experiment's CSV, the summary and
+     ``best_setting.json``; the same command again trains nothing
+     (``backup.json``; every counter 0); the same search with ``-n_workers
+     2`` in two spawned workers sharing the card (both experiments finish,
+     both workers report the card; their launches are counted in their own
+     processes); ``-n_workers 2 -devices_per_exp 1`` refused before any
+     worker starts; ``nnUNet_torch_plan_and_preprocess`` on a copy of task
+     A's raw data (the same plan and cases) and
+     ``nnUNet_torch_update_checkpoints`` (then ``_all``, back) on a copy of
+     phase 15's task-LN manifests.
+Phases 4, 6, 8 and 11-16 run with both switches set: at hippocampus scale the
 gates admit nothing, so their launch counts are those of the ordinary
 routes.  The fused conv, its data gradient and flash attention (forward
 and backward) count every launch and, apart, those on the tensor-core
-kernels: on the fourteen main paths (bf16) every one must take them, in the f32
-checks of phases 4, 6, 8 and 10 none.  The line
+kernels: on the main paths (bf16) every one must take them, in the f32
+checks of phases 4, 6, 8, 10 and 15 none.  The line
 before the last is the kernels' JSON record (the U-Net's forward kernels
 per forward at the serving path's largest batch, its backward kernels per
 train step, the flash kernels per ViT-U-Net train step, the copy kernels
 per CT train step, the pack by device time with its CUDA-event median as
 ``event_ms`` and its time per CT serving forward as ``serve_ms`` beside
-``serve_bound_ms``; ``launches`` summed over the fourteen paths' runs, and per
+``serve_bound_ms``; ``launches`` summed over the paths' runs, and per
 path under ``launches_by_path``: ``serve``, ``train``, ``vit_train``,
 ``vit_serve``, ``ct_train``, ``ct_serve``, ``cl_train`` (both sequence
 trainings), ``cl_serve`` (the four servings of phase 11), ``cl_reg_train``
@@ -221,8 +262,12 @@ trainings), ``cl_serve`` (the four servings of phase 11), ``cl_reg_train``
 (the nine servings of EWC's heads), ``cl_distill_train`` (phase 13's
 three trainings), ``cl_eval`` (its evaluations, the postprocessing
 decision and the postprocessed serving), ``cl_pod_train`` (phase 14's five
-trainings) and ``cl_pod_serve`` (its servings of PLOP's heads and the
-evaluations of PLOP's and POD's stages); the two kernels of the fused
+trainings), ``cl_pod_serve`` (its servings of PLOP's heads and the
+evaluations of PLOP's and POD's stages), ``vit_var_train`` /
+``vit_var_serve`` (phase 15's V2, V3 and V4 runs and servings),
+``vit_ln_train`` / ``vit_ln_serve`` (its task-LN sequences, their ``-c``
+run and servings), ``remat_train`` (its ``--remat`` run) and
+``param_search`` (phase 16's search in this process); the two kernels of the fused
 conv, its data gradient and flash attention as ``conv3d_in_lrelu_tc`` /
 ``conv3d_dx_tc`` / ``flash_attention_tc`` / ``flash_attention_bwd_tc``
 (the tensor-core kernels) and ``conv3d_in_lrelu_f32`` / ``conv3d_dx_f32``
@@ -267,7 +312,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from lifelong_nnunet_tpu_torch.data.augment import AugmentConfig  # noqa: E402
 from lifelong_nnunet_tpu_torch.data.dataset import (  # noqa: E402
-    PreprocessedDataset, final_splits)
+    PreprocessedDataset, final_splits, param_search_split)
 from lifelong_nnunet_tpu_torch.data.sampler import PatchSampler  # noqa: E402
 from lifelong_nnunet_tpu_torch.device import resolve_device  # noqa: E402
 from lifelong_nnunet_tpu_torch.evaluation.cl_metrics import (  # noqa: E402
@@ -300,12 +345,16 @@ from lifelong_nnunet_tpu_torch.ops.cl_losses import (  # noqa: E402
 from lifelong_nnunet_tpu_torch.ops.losses import deep_supervision_loss  # noqa: E402
 from lifelong_nnunet_tpu_torch.planning.plans import Plans, plans_path  # noqa: E402
 from lifelong_nnunet_tpu_torch.run.plan_and_preprocess import plan_and_preprocess  # noqa: E402
+from lifelong_nnunet_tpu_torch.run.plan_and_preprocess import (  # noqa: E402
+    main as plan_and_preprocess_main)
+from lifelong_nnunet_tpu_torch.run.run_param_search import run_param_search  # noqa: E402
 from lifelong_nnunet_tpu_torch.run.run_evaluation import (  # noqa: E402
     run_evaluation, run_evaluation2_cli)
 from lifelong_nnunet_tpu_torch.run.run_inference import run_inference  # noqa: E402
 from lifelong_nnunet_tpu_torch.run.run_training import (  # noqa: E402
     METHOD_ARGS, output_folder, run_training, trainer_name)
 from lifelong_nnunet_tpu_torch.run.run_training_vit import run_training_vit  # noqa: E402
+from lifelong_nnunet_tpu_torch.scripts import update_checkpoints  # noqa: E402
 from lifelong_nnunet_tpu_torch.tools import in_probe  # noqa: E402
 from lifelong_nnunet_tpu_torch.tools import pack_probe  # noqa: E402
 from lifelong_nnunet_tpu_torch.tools.flash_probe import device_ms  # noqa: E402
@@ -388,6 +437,13 @@ POD_ITERS = 15
 POD_TERMS = ("pod", "plop_pseudo", "mib_kd", "pseudo_mse", "ewc_penalty")
 OWNM4_PSEUDO = [i for i in range(POD_ITERS, 2 * POD_ITERS) if i % 13 == 0]
 DIRECT_ROUTES = {"blocked_conv": False, "upsample": "direct"}
+# the ViT variants and task-specific LayerNorms (phase 15): each variant's
+# flags, the steps of its run, of a task of the task-LN sequences and of
+# the --remat run; the parameter search's steps a task (phase 16)
+VIT_VARIANTS = {"V2": ("--do_LSA", "--do_SPT"), "V3": (), "V4": ()}
+VAR_ITERS, LN_ITERS, REMAT_ITERS, SEARCH_ITERS = 15, 15, 10, 10
+# the checkpoints phases 15-16 write to disk (the others stay in memory)
+FINAL = ("model_final_checkpoint",)
 # f32 copies at the serving batch are checked where the kernel's input and
 # output fit in this many bytes (the largest, 64 x 64 x 128^3, would not fit
 # beside its plain version)
@@ -1598,24 +1654,26 @@ VIT_ARCH = dict(vit=True, vit_version="V1", vit_type="base", task_specific_ln=Fa
                 spt=False, lsa=False)
 
 
-def _cl_folders(results, plans):
+def _cl_folders(results, plans, arch=VIT_ARCH):
     """``folder(ext, run, upto, vit_run=False)``: the output folder of
-    ``ext`` trained on ``run`` up to task ``upto`` (``--use_vit``: V1,
-    ViT-base)."""
+    ``ext`` trained on ``run`` up to task ``upto`` (``--use_vit``: ``arch``,
+    by default V1, ViT-base)."""
     def folder(ext, run, upto, vit_run=False) -> str:
         return build_output_folder(os.path.join(results, "nnUNet_ext"), "3d_fullres", run,
                                    run[: upto + 1], trainer_name(ext), plans.plans_name, 0,
                                    get_trainer(ext).TRANSFER_HEADS,
-                                   **(VIT_ARCH if vit_run else {}))
+                                   **(arch if vit_run else {}))
     return folder
 
 
-def _forward_expect(dev, shapes, batches) -> dict:
+def _forward_expect(dev, shapes, batches, attn=0) -> dict:
     """Every counter of forwards (no backward) of a model whose blocks are
-    ``shapes`` at each model batch of ``batches``."""
+    ``shapes`` at each model batch of ``batches``; ``attn`` attention blocks
+    per forward (the ViT's)."""
     n_fused = sum(f for f, _, _ in shapes)
     return _expect(conv3d_in_lrelu=n_fused * len(batches),
                    instance_norm_leaky=(len(shapes) - n_fused) * len(batches),
+                   flash_attention=attn * len(batches),
                    **_in_forms(dev, fwd=_at(_rows([o for f, _, o in shapes if not f]),
                                             [(b, 1) for b in batches])))
 
@@ -2375,13 +2433,16 @@ class _CheckpointBytes:
     the OwnM trainings under it: nothing reads their checkpoints back, and
     with OwnM1's ViT-base blobs on disk (up to 2.2 GB each: model,
     momentum, teacher, two anchor sets; ~10.6 GB in all) the whole script
-    writes ~47 GB to disk, ~35 GB without them."""
+    writes ~47 GB to disk, ~35 GB without them.  Blobs whose file name
+    starts with one of ``keep`` are written as usual (phase 15 reads its
+    runs' final checkpoints back)."""
 
-    def __init__(self):
+    def __init__(self, keep=()):
         self.sizes = {}
+        self.keep = tuple(keep)
 
     def __enter__(self):
-        sizes = self.sizes
+        sizes, keep = self.sizes, self.keep
 
         class Torch:
             def __getattr__(self, name):
@@ -2389,6 +2450,9 @@ class _CheckpointBytes:
 
             @staticmethod
             def save(obj, path):
+                if keep and os.path.basename(path).startswith(keep):
+                    torch.save(obj, path)
+                    return
                 # a spooled file this large never leaves memory
                 with tempfile.SpooledTemporaryFile(max_size=1 << 40) as buf:
                     torch.save(obj, buf)
@@ -2643,6 +2707,487 @@ def _pod_path(task_dir, plans, shapes, vit, work, pre, results, dev) -> dict:
               f"{rep['final_mean_dice']:.4f} (cl_metrics.json)", flush=True)
     return {"cl_pod_train": train_launches,
             "cl_pod_serve": {k: serve_launches[k] + eval_launches[k] for k in serve_launches}}
+
+
+def _drop_blobs(root) -> None:
+    """Delete the checkpoint blobs (``*.pt``) under ``root``, keeping the
+    manifests: the disk of the card's machine holds a run's files."""
+    for d, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".pt"):
+                os.remove(os.path.join(d, f))
+
+
+def _tree_gb(root) -> float:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(root)
+               for f in files) / 1e9
+
+
+def _decay_only(p, steps, lr=1e-2, wd=3e-5, momentum=0.99):
+    """``p`` after ``steps`` PolySGD steps in which it gets no gradient but
+    its weight decay (Nesterov momentum, the poly LR of epoch 0, ``lr``),
+    in ``p``'s dtype."""
+    buf = None
+    for _ in range(steps):
+        g = wd * p
+        buf = g if buf is None else momentum * buf + g
+        p = p - lr * (g + momentum * buf)
+    return p
+
+
+def _add_counts(*counts) -> dict:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def _grad_units(g, ref) -> tuple:
+    """max over parameters of |g - ref| / (1e-5 + 1e-3 max|ref|), and where."""
+    return max(((g[k] - ref[k]).abs().max().item() / (1e-5 + 1e-3 * ref[k].abs().max().item()),
+                k) for k in ref)
+
+
+def _vit_variant_path(task_dir, plans, shapes, vit, work, pre, results, dev) -> dict:
+    """Phase 15: the ViT-U-Net V2 (LSA + SPT), V3 and V4 and the task-specific
+    LayerNorms through their entry points, and one U-Net step with and
+    without rematerialization (see the module docstring).  Returns the
+    launch counts of the paths ``vit_var_train``, ``vit_var_serve``,
+    ``vit_ln_train``, ``vit_ln_serve`` and ``remat_train``."""
+    cfg = plans.config("3d_fullres")
+    patch, b2, classes = tuple(cfg.patch_size), TRAIN_BATCH, plans.num_classes + 1
+    vit_b = max(1, b2 // 2)
+    raw_root = os.path.dirname(task_dir)
+    tasks = [os.path.basename(task_dir), "Task098_SynthB"]
+    task = tasks[0]
+    images = {t: os.path.join(raw_root, t, "imagesTr") for t in tasks}
+    labels = {t: os.path.join(raw_root, t, "labelsTr") for t in tasks}
+    stages, splits = _task_stages(pre, tasks)
+    ds_factors = tuple(ds_scale_factors(cfg.pool_op_kernel_sizes))
+    one = os.path.join(work, "vit_variant_case")
+    os.makedirs(one)
+    case0, files0 = case_files(images[task])[0]
+    for f in files0:
+        shutil.copy(f, one)
+    one_batches = _serve_batches(one, plans, patch)
+    sampler = PatchSampler(stages[task], splits[task]["train"], patch, vit_b, seed=SEED)
+    batches = [{k: torch.from_numpy(b[k]).to(dev) for k in ("data", "seg")}
+               for b in (sampler.next_batch() for _ in range(3))]
+    step_cfg = StepConfig(ds_factors=ds_factors, batch_dice=True, num_classes=classes,
+                          augment=AugmentConfig())
+
+    def variant(version, lsa=False, spt=False):
+        def make(dtype, use_kernels=True):
+            return vit_unet_from_plans(plans, "3d_fullres", patch, dtype=dtype,
+                                       use_kernels=use_kernels, vit_version=version, lsa=lsa,
+                                       spt=spt, generator=torch.Generator().manual_seed(SEED))
+        return make
+
+    def dice_of(out, images_dir, labels_dir):
+        per_case = []
+        for case, _ in case_files(images_dir):
+            seg = np.asarray(read_image(os.path.join(out, f"{case}.nii.gz")).data)
+            label = np.asarray(read_image(os.path.join(labels_dir, f"{case}.nii.gz")).data)
+            assert seg.shape == label.shape and int(seg.max()) < classes
+            per_case.append(float(np.nanmean(subject_metrics(seg, label, classes)["Dice"])))
+        return statistics.mean(per_case)
+
+    # ---- V2 (LSA + SPT), V3, V4: train, serve one case, the f32 step check
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+    var_train, var_serve, rec = [], [], {}
+    for version, flags in VIT_VARIANTS.items():
+        lsa, spt = "--do_LSA" in flags, "--do_SPT" in flags
+        m = variant(version, lsa, spt)(torch.bfloat16).to(dev)
+        v_shapes = _block_shapes(m, patch, dev)
+        stages_v = [n for n, _ in m.vit.named_children() if n.startswith("patch_embed_")]
+        tokens = [getattr(m.vit, f"pos_embed_{i}").shape[1] for i in range(len(stages_v))]
+        # one flash forward per block and ViT call; LSA takes the plain route
+        n_attn = 0 if lsa else m.vit.depth * len(stages_v)
+        assert tokens == [FLASH_SHAPES["train"][2]] * len(stages_v), tokens
+        assert v_shapes == shapes, (version, v_shapes)     # every block runs
+        assert version != "V4" or n_attn == 48, n_attn
+        spt_in = m.vit.patch_embed_0.embed.proj.in_channels if spt else None
+        assert not spt or spt_in == 5 * m.stage_features(0), spt_in
+        del m
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _SequenceProbe() as probe, _CheckpointBytes(keep=FINAL):
+            run_training_vit(["3d_fullres", task, "0", "-v", version[1:], *flags,
+                              "-num_epochs", "1", "-num_iters", str(VAR_ITERS), "-val_iters",
+                              str(SEQ_VAL_ITERS), "--device", "cuda"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        got = _counts()
+        assert got == _train_expect(dev, shapes, vit_b, VAR_ITERS, SEQ_VAL_ITERS, [],
+                                    attn=n_attn), (version, got)
+        var_train.append(got)
+        fold = os.path.join(results, "nnUNet_ext", "3d_fullres", task,
+                            f"nnViTUNetTrainer__{plans.plans_name}",
+                            arch_dir(vit=True, vit_version=version, spt=spt, lsa=lsa), "fold_0")
+        with open(os.path.join(fold, "progress.json")) as f:
+            losses = json.load(f)["step_losses"]
+        first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+        assert len(losses) == VAR_ITERS and all(map(math.isfinite, losses)) and last < first, \
+            (version, losses)
+        _reset_counts()
+        out = os.path.join(work, f"vit_{version}_served")
+        run_inference(["3d_fullres", "nnViTUNetTrainer", "-i", one, "-o", out, "-trained_on",
+                       task, "--use_vit", "-v", version[1:], *flags, "--device", "cuda"])
+        served = _counts()
+        assert served == _forward_expect(dev, shapes, one_batches, n_attn), (version, served)
+        var_serve.append(served)
+        seg = np.asarray(read_image(os.path.join(out, f"{case0}.nii.gz")).data)
+        label = np.asarray(read_image(os.path.join(labels[task], f"{case0}.nii.gz")).data)
+        dice = subject_metrics(seg, label, classes)["Dice"]
+        fma, step_text = _step_check(variant(version, lsa, spt), batches[0], ds_factors, dev,
+                                     attention=n_attn)
+        rec[version] = dict(flags=flags, n_attn=n_attn, train_s=train_s, peak=peak,
+                            first=first, last=last, warm=probe.warm_step_s(task), dice=dice,
+                            step=step_text, spt_in=spt_in, tokens=tokens)
+        shutil.rmtree(fold)            # its ViT-base checkpoint: 1.3 GB of disk
+        torch.cuda.empty_cache()
+    # V1 and V4 steps in turns (V1, V4, V4, V1)
+    turn_models = {"V1": variant("V1"), "V4": variant("V4")}
+    turn_s, _ = _turns(lambda dtype, key: turn_models[key](dtype), batches, step_cfg, dev,
+                       order=("V1", "V4", "V4", "V1"), profiled=())
+    for version, r in rec.items():
+        print(f"[phase 15] nnUNet_torch_train_vit 3d_fullres {task} 0 -v {version[1:]}"
+              + "".join(f" {f}" for f in r["flags"]) + f" --device cuda: ViT base, U-Net full "
+              f"width, batch {vit_b}, 1 epoch x {VAR_ITERS} steps + {SEQ_VAL_ITERS} val "
+              f"batches: {r['train_s']:.2f} s, warm s/step (median of steps 4-{VAR_ITERS}, "
+              f"synchronized) {r['warm']:.4f}, peak {r['peak']:.2f} GB; loss first 5 "
+              f"{r['first']:.4f} -> last 5 {r['last']:.4f}; launches == predicted per step "
+              f"{{conv3d_in_lrelu: {sum(f for f, _, _ in shapes)}, flash_attention: "
+              f"{r['n_attn']} ({len(r['tokens'])} ViT call(s) x depth, {r['tokens'][0]} tokens "
+              f"each{', LSA: plain route' if not r['n_attn'] else ''}), flash_attention_bwd: "
+              f"{r['n_attn']}, ...}}" + (f"; SPT patch-embed input {r['spt_in']} channels"
+                                         if r["spt_in"] else "")
+              + f"; served {case0} ({len(one_batches)} forward(s)), launches == predicted, "
+              f"Dice {[round(d, 4) for d in r['dice']]}; {r['step']}", flush=True)
+    print(f"[phase 15] V1 vs V4 train step (batch {vit_b}, augmentation on): "
+          + _turns_text(turn_s).replace("route ", ""), flush=True)
+
+    # ---- task-specific LayerNorms: Sequential and EWC-LN over A, B
+    ln_arch = dict(VIT_ARCH, task_specific_ln=True)
+    folder = _cl_folders(results, plans, ln_arch)
+    val_b = {t: _val_batches(stages[t], splits[t], patch) for t in tasks}
+    progress = [b for i in range(len(tasks)) for t in tasks[: i + 1] for b in val_b[t]]
+    argv = _cl_argv(tasks, LN_ITERS) + ["--use_vit", "--task_specific_ln"]
+    ln_train, ln_rec = [], {}
+    for ext, fisher in (("ewc_ln", True), ("sequential", False)):
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _RegularizerProbe() as probe, _CheckpointBytes(keep=FINAL):
+            run_training(ext, argv)
+        torch.cuda.synchronize()
+        got = _counts()
+        steps = len(tasks) * LN_ITERS
+        assert got == _train_expect(dev, vit["shapes"], vit_b, steps,
+                                    len(tasks) * SEQ_VAL_ITERS, progress,
+                                    fisher=steps if fisher else 0, attn=vit["n_attn"]), (ext, got)
+        ln_train.append(got)
+        regs = [load_registry(os.path.join(folder(ext, tasks, i, True),
+                                           "model_final_checkpoint"),
+                              torch.device("cpu"), []) for i in range(len(tasks))]
+        (mh_a, _, man_a), (mh_b, blob_b, man_b) = regs
+        keys = list(mh_b.assemble())
+        ln = {t: sorted(k for k in keys if f".ln.{t}." in k) for t in tasks}
+        # a weight and a bias in each block's norm1 and norm2 and the final norm
+        assert len(ln[tasks[0]]) == len(ln[tasks[1]]) == 2 * (2 * vit["n_attn"] + 1), ln
+        assert (man_a["vit"]["ln_tasks"], man_a["vit"]["active_task_idx"]) == (tasks[:1], 0)
+        assert (man_b["vit"]["ln_tasks"], man_b["vit"]["active_task_idx"]) == (tasks, 1)
+        rec_ext = dict(s=time.perf_counter() - t0, peak=torch.cuda.max_memory_allocated() / 1e9,
+                       warm=[probe.warm_step_s(t) for t in tasks], n_ln=len(ln[tasks[0]]) // 2)
+        if fisher:
+            anchors = {t: sorted(a["params"])
+                       for t, a in blob_b["cl_state"]["ewc_tasks"].items()}
+            assert anchors == {tasks[0]: ln[tasks[0]],
+                               tasks[1]: sorted(ln[tasks[0]] + ln[tasks[1]])}, anchors
+            rec_ext["fisher"] = [round(s, 3) for _, s in probe.fisher_s]
+            for i in range(len(tasks)):
+                _drop_blobs(folder(ext, tasks, i, True))
+        else:
+            # A's sets through B: no gradient, weight decay alone, within one
+            # f32 rounding of the tensor's largest value per step
+            worst, moved = 0.0, 0.0
+            for k in ln[tasks[0]]:
+                a = mh_a.body[k].double()
+                want = _decay_only(a, LN_ITERS)
+                scale = max(a.abs().max().item(), 1e-30)
+                worst = max(worst, (mh_b.body[k].double() - want).abs().max().item()
+                            / (LN_ITERS * 2.0 ** -23 * scale))
+                moved = max(moved, (mh_b.body[k].double() - a).abs().max().item() / scale)
+            assert worst <= 1.0, worst
+            rec_ext.update(decay_units=worst, moved=moved)
+        ln_rec[ext] = rec_ext
+    # -c after B trains nothing
+    _reset_counts()
+    run_training("sequential", argv + ["-c"])
+    assert _counts() == _expect(), _counts()
+    # each head of the Sequential run served on its task's images
+    _reset_counts()
+    ln_dice, ln_batches = {}, []
+    for head in tasks:
+        out = os.path.join(work, f"ln_seq_{head}")
+        run_inference(["3d_fullres", "sequential", "-i", images[head], "-o", out, "-trained_on"]
+                      + tasks + ["-use_head", head, "--use_vit", "--task_specific_ln",
+                                 "--device", "cuda"])
+        ln_batches += _serve_batches(images[head], plans, patch)
+        ln_dice[head] = dice_of(out, images[head], labels[head])
+    ln_serve = _counts()
+    assert ln_serve == _forward_expect(dev, vit["shapes"], ln_batches, vit["n_attn"]), ln_serve
+    for i in range(len(tasks)):
+        _drop_blobs(folder("sequential", tasks, i, True))
+    for ext, r in ln_rec.items():
+        print(f"[phase 15] nnUNet_torch_train_{ext} 3d_fullres -t {' '.join(tasks)} --use_vit "
+              f"--task_specific_ln --device cuda (V1, ViT base, batch {vit_b}, 1 epoch x "
+              f"{LN_ITERS} steps + {SEQ_VAL_ITERS} val batches per task, progress validation): "
+              f"{r['s']:.2f} s, warm s/step {[round(w, 4) for w in r['warm']]}, peak "
+              f"{r['peak']:.2f} GB, launches == predicted; ln_{tasks[0]} and ln_{tasks[1]} "
+              f"({r['n_ln']} LayerNorm sets each) in the registry after {tasks[1]}, manifest "
+              f"ln_tasks / active_task_idx {tasks} / 1"
+              + (f"; anchors of {tasks[0]} on its {2 * r['n_ln']} ln_{tasks[0]} tensors only, of "
+                 f"{tasks[1]} on both tasks' sets; fisher pass s {r['fisher']}"
+                 if "fisher" in r else
+                 f"; ln_{tasks[0]} through {tasks[1]}: moved by up to {r['moved']:.3e} of each "
+                 f"tensor's largest value, equal to weight decay alone (f64 recurrence) within "
+                 f"{r['decay_units']:.3f} of the bound ({LN_ITERS} f32 roundings of that value)"),
+              flush=True)
+    print(f"[phase 15] a -c run after {tasks[1]} trained nothing (all launch counts 0); "
+          f"nnUNet_torch_inference sequential -use_head X --use_vit --task_specific_ln "
+          f"(every head with the last task's LayerNorms, as the JAX CLI serves them): "
+          f"{len(ln_batches)} forwards, launches == predicted, mean foreground Dice "
+          + ", ".join(f"head {h} on {h} {d:.4f}" for h, d in ln_dice.items()), flush=True)
+
+    # ---- rematerialization: a multi-head U-Net run with --remat, then one
+    # step with and without from the same weights and batch
+    n_fused = sum(f for f, _, _ in shapes)
+    n_strided = len(shapes) - n_fused
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run_training("multihead", ["3d_fullres", "-t", task, "-num_epochs", "1", "-num_iters",
+                               str(REMAT_ITERS), "-val_iters", str(SEQ_VAL_ITERS), "--remat",
+                               "--device", "cuda"])
+    torch.cuda.synchronize()
+    remat_s = time.perf_counter() - t0
+    remat_peak = torch.cuda.max_memory_allocated() / 1e9
+    remat_train = _counts()
+    # each train step's forward runs twice (the recompute), validation once
+    assert remat_train == _add_counts(
+        _train_expect(dev, shapes, b2, REMAT_ITERS, SEQ_VAL_ITERS, []),
+        _forward_expect(dev, shapes, [b2] * REMAT_ITERS)), remat_train
+    sampler = PatchSampler(stages[task], splits[task]["train"], patch, b2, seed=SEED)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in sampler.next_batch().items()
+             if k in ("data", "seg")}
+    step = {}
+    torch.backends.cudnn.allow_tf32 = False
+    for dtype in (torch.float32, torch.bfloat16):
+        for remat in (False, True):
+            m = unet_from_plans(plans, "3d_fullres", dtype=dtype, remat=remat,
+                                generator=torch.Generator().manual_seed(SEED)).to(dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            before = _counts()
+            loss = deep_supervision_loss(m(batch["data"]), batch["seg"].long(), ds_factors)
+            loss.backward()
+            torch.cuda.synchronize()
+            after = _counts()
+            step[(dtype, remat)] = dict(
+                loss=loss.item(), peak=(torch.cuda.max_memory_allocated() - base) / 1e9,
+                grads={k: torch.zeros_like(p, dtype=torch.float64) if p.grad is None
+                       else p.grad.double() for k, p in m.named_parameters()},
+                launched={k: after[k] - before[k] for k in (
+                    "conv3d_in_lrelu", "instance_norm_leaky", "conv3d_dx",
+                    "instance_norm_leaky_bwd")})
+            del m, loss
+            torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.bfloat16):
+        plain, rem = step[(dtype, False)], step[(dtype, True)]
+        units, where = _grad_units(rem["grads"], plain["grads"])
+        assert abs(rem["loss"] - plain["loss"]) <= 1e-4 and units <= F32_GRAD_LIMIT, \
+            (dtype, rem["loss"], plain["loss"], units, where)
+        want = {"conv3d_in_lrelu": n_fused, "instance_norm_leaky": n_strided,
+                "conv3d_dx": n_fused - 1, "instance_norm_leaky_bwd": n_fused + n_strided}
+        assert plain["launched"] == want, plain["launched"]
+        assert rem["launched"] == dict(want, conv3d_in_lrelu=2 * n_fused,
+                                       instance_norm_leaky=2 * n_strided), rem["launched"]
+        step[dtype] = (abs(rem["loss"] - plain["loss"]), units, where)
+    f32, b16 = step[torch.float32], step[torch.bfloat16]
+    print(f"[phase 15] nnUNet_torch_train_multihead 3d_fullres -t {task} --remat --device "
+          f"cuda (full width, batch {b2}, 1 epoch x {REMAT_ITERS} steps + {SEQ_VAL_ITERS} val "
+          f"batches): {remat_s:.2f} s, peak {remat_peak:.2f} GB, launches == predicted "
+          f"(per step conv3d_in_lrelu {2 * n_fused} = 2 x {n_fused}, instance_norm_leaky "
+          f"{2 * n_strided}: every stage's forward again in the backward; conv3d_dx "
+          f"{n_fused - 1}, instance_norm_leaky_bwd {n_fused + n_strided} as without); one step "
+          f"from the same weights and batch, remat vs not: f32 |loss diff| {f32[0]:.3e} (limit "
+          f"1e-4), worst gradient |diff| / (1e-5 + 1e-3 max|g|) {f32[1]:.3f} (limit "
+          f"{F32_GRAD_LIMIT}); bf16 {b16[0]:.3e} / {b16[1]:.3f}; peak memory of the step above "
+          f"the weights, bf16: {step[(torch.bfloat16, False)]['peak']:.3f} GB without, "
+          f"{step[(torch.bfloat16, True)]['peak']:.3f} GB with remat (f32: "
+          f"{step[(torch.float32, False)]['peak']:.3f} / "
+          f"{step[(torch.float32, True)]['peak']:.3f} GB)", flush=True)
+    torch.backends.cudnn.allow_tf32 = True
+    return {"vit_var_train": _add_counts(*var_train), "vit_var_serve": _add_counts(*var_serve),
+            "vit_ln_train": _add_counts(*ln_train), "vit_ln_serve": ln_serve,
+            "remat_train": remat_train}
+
+
+def _orchestration_path(task_dir, plans, shapes, work, pre, results, dev) -> dict:
+    """Phase 16: the parameter search, its resume, two workers on the card,
+    the refused partition, and the planning and checkpoint-update scripts
+    (see the module docstring).  Returns the launch counts of the search run
+    in this process (``param_search``)."""
+    cfg = plans.config("3d_fullres")
+    patch, b2 = tuple(cfg.patch_size), TRAIN_BATCH
+    tasks = [os.path.basename(task_dir), "Task098_SynthB"]
+    stages, splits = _task_stages(pre, tasks)
+    ps_root = os.path.join(work, "param_search")
+    argv = ["3d_fullres", "ewc", "-t", *tasks, "-g", "ewc_lambda:0.1,0.4", "-num_epochs", "1",
+            "-num_iters", str(SEARCH_ITERS), "--device", "cuda"]
+    # per experiment: each task's steps, quick-validation batches and fisher
+    # pass, then the evaluation-mode validation (8 mirrors, window batch 4)
+    # of every task so far on its 80:20 split's validation cases
+    ps_val = {t: _val_batches(stages[t], {"val": param_search_split(splits[t]["train"])[1]},
+                              patch) for t in tasks}
+    evals = [b * TTA for i in range(len(tasks)) for t in tasks[: i + 1] for b in ps_val[t]]
+    val_iters = max(10, SEARCH_ITERS // 5)          # the CLI's
+    per_exp = _train_expect(dev, shapes, b2, len(tasks) * SEARCH_ITERS, len(tasks) * val_iters,
+                            evals, fisher=len(tasks) * SEARCH_ITERS)
+
+    def search(sub, extra=()):
+        os.environ["PARAM_SEARCH_FOLDER"] = os.path.join(ps_root, sub)
+        out = os.path.join(ps_root, sub, "3d_fullres", "_".join(tasks), "ewc", "fold_0")
+        t0 = time.perf_counter()
+        with _CheckpointBytes():        # nothing reads them back
+            res = run_param_search(argv + list(extra))
+        torch.cuda.synchronize()
+        _drop_blobs(os.path.join(ps_root, sub))     # the workers' (on disk)
+        return res, out, time.perf_counter() - t0
+
+    torch.backends.cudnn.allow_tf32 = True
+    _reset_counts()
+    res, out, search_s = search("one")
+    ps_launches = _counts()
+    assert ps_launches == _add_counts(per_exp, per_exp), ps_launches
+    assert sorted(res) == ["exp_0", "exp_1"], sorted(res)
+    assert sorted(r["settings"]["ewc_lambda"] for r in res.values()) == [0.1, 0.4]
+    for exp_id in res:
+        with open(os.path.join(out, exp_id, "experiment_results.csv")) as f:
+            rows = f.read().splitlines()
+        assert len(rows) == 1 + 3, rows            # after A: A; after B: A, B
+    with open(os.path.join(out, "parameter_search_val_summary.csv")) as f:
+        assert len(f.read().splitlines()) == 1 + 6
+    with open(os.path.join(out, "best_setting.json")) as f:
+        best = json.load(f)
+    assert best["exp_id"] in res and math.isfinite(best["final_mean_dice"]), best
+    dice = {e: r["final_mean_dice"] for e, r in res.items()}
+    # the same command again: backup.json holds both, nothing trains
+    _reset_counts()
+    again, _, _ = search("one")
+    assert again == {} and _counts() == _expect(), (again, _counts())
+    # two workers sharing the card (spawned processes: their launches are
+    # counted there, not here)
+    _reset_counts()
+    par, par_out, par_s = search("workers", ["-n_workers", "2"])
+    assert _counts() == _expect(), _counts()
+    assert sorted(par) == ["exp_0", "exp_1"], sorted(par)
+    card = torch.cuda.get_device_name(0)
+    for r in par.values():
+        # no partition: each worker sees what this process sees
+        assert (r["device"], r["n_devices"], r["device_name"], r["visible_devices"]) == (
+            "cuda", 1, card, os.environ.get("CUDA_VISIBLE_DEVICES")), r
+        assert r["device_slot"] in ("0", "1") and math.isfinite(r["final_mean_dice"]), r
+    with open(os.path.join(par_out, "backup.json")) as f:
+        assert json.load(f)["finished"] == ["exp_0", "exp_1"]
+    # one card per worker for two workers: refused before any worker starts
+    try:
+        search("refused", ["-n_workers", "2", "-devices_per_exp", "1"])
+    except RuntimeError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("a partition over 2 cards ran on a host with 1")
+    assert not os.path.exists(os.path.join(ps_root, "refused", "3d_fullres", "_".join(tasks),
+                                           "ewc", "fold_0", "backup.json"))
+    print(f"[phase 16] nnUNet_torch_parameter_search 3d_fullres ewc -t {' '.join(tasks)} -g "
+          f"ewc_lambda:0.1,0.4 -num_epochs 1 -num_iters {SEARCH_ITERS} --device cuda: 2 "
+          f"experiments in {search_s:.2f} s, launches == predicted (per experiment per task "
+          f"{SEARCH_ITERS} steps + {val_iters} val batches + a {SEARCH_ITERS}-batch fisher pass, "
+          f"then evaluation forwards {evals}), final mean Dice {dice}, best setting "
+          f"{best['settings']} ({best['exp_id']}); experiment_results.csv per experiment, the "
+          f"summary and best_setting.json written; the same command again trained nothing "
+          f"(backup.json, all launch counts 0); -n_workers 2 on the one card: both experiments "
+          f"in {par_s:.2f} s, each worker reporting {card} (1 device, slots "
+          f"{sorted(r['device_slot'] for r in par.values())}), final mean Dice "
+          f"{ {e: round(r['final_mean_dice'], 4) for e, r in par.items()} }; -n_workers 2 "
+          f"-devices_per_exp 1 refused before any worker: {refusal}", flush=True)
+
+    # nnUNet_torch_plan_and_preprocess on a copy of task A's raw data
+    saved = {k: os.environ.get(k) for k in ("nnUNet_raw_data_base", "nnUNet_preprocessed",
+                                            "RESULTS_FOLDER")}
+    try:
+        copy_raw = os.path.join(work, "pp_copy", "raw")
+        shutil.copytree(task_dir, os.path.join(copy_raw, "nnUNet_raw_data", tasks[0]))
+        os.environ.update(nnUNet_raw_data_base=copy_raw,
+                          nnUNet_preprocessed=os.path.join(work, "pp_copy", "pre"))
+        t0 = time.perf_counter()
+        plan_and_preprocess_main(["-t", tasks[0], "-pl", "3d_fullres"])
+        pp_s = time.perf_counter() - t0
+        copy_plans = Plans.load(plans_path(os.path.join(work, "pp_copy", "pre", tasks[0])))
+        assert copy_plans.config("3d_fullres") == cfg, copy_plans.config("3d_fullres")
+        copy_stage = PreprocessedDataset(os.path.join(work, "pp_copy", "pre", tasks[0],
+                                                      "nnUNetData_plans_v2.1_3d_fullres"))
+        assert copy_stage.cases == stages[tasks[0]].cases
+        # nnUNet_torch_update_checkpoints on a copy of phase 15's task-LN
+        # results (its manifests: the .pt files hold no path), then back
+        # with nnUNet_torch_update_checkpoints_all over the copy
+        src = os.path.join(results, "nnUNet_ext", "3d_fullres", "_".join(tasks))
+        copy_res = os.path.join(work, "results_copy")
+        shutil.copytree(src, os.path.join(copy_res, "nnUNet_ext", "_".join(tasks)),
+                        ignore=shutil.ignore_patterns("*.pt", "val_metrics*", "progress.json"))
+
+        def json_text(root):
+            out = {}
+            for d, _, files in os.walk(root):
+                for f in files:
+                    if f.endswith(".json"):
+                        with open(os.path.join(d, f)) as fh:
+                            out[os.path.relpath(os.path.join(d, f), root)] = fh.read()
+            return out
+        def naming(text, name):
+            """Whether a string value (not a key) of the JSON ``text`` holds ``name``."""
+            def strings(obj):
+                if isinstance(obj, str):
+                    yield obj
+                elif isinstance(obj, (list, dict)):
+                    for v in obj.values() if isinstance(obj, dict) else obj:
+                        yield from strings(v)
+            return any(name in v for v in strings(json.loads(text)))
+        before = json_text(copy_res)
+        holding = sum(naming(v, tasks[0]) for v in before.values())
+        moved = tasks[0].replace("Synth", "Moved")
+        update_checkpoints.main(["-path", copy_res, "-old", tasks[0], "-new", moved])
+        after = json_text(copy_res)
+        assert not any(naming(v, tasks[0]) for v in after.values()) and holding, holding
+        assert sum(a != before[k] for k, a in after.items()) == holding
+        os.environ["RESULTS_FOLDER"] = copy_res
+        update_checkpoints.main_all(["-old", moved, "-new", tasks[0]])
+        assert {k: json.dumps(json.loads(v), sort_keys=True)
+                for k, v in json_text(copy_res).items()} == \
+            {k: json.dumps(json.loads(v), sort_keys=True) for k, v in before.items()}
+    finally:
+        for k, v in saved.items():
+            os.environ[k] = v
+    print(f"[phase 16] nnUNet_torch_plan_and_preprocess -t {tasks[0]} -pl 3d_fullres on a copy "
+          f"of its raw data: {pp_s:.2f} s, the same 3d_fullres plan and "
+          f"{len(copy_stage.cases)} preprocessed cases; nnUNet_torch_update_checkpoints on a "
+          f"copy of phase 15's task-LN results ({len(before)} JSON manifests): {holding} naming "
+          f"{tasks[0]} rewritten to {moved}, none left; "
+          f"nnUNet_torch_update_checkpoints_all back over the copy gives the original JSON; "
+          f"the work folder now holds {_tree_gb(work):.1f} GB", flush=True)
+    return {"param_search": ps_launches}
 
 
 def main() -> int:
@@ -3312,6 +3857,12 @@ def main() -> int:
 
         # ---- phase 14: the POD trainers (PLOP, POD, OwnM1-4)
         pod_paths = _pod_path(task_dir, plans, shapes, vit, work, pre, results, dev)
+
+        # ---- phase 15: ViT-U-Net V2-V4, task-specific LayerNorms, remat
+        var_paths = _vit_variant_path(task_dir, plans, shapes, vit, work, pre, results, dev)
+
+        # ---- phase 16: the parameter search and the scripts
+        search_paths = _orchestration_path(task_dir, plans, shapes, work, pre, results, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3364,7 +3915,7 @@ def main() -> int:
                                   ("deinterleave2", "interleave.cu", "interleave.py:73"))]
     paths = {"serve": launches, "train": train_launches, "vit_train": vit_train_launches,
              "vit_serve": vit_serve_launches, **ct_paths, **cl_paths, **reg_paths,
-             **distill_paths, **pod_paths}
+             **distill_paths, **pod_paths, **var_paths, **search_paths}
     # the FMA kernel runs f32 input only, off the bf16 main paths (0
     # launches there, asserted above); its launches in the f32 checks of
     # phases 4, 6, 8 and 10 are kept apart, under ``check_launches``

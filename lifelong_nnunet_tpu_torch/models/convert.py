@@ -13,8 +13,10 @@ The ViT (``vit``): Dense kernels ``[in, out]`` become Linear weights ``[out,
 in]``; the patch projection's kernel ``[*p, C, E]`` becomes the conv layout
 ``[E, C, *p]``; a LayerNorm's ``scale`` is its ``weight``, and the
 ``LayerNorm_0`` scope of a ``TaskLayerNorm`` is dropped (SPT's own
-``LayerNorm_0`` is its ``norm``); position embeddings and LSA temperatures
-are copied as they are.
+``LayerNorm_0`` is its ``norm``) and its task-specific scope ``ln_<task>``
+becomes ``ln.<task>`` (``vit.block0.norm1.ln.<task>.weight``, a key the
+EWC-LN and frozen-nonLN filters ``["vit", "norm"]`` still match); position
+embeddings and LSA temperatures are copied as they are.
 
 :func:`jax_cl_state_to_torch` carries a JAX continual-learning state
 (EWC's ``{"ewc_tasks": ...}`` or RW's ``{"running", "anchor", "score_sets",
@@ -55,6 +57,8 @@ def _vit_entries(params, conv_perm) -> dict:
             at = scopes.index("LayerNorm_0")
             spt = at == 1 and scopes[0].startswith("patch_embed_")
             scopes = scopes[:at] + (["norm"] if spt else []) + scopes[at + 1:]
+        scopes = [part for s in scopes for part in
+                  (("ln", s[3:]) if s.startswith("ln_") else (s,))]
         if leaf == "scale":
             leaf = "weight"
         elif leaf == "kernel":

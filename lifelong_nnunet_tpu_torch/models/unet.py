@@ -36,6 +36,15 @@ builds its model; the port reads them there too (``training/trainer.py``,
 ``training/restore.py``) and passes them in as arguments.  The parameters
 are the same on every route.
 
+With ``remat``, every stage (encoder, bottleneck, decoder, as the JAX
+model's ``stage_cls = nn.remat(ConvStage)``) runs under
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` where
+autograd records: its activations are not kept for the backward but
+recomputed there, so each forward kernel of a stage launches twice per
+train step; the kernels' ``autograd.Function``s run unchanged inside the
+recompute.  A decoder stage's recompute includes the concatenation of
+its input with the skip, as JAX's stage does it inside.
+
 Every route is differentiable: where autograd records, the kernels'
 ``autograd.Function``s run their backward kernels (the data gradient of a
 fused or stride-1 blocked conv only when its input needs one).  On the CPU
@@ -55,6 +64,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.kernels.block_pack import packed_conv_in_lrelu, pick_bs
 from ..ops.kernels.conv3d import conv3d_in_lrelu_cf
@@ -187,7 +197,8 @@ class GenericUNet(nn.Module):
     ``[B, num_classes, *spatial_i]`` float32 (float64 for an f64 model);
     with ``deep_supervision=False`` only the full-resolution head runs and
     the list has one entry.  ``blocked_conv`` and ``upsample`` (one of
-    ``UPSAMPLE``) pick the CT-scale routes (module docstring)."""
+    ``UPSAMPLE``) pick the CT-scale routes, ``remat`` recomputes the stages
+    in the backward (module docstring)."""
 
     def __init__(self, in_channels: int, num_classes: int,
                  pool_op_kernel_sizes, conv_kernel_sizes,
@@ -195,7 +206,7 @@ class GenericUNet(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  deep_supervision: bool = True, use_kernels: bool = True,
                  generator: torch.Generator | None = None,
-                 blocked_conv: bool = False, upsample: str = "direct"):
+                 blocked_conv: bool = False, upsample: str = "direct", remat: bool = False):
         super().__init__()
         if upsample not in UPSAMPLE:
             raise ValueError(f"upsample must be one of {UPSAMPLE}, got {upsample!r}")
@@ -208,6 +219,7 @@ class GenericUNet(nn.Module):
         self.deep_supervision = deep_supervision
         self.use_kernels = use_kernels
         self.upsample = upsample
+        self.remat = remat
         self.dim = len(self.conv_kernel_sizes[0])
         dim, num_pool = self.dim, self.num_pool
         # registration order IS module_order(): named_children() follows it
@@ -267,6 +279,15 @@ class GenericUNet(nn.Module):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
 
+    def _stage(self, name: str, *inputs: torch.Tensor) -> torch.Tensor:
+        """Stage ``name`` on its input (a decoder stage: on its upsampled
+        input and its skip, concatenated), checkpointed with ``remat``."""
+        def run(*xs):
+            return getattr(self, name)(xs[0] if len(xs) == 1 else torch.cat(xs, dim=1))
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(run, *inputs, use_reentrant=False)
+        return run(*inputs)
+
     def _encode(self, x: torch.Tensor) -> list:
         """The encoder stages' outputs (the skips), in the activation dtype."""
         if x.dim() != self.dim + 2:
@@ -274,7 +295,7 @@ class GenericUNet(nn.Module):
         h = x.to(self.dtype)
         skips = []
         for s in range(self.num_pool):
-            h = getattr(self, f"enc{s}")(h)
+            h = self._stage(f"enc{s}", h)
             skips.append(h)
         return skips
 
@@ -283,12 +304,12 @@ class GenericUNet(nn.Module):
         distils, ``(outputs, taps)`` with taps ``enc{s}``, ``bottleneck`` and
         ``dec{d}`` (the tensors the stages return, no copies)."""
         skips = self._encode(x)
-        h = self.bottleneck(skips[-1])
+        h = self._stage("bottleneck", skips[-1])
         taps = {f"enc{s}": skip for s, skip in enumerate(skips)}
         taps["bottleneck"] = h
         outputs = []
         for d in range(self.num_pool):
-            h = getattr(self, f"dec{d}")(torch.cat([self._up(d, h), skips[-1 - d]], dim=1))
+            h = self._stage(f"dec{d}", self._up(d, h), skips[-1 - d])
             taps[f"dec{d}"] = h
             if self.deep_supervision or d == self.num_pool - 1:
                 outputs.append(self._seg(d, h))
@@ -320,11 +341,12 @@ def unet_from_plans(plans, config_name: str, dtype: torch.dtype = torch.float32,
                     generator: torch.Generator | None = None,
                     base_num_features: int | None = None,
                     max_num_features: int | None = None,
-                    blocked_conv: bool = False, upsample: str = "direct") -> GenericUNet:
+                    blocked_conv: bool = False, upsample: str = "direct",
+                    remat: bool = False) -> GenericUNet:
     """The U-Net a plans configuration describes.  ``base_num_features`` /
     ``max_num_features`` override the plans' widths, as a checkpoint
     manifest may (``training/restore.py``); ``blocked_conv`` / ``upsample``
-    pick the CT-scale routes."""
+    pick the CT-scale routes; ``remat`` recomputes the stages."""
     cfg = plans.config(config_name)
     return GenericUNet(
         in_channels=plans.num_modalities,
@@ -335,7 +357,7 @@ def unet_from_plans(plans, config_name: str, dtype: torch.dtype = torch.float32,
         max_num_features=max_num_features or cfg.max_num_features,
         dtype=dtype, deep_supervision=deep_supervision,
         use_kernels=use_kernels, generator=generator, blocked_conv=blocked_conv,
-        upsample=upsample)
+        upsample=upsample, remat=remat)
 
 
 def ds_scale_factors(pool_op_kernel_sizes) -> list:

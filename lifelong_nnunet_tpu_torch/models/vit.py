@@ -22,8 +22,15 @@ every token count; otherwise the plain path of the JAX package, LSA's
 temperature and diagonal mask included.  ``use_kernels=False`` is the
 plain path throughout.  On the card the kernel takes the presets' head
 dims (64, 80) and raises on others (the small ``vit_depth`` overrides'
-2 heads of 8 or more): those train on the plain route.  Task-specific LayerNorms (``ln_tasks``) are not
-ported yet.
+2 heads of 8 or more): those train on the plain route.
+
+Task-specific LayerNorms (``ln_tasks``, a tuple of task names): every
+:class:`TaskLayerNorm` of the blocks and the final ``norm`` holds one
+parameter set per task, ``ln.<task>.{weight,bias}`` (flax's ``ln_<task>``
+scopes), and ``task_idx`` selects the set a forward uses, as the JAX
+``TaskLayerNorm`` does.  Without ``ln_tasks`` a TaskLayerNorm keeps its
+one set as ``weight`` / ``bias`` (flax's ``LayerNorm_0``).  SPT's
+LayerNorm is never task-specific.
 """
 
 from __future__ import annotations
@@ -99,14 +106,21 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 class TaskLayerNorm(nn.Module):
     """LayerNorm with one parameter set (flax's ``TaskLayerNorm`` without
-    ``ln_tasks``: its ``LayerNorm_0``)."""
+    ``ln_tasks``: its ``LayerNorm_0``) or, with ``ln_tasks``, one set per
+    task in the ModuleDict ``ln``; ``task_idx`` picks the task's set."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, ln_tasks: Sequence[str] = ()):
         super().__init__()
-        self.weight = nn.Parameter(torch.ones(dim))
-        self.bias = nn.Parameter(torch.zeros(dim))
+        self.ln_tasks = tuple(ln_tasks)
+        if self.ln_tasks:
+            self.ln = nn.ModuleDict({t: TaskLayerNorm(dim) for t in self.ln_tasks})
+        else:
+            self.weight = nn.Parameter(torch.ones(dim))
+            self.bias = nn.Parameter(torch.zeros(dim))
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, task_idx: int = 0) -> torch.Tensor:
+        if self.ln_tasks:
+            return self.ln[self.ln_tasks[task_idx]](x, dtype)
         return layer_norm(x, self.weight, self.bias, dtype)
 
 
@@ -200,18 +214,19 @@ class Block(nn.Module):
     with a tanh-GELU; x stays in its (f32) dtype."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: int, lsa: bool,
-                 use_kernels: bool, generator: torch.Generator):
+                 use_kernels: bool, generator: torch.Generator, ln_tasks: Sequence[str] = ()):
         super().__init__()
-        self.norm1 = TaskLayerNorm(dim)
+        self.norm1 = TaskLayerNorm(dim, ln_tasks)
         self.attn = Attention(dim, num_heads, lsa, use_kernels, generator)
-        self.norm2 = TaskLayerNorm(dim)
+        self.norm2 = TaskLayerNorm(dim, ln_tasks)
         self.fc1 = _linear(dim, mlp_ratio * dim, generator)
         self.fc2 = _linear(mlp_ratio * dim, dim, generator)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype, need_weights: bool = False):
-        a, weights = self.attn(self.norm1(x, dtype), dtype, need_weights)
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, need_weights: bool = False,
+                task_idx: int = 0):
+        a, weights = self.attn(self.norm1(x, dtype, task_idx), dtype, need_weights)
         x = x + a
-        h = F.gelu(_dense(self.fc1, self.norm2(x, dtype), dtype), approximate="tanh")
+        h = F.gelu(_dense(self.fc1, self.norm2(x, dtype, task_idx), dtype), approximate="tanh")
         return x + _dense(self.fc2, h, dtype), weights
 
 
@@ -221,15 +236,17 @@ class VisionTransformer(nn.Module):
     ``in_shapes``: ``(C, *spatial)`` of each stage's input (the position
     embeddings are sized from it, as flax sizes them at init);
     ``out_features``: the output channels of each stage (one stage for
-    V1-V3, one per decoder stage for V4, sharing the blocks).  Call with
-    ``idx`` selecting the stage; returns ``[B, out_features[idx], *grid]``
+    V1-V3, one per decoder stage for V4, sharing the blocks); ``ln_tasks``:
+    the task-specific LayerNorms' tasks (module docstring).  Call with
+    ``idx`` selecting the stage and ``task_idx`` the LayerNorms' task;
+    returns ``[B, out_features[idx], *grid]``
     in f32 (f64 for an f64 input), plus the per-block attention weights
     with ``return_attn``."""
 
     def __init__(self, in_shapes, out_features, embed_dim: int = 768, depth: int = 12,
                  num_heads: int = 12, mlp_ratio: int = 4, lsa: bool = False,
                  spt: bool = False, max_patch: int = 16, use_kernels: bool = True,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, ln_tasks: Sequence[str] = ()):
         super().__init__()
         gen = generator or torch.Generator().manual_seed(0)
         self.depth = depth
@@ -244,21 +261,22 @@ class VisionTransformer(nn.Module):
             self.register_parameter(f"pos_embed_{i}", nn.Parameter(pos))
         for d in range(depth):
             self.add_module(f"block{d}", Block(embed_dim, num_heads, mlp_ratio, lsa,
-                                               use_kernels, gen))
-        self.norm = TaskLayerNorm(embed_dim)
+                                               use_kernels, gen, ln_tasks))
+        self.norm = TaskLayerNorm(embed_dim, ln_tasks)
         for i, out in enumerate(out_features):
             self.add_module(f"head_{i}", _linear(embed_dim, out, gen))
 
-    def forward(self, x: torch.Tensor, idx: int = 0, return_attn: bool = False):
+    def forward(self, x: torch.Tensor, idx: int = 0, return_attn: bool = False,
+                task_idx: int = 0):
         dtype = x.dtype
         tokens, grid = getattr(self, f"patch_embed_{idx}")(x, dtype)
         h = tokens + getattr(self, f"pos_embed_{idx}")
         attns = []
         for d in range(self.depth):
-            h, w = getattr(self, f"block{d}")(h, dtype, need_weights=return_attn)
+            h, w = getattr(self, f"block{d}")(h, dtype, return_attn, task_idx)
             attns.append(w)
         head = getattr(self, f"head_{idx}")
-        out = _dense(head, self.norm(h, dtype), dtype)
+        out = _dense(head, self.norm(h, dtype, task_idx), dtype)
         out = out.reshape((x.shape[0],) + grid + (head.out_features,)).movedim(-1, 1)
         out = out if out.dtype == torch.float64 else out.float()
         return (out, attns) if return_attn else out

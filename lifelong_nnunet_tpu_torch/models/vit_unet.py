@@ -16,6 +16,10 @@ Vision Transformer at one of four placements.
   * **V4**: the shared-block ViT (per-stage patch embeddings and heads) is
     applied to every decoder stage's output before its seg head.
 
+``ln_tasks`` gives the ViT task-specific LayerNorms (``models/vit.py``);
+every ViT call, in V1-V3 and in each V4 stage, uses the set of task
+``active_task_idx`` (the JAX model's static field).
+
 The ViT's output grid is resized to the target spatial dims the way
 ``jax.image.resize(..., "linear")`` does it (:func:`linear_resize`).
 ``module_order()`` is the JAX model's (``vit`` after ``bottleneck``; after
@@ -73,7 +77,9 @@ class GenericViTUNet(GenericUNet):
     ``vit_embed_dim`` / ``vit_depth`` / ``vit_heads`` override the
     ``vit_type`` preset.  The generator initializes the U-Net, then the
     ViT.  ``blocked_conv`` / ``upsample`` go to the U-Net body, as the JAX
-    model forwards its conv routes (``vit_unet.py:66-72, 120``)."""
+    model forwards its conv routes (``vit_unet.py:66-72, 120``).  The JAX
+    model builds its stages without ``stage_cls``, so its ``remat`` does
+    nothing here: the ViT-U-Net has no ``remat``."""
 
     def __init__(self, in_channels: int, num_classes: int, pool_op_kernel_sizes,
                  conv_kernel_sizes, patch_size, base_num_features: int = 32,
@@ -83,7 +89,7 @@ class GenericViTUNet(GenericUNet):
                  vit_type: str = "base", lsa: bool = False, spt: bool = False,
                  vit_embed_dim: int | None = None, vit_depth: int | None = None,
                  vit_heads: int | None = None, blocked_conv: bool = False,
-                 upsample: str = "direct"):
+                 upsample: str = "direct", ln_tasks=(), active_task_idx: int = 0):
         if vit_version not in VERSIONS:
             raise ValueError(f"unknown vit_version {vit_version!r}; options {VERSIONS}")
         gen = generator or torch.Generator().manual_seed(0)
@@ -92,6 +98,7 @@ class GenericViTUNet(GenericUNet):
                          use_kernels, gen, blocked_conv, upsample)
         self.vit_version, self.vit_type, self.lsa, self.spt = vit_version, vit_type, lsa, spt
         self.patch_size = tuple(patch_size)
+        self.ln_tasks, self.active_task_idx = tuple(ln_tasks), int(active_task_idx)
         sizes = vit_kwargs_for_type(vit_type)
         for key, value in (("embed_dim", vit_embed_dim), ("depth", vit_depth),
                            ("num_heads", vit_heads)):
@@ -110,7 +117,8 @@ class GenericViTUNet(GenericUNet):
             in_shapes = [(self.stage_features(0),) + spatial[0]]
             out = [self.stage_features(n)]
         self.vit = VisionTransformer(in_shapes, out, lsa=lsa, spt=spt,
-                                     use_kernels=use_kernels, generator=gen, **sizes)
+                                     use_kernels=use_kernels, generator=gen,
+                                     ln_tasks=self.ln_tasks, **sizes)
         modules = dict(self._modules)
         self._modules.clear()
         self._modules.update((name, modules[name]) for name in self.module_order())
@@ -141,14 +149,15 @@ class GenericViTUNet(GenericUNet):
             taps["bottleneck"], size = h, h.shape[2:]
             h = None if self.vit_version == "V1" else h
         if self.vit_version != "V4":
-            taps["vit"] = self.vit(self._vit_input(skips, h))
+            taps["vit"] = self.vit(self._vit_input(skips, h), task_idx=self.active_task_idx)
             h = linear_resize(taps["vit"], size).to(self.dtype)
         outputs = []
         for d in range(n):
             h = getattr(self, f"dec{d}")(torch.cat([self._up(d, h), skips[-1 - d]], dim=1))
             taps[f"dec{d}"] = h
             if self.vit_version == "V4":
-                h = linear_resize(self.vit(h, idx=d), h.shape[2:]).to(self.dtype)
+                v = self.vit(h, idx=d, task_idx=self.active_task_idx)
+                h = linear_resize(v, h.shape[2:]).to(self.dtype)
                 taps[f"vit_dec{d}"] = h
             if self.deep_supervision or d == n - 1:
                 outputs.append(self._seg(d, h))
@@ -187,10 +196,12 @@ def vit_unet_from_plans(plans, config_name: str, patch_size=None,
                         generator: torch.Generator | None = None,
                         base_num_features: int | None = None,
                         max_num_features: int | None = None, blocked_conv: bool = False,
-                        upsample: str = "direct", **overrides) -> GenericViTUNet:
+                        upsample: str = "direct", ln_tasks=(), active_task_idx: int = 0,
+                        **overrides) -> GenericViTUNet:
     """The ViT-U-Net a plans configuration describes, for inputs of
     ``patch_size`` (default the plans'); ``overrides``: ``vit_embed_dim``,
-    ``vit_depth``, ``vit_heads`` (see :func:`vit_overrides`)."""
+    ``vit_depth``, ``vit_heads`` (see :func:`vit_overrides`); ``ln_tasks``
+    and ``active_task_idx``: the task-specific LayerNorms."""
     cfg = plans.config(config_name)
     return GenericViTUNet(
         in_channels=plans.num_modalities, num_classes=plans.num_classes + 1,
@@ -201,4 +212,5 @@ def vit_unet_from_plans(plans, config_name: str, patch_size=None,
         max_num_features=max_num_features or cfg.max_num_features,
         dtype=dtype, deep_supervision=deep_supervision, use_kernels=use_kernels,
         generator=generator, vit_version=vit_version, vit_type=vit_type, lsa=lsa,
-        spt=spt, blocked_conv=blocked_conv, upsample=upsample, **overrides)
+        spt=spt, blocked_conv=blocked_conv, upsample=upsample, ln_tasks=ln_tasks,
+        active_task_idx=active_task_idx, **overrides)

@@ -121,54 +121,57 @@ def normalize_scores(scores: dict, eps: float = 1e-8) -> dict:
 class QuadraticPenalty:
     """:func:`quadratic_penalty` of the live parameters ``named`` ({key:
     parameter}) for the train step, as ``torch._foreach_*`` ops over tensor
-    lists.  Every anchor must cover the same keys (those of ``named`` that
-    it holds and ``mask`` keeps); the anchors are upcast to f32 once, here,
-    since they do not change while a task trains.  The weights must be non
-    negative (squared gradients, normalized scores): each tensor's sum of
-    w (theta - theta*)^2 is then its L1 norm.
+    lists.  Each anchor covers the keys of ``named`` that it holds and
+    ``mask`` keeps; anchors may hold different keys (EWC-LN with
+    task-specific LayerNorms: a later task's anchor also holds that task's
+    set), and anchors over the same keys form one group whose gradients are
+    summed before they reach ``.grad``.  The anchors are upcast to f32
+    once, here, since they do not change while a task trains.  The weights
+    must be non negative (squared gradients, normalized scores): each
+    tensor's sum of w (theta - theta*)^2 is then its L1 norm.
 
     Called as a ``loss_extras`` hook, ``(model, cl_state, model_out,
     batch) -> (value, {name: value})``, it returns the value without an
-    autograd graph and keeps w (theta - theta*) summed over the anchors;
-    :meth:`add_grad` adds that times 2 lam (/2) to the parameters' ``.grad``
-    after the backward."""
+    autograd graph and keeps w (theta - theta*) summed over each group's
+    anchors; :meth:`add_grad` adds that times 2 lam (/2) to the
+    parameters' ``.grad`` after the backward."""
 
     def __init__(self, named: dict, anchors: list, lam: float, mask: dict | None = None,
                  use_half: bool = True, name: str = "penalty"):
-        keys = None
-        for anchor in anchors:
-            held = [k for k in named if (mask is None or mask.get(k, True))
-                    and k in anchor["params"]]
-            if keys is not None and held != keys:
-                raise ValueError("every anchor of a QuadraticPenalty must cover the same keys")
-            keys = held
-        self.keys = keys or []
-        self.params = [named[k] for k in self.keys]
-        self.anchors = [([a["weight"][k].float() for k in self.keys],
-                         [a["params"][k].float() for k in self.keys]) for a in anchors]
+        self.groups = {}      # keys -> [(weights, anchor params)]
+        for a in anchors:
+            keys = tuple(k for k in named if (mask is None or mask.get(k, True))
+                         and k in a["params"])
+            if keys:
+                self.groups.setdefault(keys, []).append(
+                    ([a["weight"][k].float() for k in keys],
+                     [a["params"][k].float() for k in keys]))
+        self.params = {keys: [named[k] for k in keys] for keys in self.groups}
         self.factor = lam / 2.0 if use_half else lam
         self.name = name
         self._grad = None
 
     def __call__(self, *_unused):
-        grad, total = None, None
+        grads, total = {}, None
         with torch.no_grad():
             # an anchor may hold none of these parameters (EWC on the ViT's
             # parameters of a U-Net): the penalty is then 0
-            for weight, anchor in self.anchors if self.params else ():
-                diff = torch._foreach_sub(self.params, anchor)
-                wd = torch._foreach_mul(diff, weight)
-                sums = torch._foreach_norm(torch._foreach_mul(wd, diff), 1)
-                part = torch.stack(sums).sum()
-                total = part if total is None else total + part
-                if grad is None:
-                    grad = wd
-                else:
-                    torch._foreach_add_(grad, wd)
+            for keys, anchors in self.groups.items():
+                params = self.params[keys]
+                for weight, anchor in anchors:
+                    diff = torch._foreach_sub(params, anchor)
+                    wd = torch._foreach_mul(diff, weight)
+                    sums = torch._foreach_norm(torch._foreach_mul(wd, diff), 1)
+                    part = torch.stack(sums).sum()
+                    total = part if total is None else total + part
+                    if keys in grads:
+                        torch._foreach_add_(grads[keys], wd)
+                    else:
+                        grads[keys] = wd
             if total is None:
                 total = torch.zeros((), dtype=torch.float32)
             value = total * self.factor
-        self._grad = grad
+        self._grad = grads or None
         return value, {self.name: value}
 
     def add_grad(self) -> None:
@@ -176,11 +179,12 @@ class QuadraticPenalty:
         parameter the backward left without one gets it as its gradient)."""
         if self._grad is None:
             return
-        for p in self.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        torch._foreach_add_([p.grad for p in self.params], self._grad,
-                            alpha=2.0 * self.factor)
+        for keys, grad in self._grad.items():
+            params = self.params[keys]
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            torch._foreach_add_([p.grad for p in params], grad, alpha=2.0 * self.factor)
         self._grad = None
 
 

@@ -56,14 +56,14 @@ def plan_and_preprocess(task_dirs: list, preprocessed_root: str,
     return out
 
 
-def main():
+def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("-t", "--task_ids", nargs="+", required=True,
                    help="task ids or names (e.g. 4 or Task004_Hippocampus)")
     p.add_argument("-pl", "--planner_configs", nargs="+",
                    default=["3d_fullres", "2d"])
     p.add_argument("-p", "--plans_identifier", default=paths.default_plans_identifier)
-    args = p.parse_args()
+    args = p.parse_args(argv)
     raw = paths.require(paths.raw_data_dir(), "raw data")
     pre = paths.require(paths.preprocessed_dir(), "preprocessed data")
     tasks = [resolve_task(t, raw) for t in args.task_ids]

@@ -8,8 +8,8 @@ is located as ``nnUNet_torch_inference`` locates it
 (``run/run_inference.py:_locate_model``: the base-trainer layout or the
 sequence's folder, the JAX CLI's folder names), from the trainer, the
 ``-trained_on`` sequence, the ``-use_model`` prefix, the fold and the
-architecture flags; task-specific LayerNorms are refused, as the other CLIs
-of the port refuse them.
+architecture flags (``--task_specific_ln`` names the ``task_specific``
+folder).
 
 ``nnUNet_torch_evaluate`` scores the validation split of each
 ``-evaluate_on`` task with :class:`~..evaluation.evaluator.Evaluator` into

@@ -8,8 +8,9 @@ up as the JAX CLI's ``_locate_model`` (``run/run_evaluation.py:80-112``)
 does:
 
 * ``nnUNetTrainerV2`` (``Generic_UNet``) and ``nnViTUNetTrainer`` /
-  ``vit_unet`` (``Generic_ViT_UNetV{v}/<type>/not_task_specific/<variant>``,
-  from ``-v``, ``-v_type``, ``--do_SPT``, ``--do_LSA``: the folder
+  ``vit_unet`` (``Generic_ViT_UNetV{v}/<type>/<not_task_specific |
+  task_specific>/<variant>``, from ``-v``, ``-v_type``,
+  ``--task_specific_ln``, ``--do_SPT``, ``--do_LSA``: the folder
   ``nnUNet_torch_train_vit`` writes) in the base-trainer layout
   ``$RESULTS_FOLDER/nnUNet_ext/<network>/<task>/<Trainer>__<plans>/<arch>/fold_X``;
 * ``base_v2`` in the folder that ``nnUNet_torch_train_base_v2`` writes
@@ -28,7 +29,9 @@ checkpoint's manifest says whether the network is a U-Net or a ViT-U-Net.
 ``--postprocess`` keeps the largest component of the classes that the
 ``postprocessing.json`` beside the checkpoint names
 (``inference/postprocessing.py``), of every class where there is none.
-The cascade trainer (not ported yet) and task-specific LayerNorms are
+A ViT-U-Net with task-specific LayerNorms serves every head with the
+LayerNorm set of its manifest's ``active_task_idx`` (the last trained
+task's), as the JAX CLI does.  The cascade trainer (not ported yet) is
 refused.
 """
 
@@ -50,10 +53,6 @@ from ..training.trainers import get_trainer
 # base trainer -> whether its layout holds a ViT-U-Net (the JAX CLI's rule)
 BASE_TRAINERS = {"nnUNetTrainerV2": False, "base_v2": False,
                  "nnViTUNetTrainer": True, "vit_unet": True}
-# options of the JAX CLI kept for argument parity, with the value that means
-# "off": task-specific LayerNorms are not ported yet, so any other value is
-# refused
-UNPORTED_OPTIONS = {"task_specific_ln": False}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -101,9 +100,6 @@ def _resolve_task(task: str) -> str:
 def _refuse_unported(args) -> None:
     if args.trainer not in BASE_TRAINERS:
         get_trainer(args.trainer)      # raises for a trainer not ported yet
-    set_ = [k for k, off in UNPORTED_OPTIONS.items() if getattr(args, k) != off]
-    if set_:
-        raise NotImplementedError(f"{', '.join(set_)}: not ported yet")
 
 
 def _locate_model(args, results: str, fold: int) -> str:
@@ -126,8 +122,9 @@ def _locate_model(args, results: str, fold: int) -> str:
         folder = os.path.join(results, args.network, task,
                               f"{name}__{args.plans_identifier}",
                               arch_dir(vit=is_vit, vit_version=f"V{args.vit_version}",
-                                       vit_type=args.vit_type, spt=args.do_SPT,
-                                       lsa=args.do_LSA),
+                                       vit_type=args.vit_type,
+                                       task_specific_ln=args.task_specific_ln,
+                                       spt=args.do_SPT, lsa=args.do_LSA),
                               f"fold_{fold}")
     ckpt = find_checkpoint(folder)
     if ckpt is None:

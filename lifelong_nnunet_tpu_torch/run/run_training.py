@@ -25,11 +25,13 @@ and ``--use_progress_val``, and the per-method hyperparameters of
 ``METHOD_ARGS``.  Every task is trained with the first task's plans.
 ``--no_transfer_heads`` changes only the folder (``SEQ`` -> ``MH``), as in
 the JAX CLI: the trainer still follows its class's ``TRANSFER_HEADS``.
-Options whose parts are not ported yet (task-specific LayerNorms, SPMD,
-rematerialization) are refused, as is the cascade trainer.  ``--use_vit``
+Options whose parts are not ported yet (SPMD: ``-n_devices``,
+``-model_parallel``) are refused, as is the cascade trainer.  ``--use_vit``
 trains the ViT-U-Net (``-v``, ``-v_type``, ``--do_LSA``, ``--do_SPT``,
-``-vit_depth``) into the ``Generic_ViT_UNetV{v}/...`` folder of the JAX
-CLI.  ``--no_pallas_conv`` trains on the plain route (no hand-written
+``-vit_depth``, ``--task_specific_ln``: one LayerNorm set per task) into
+the ``Generic_ViT_UNetV{v}/...`` folder of the JAX CLI (``task_specific``
+with ``--task_specific_ln``).  ``--remat`` recomputes the U-Net's stages
+in the backward (no effect on the ViT-U-Net, as in JAX).  ``--no_pallas_conv`` trains on the plain route (no hand-written
 kernels).
 
 The trained model is served by ``nnUNet_torch_inference <network>
@@ -86,8 +88,7 @@ TRAINER_NAMES = {
 
 # options kept for argument parity with the JAX CLI, with the value that
 # means "off"; any other value is refused
-UNPORTED_OPTIONS = {"task_specific_ln": False, "n_devices": None, "model_parallel": 1,
-                    "remat": False}
+UNPORTED_OPTIONS = {"n_devices": None, "model_parallel": 1}
 
 
 def build_parser(extension: str) -> argparse.ArgumentParser:
@@ -242,7 +243,9 @@ def run_training(extension: str, argv=None) -> int:
             base_num_features=args.base_features, max_num_features=args.max_features,
             device=args.device, use_kernels=args.use_kernels, use_vit=args.use_vit,
             vit_version=f"V{args.vit_version}", vit_type=args.vit_type,
-            vit_lsa=args.do_LSA, vit_spt=args.do_SPT, vit_depth_override=args.vit_depth)
+            vit_lsa=args.do_LSA, vit_spt=args.do_SPT,
+            vit_task_specific_ln=args.task_specific_ln, vit_depth_override=args.vit_depth,
+            remat=args.remat)
         meta_dir = metadata_folder(results, args.network, tasks, name,
                                    args.plans_identifier, transfer, **arch)
 

@@ -6,11 +6,13 @@ positional (network, task, fold) arguments, one task, the Generic_ViT_UNet
 backbone (``-trainer_class nnViTUNetTrainer``, the default) or a plain
 single-task U-Net (``nnUNetTrainerV2``), written to
 ``$RESULTS_FOLDER/nnUNet_ext/<network>/<task>/<trainer_class>__<plans>/
-<Generic_ViT_UNetV{v}/<type>/not_task_specific/<variant> | Generic_UNet>/fold_X``,
-where ``nnUNet_torch_inference <network> <trainer_class> -trained_on <task>``
+<Generic_ViT_UNetV{v}/<type>/<not_task_specific | task_specific>/<variant> |
+Generic_UNet>/fold_X``, where ``nnUNet_torch_inference <network> <trainer_class> -trained_on <task>``
 finds it.  Added to the JAX CLI's arguments: ``--device`` (default
 ``cuda``, never falling back to the CPU) and ``--no_pallas_conv`` (the
-plain route, without the hand-written kernels).
+plain route, without the hand-written kernels), and ``--task_specific_ln``
+(the ViT's LayerNorms per task, here the one task's set, in the
+``task_specific`` folder).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["base", "large", "huge"])
     p.add_argument("--do_LSA", action="store_true")
     p.add_argument("--do_SPT", action="store_true")
+    p.add_argument("--task_specific_ln", action="store_true")
     p.add_argument("--fp32", action="store_true")
     p.add_argument("-p", "--plans_identifier", default=paths.default_plans_identifier)
     p.add_argument("-patch_size", nargs="+", type=int, default=None)
@@ -75,11 +78,12 @@ def run_training_vit(argv=None) -> int:
         base_num_features=args.base_features, max_num_features=args.max_features,
         device=args.device, use_kernels=args.use_kernels, use_vit=use_vit,
         vit_version=version, vit_type=args.vit_type, vit_lsa=args.do_LSA,
-        vit_spt=args.do_SPT, vit_depth_override=args.vit_depth)
+        vit_spt=args.do_SPT, vit_task_specific_ln=args.task_specific_ln,
+        vit_depth_override=args.vit_depth)
     out = os.path.join(
         results, args.network, task, f"{args.trainer_class}__{args.plans_identifier}",
         arch_dir(vit=use_vit, vit_version=version, vit_type=args.vit_type,
-                 spt=args.do_SPT, lsa=args.do_LSA),
+                 task_specific_ln=args.task_specific_ln, spt=args.do_SPT, lsa=args.do_LSA),
         f"fold_{args.fold}")
     trainer_cls = ViTUNetTrainer if use_vit else BaseUNetTrainer
     trainer = trainer_cls(plans, args.network, out, opts)

@@ -43,12 +43,14 @@ CKPT_SUFFIX = ".pt"
 
 
 def vit_manifest(version: str, vit_type: str, lsa: bool, spt: bool,
-                 depth_override: int | None) -> dict:
+                 depth_override: int | None, task_specific_ln: bool = False,
+                 ln_tasks=(), active_task_idx: int = 0) -> dict:
     """The manifest's ``vit`` entry, the JAX trainer's keys
-    (``trainer.py:671-679``); task-specific LayerNorms are not ported yet."""
+    (``trainer.py:671-679``): ``ln_tasks`` and ``active_task_idx`` are the
+    model's task-specific LayerNorms."""
     return {"version": version, "type": vit_type, "lsa": lsa, "spt": spt,
-            "task_specific_ln": False, "ln_tasks": [], "active_task_idx": 0,
-            "depth_override": depth_override}
+            "task_specific_ln": bool(task_specific_ln), "ln_tasks": list(ln_tasks),
+            "active_task_idx": int(active_task_idx), "depth_override": depth_override}
 
 
 def base_manifest(plans, config_name: str, model, trainer: str = "nnUNetTrainerV2",

@@ -3,7 +3,9 @@
 
 The manifest embeds the full plans (the first task's, so later tasks never
 reshape the network), the network widths and, for a ViT-U-Net, its
-``vit`` options and the patch size its position embeddings were sized for;
+``vit`` options (its task-specific LayerNorms' ``ln_tasks`` and
+``active_task_idx`` too) and the patch size its position embeddings were
+sized for;
 ``restore_model`` rebuilds the U-Net or the ViT-U-Net from them and loads
 one task's head (a ViT-U-Net keeps that patch as ``model.patch_size``,
 which serving windows with); ``restore_trainer`` rebuilds the trainer of
@@ -67,11 +69,11 @@ def model_from_manifest(manifest: dict, plans: Plans, **kwargs) -> GenericUNet:
     vit = manifest.get("vit")
     if not (manifest.get("use_vit") and vit):
         return unet_from_plans(plans, manifest["config_name"], **widths)
-    if vit.get("ln_tasks") or vit.get("task_specific_ln"):
-        raise NotImplementedError("task-specific LayerNorms are not ported yet")
     return vit_unet_from_plans(
         plans, manifest["config_name"], manifest.get("patch_size"),
         vit_version=vit["version"], vit_type=vit["type"], lsa=vit["lsa"], spt=vit["spt"],
+        ln_tasks=tuple(vit.get("ln_tasks") or ()),
+        active_task_idx=int(vit.get("active_task_idx", 0)),
         **widths, **vit_overrides(vit.get("depth_override")))
 
 
@@ -99,7 +101,8 @@ def restore_model(checkpoint_base: str, device: torch.device, head: str | None =
 def restore_trainer(checkpoint_base: str, options=None, restore_opt: bool = False):
     """checkpoint_base: path WITHOUT extension.  A trainer of the manifest's
     class on ``options.device`` (``options`` is copied, then given the
-    manifest's fold, split, patch, batch, widths and ViT options) with the
+    manifest's fold, split, patch, batch, widths and ViT options, the
+    task-specific LayerNorms' sets and index included) with the
     manifest's hyperparameters, its registry, epoch, global step and
     ``cl_state`` (EWC's fisher and anchors, RW's running state) restored,
     and the optimizer with ``restore_opt``; its output folder is the
@@ -122,15 +125,16 @@ def restore_trainer(checkpoint_base: str, options=None, restore_opt: bool = Fals
     opts.max_num_features = manifest.get("max_num_features") or opts.max_num_features
     vit = manifest.get("vit")
     if manifest.get("use_vit") and vit:
-        if vit.get("ln_tasks") or vit.get("task_specific_ln"):
-            raise NotImplementedError("task-specific LayerNorms are not ported yet")
         opts.use_vit = True
         opts.vit_version, opts.vit_type = vit["version"], vit["type"]
         opts.vit_lsa, opts.vit_spt = vit["lsa"], vit["spt"]
+        opts.vit_task_specific_ln = bool(vit.get("task_specific_ln"))
         opts.vit_depth_override = vit.get("depth_override")
     trainer = cls(plans_from_manifest(manifest), manifest["config_name"],
                   os.path.dirname(checkpoint_base), opts,
                   **_parse_hyperparams(cls, manifest.get("hyperparams", {})))
+    if vit and vit.get("ln_tasks"):
+        trainer.set_vit_task_lns(vit["ln_tasks"], int(vit.get("active_task_idx", 0)))
     trainer.load_checkpoint(os.path.basename(checkpoint_base), restore_opt=restore_opt)
     return trainer
 

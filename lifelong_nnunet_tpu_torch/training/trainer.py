@@ -33,12 +33,20 @@ trainer that trains one task in phases (LwF) sets ``_skip_before_ckpt``
 ``after_task``, no final checkpoint and no manifest update), as the JAX
 ``train_task`` reads them.
 
+With ``vit_task_specific_ln`` the ViT-U-Net's LayerNorms are per task:
+at the start of each task the model is rebuilt with ``ln_tasks`` = the
+registry's tasks and that task's index (:meth:`_maybe_update_vit_task_lns`,
+the JAX trainer's), and the manifest's ``vit`` entry records both.
+``remat`` recomputes the U-Net's stages in the backward
+(``models/unet.py``; a no-op for the ViT-U-Net, as in JAX).
+``use_param_split`` re-splits each task's train cases 80:20
+(``data/dataset.py:param_search_split``), as the parameter search trains.
 Not ported yet, and refused by ``run/run_training.py`` when asked for:
-task-specific LayerNorms, SPMD (``-n_devices`` / ``-model_parallel``) and
-rematerialization; their options are not fields of :class:`TrainerOptions`
-(nor is the profiler's).  In place of the JAX package's ``progress.png``
-(matplotlib is not a dependency of the port), ``progress.json`` beside the
-checkpoints holds the epoch curves and every train step's loss.
+SPMD (``-n_devices`` / ``-model_parallel``); its options are not fields
+of :class:`TrainerOptions` (nor is the profiler's).  In place of the JAX
+package's ``progress.png`` (matplotlib is not a dependency of the port),
+``progress.json`` beside the checkpoints holds the epoch curves and every
+train step's loss.
 """
 
 from __future__ import annotations
@@ -48,19 +56,20 @@ import json
 import math
 import os
 import time
-from dataclasses import dataclass
+from collections import OrderedDict
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
 from ..data.augment import AugmentConfig
-from ..data.dataset import PreprocessedDataset, final_splits
+from ..data.dataset import PreprocessedDataset, final_splits, param_search_split
 from ..data.pipeline import Prefetcher
 from ..data.sampler import PatchSampler
 from ..device import resolve_device
 from ..evaluation.metrics import subject_metrics
 from ..inference.sliding_window import predict_sliding_window
-from ..models.multihead import MultiHeadParams
+from ..models.multihead import MultiHeadParams, split_params
 from ..models.unet import ds_scale_factors, unet_from_plans
 from ..models.vit_unet import vit_overrides, vit_unet_from_plans
 from ..utilities.logging_utils import RunLogger
@@ -92,6 +101,8 @@ class TrainerOptions:
     device: str = "cuda"
     use_kernels: bool = True               # False: the plain route
     use_progress_val: bool = False         # _perform_validation every save_every
+    use_param_split: bool = False          # the parameter search's 80:20 re-split
+    remat: bool = False                    # recompute the U-Net's stages in the backward
     # "sliding_window" (per-subject metrics on whole volumes) or "patches"
     # (the reference's patch-sampled periodic validation)
     val_mode: str = "sliding_window"
@@ -101,6 +112,7 @@ class TrainerOptions:
     vit_type: str = "base"
     vit_lsa: bool = False
     vit_spt: bool = False
+    vit_task_specific_ln: bool = False     # one LayerNorm set per task
     vit_depth_override: int | None = None  # depth d, embed max(16, 8 d), 2 heads
 
 
@@ -126,22 +138,11 @@ class MultiHeadTrainer:
             and self.device.type == "cuda" else torch.float32
         self.patch_size = tuple(self.opts.patch_size or self.cfg.patch_size)
         self.batch_size = int(self.opts.batch_size or self.cfg.batch_size)
-        # the CT-scale routes' switches, read where the JAX trainer reads them
-        # (trainer.py:151-156, LNN_UPT_MODE through its model)
-        widths = dict(dtype=dtype, use_kernels=self.opts.use_kernels,
-                      generator=torch.Generator().manual_seed(SEED),
-                      base_num_features=self.opts.base_num_features,
-                      max_num_features=self.opts.max_num_features, **route_switches())
+        self._dtype = dtype
+        self.model = self._make_model().to(self.device)
         if self.opts.use_vit:
-            self.model = vit_unet_from_plans(
-                plans, config_name, self.patch_size, vit_version=self.opts.vit_version,
-                vit_type=self.opts.vit_type, lsa=self.opts.vit_lsa, spt=self.opts.vit_spt,
-                **widths, **vit_overrides(self.opts.vit_depth_override))
             # the ViT's batch halving (reference multihead trainer :283-292)
             self.batch_size = max(1, self.batch_size // 2)
-        else:
-            self.model = unet_from_plans(plans, config_name, **widths)
-        self.model = self.model.to(self.device)
         self.ds_factors = tuple(ds_scale_factors(self.cfg.pool_op_kernel_sizes))
         self.mh: MultiHeadParams | None = None
         self.cl_state = self.init_cl_state()
@@ -165,6 +166,54 @@ class MultiHeadTrainer:
         # the phases of a multi-phase trainer (LwF), see the module docstring
         self._skip_before_ckpt = False
         self._suppress_finalize = False
+
+    def _make_model(self, ln_tasks=(), active_task_idx: int = 0):
+        """The network of the options (``ln_tasks`` / ``active_task_idx``:
+        the ViT's task-specific LayerNorms), seeded, on the CPU; the
+        CT-scale routes' switches are read where the JAX trainer reads
+        them (trainer.py:151-156, LNN_UPT_MODE through its model)."""
+        o = self.opts
+        widths = dict(dtype=self._dtype, use_kernels=o.use_kernels,
+                      generator=torch.Generator().manual_seed(SEED),
+                      base_num_features=o.base_num_features,
+                      max_num_features=o.max_num_features, **route_switches())
+        if o.use_vit:
+            return vit_unet_from_plans(
+                self.plans, self.config_name, self.patch_size, vit_version=o.vit_version,
+                vit_type=o.vit_type, lsa=o.vit_lsa, spt=o.vit_spt, ln_tasks=ln_tasks,
+                active_task_idx=active_task_idx, **widths,
+                **vit_overrides(o.vit_depth_override))
+        return unet_from_plans(self.plans, self.config_name, remat=o.remat, **widths)
+
+    def set_vit_task_lns(self, ln_tasks, active_task_idx: int):
+        """Rebuild the ViT-U-Net with these task-specific LayerNorms (its
+        parameters as a fresh model's until the registry is loaded)."""
+        self.model = self._make_model(tuple(ln_tasks), active_task_idx).to(self.device)
+
+    def _maybe_update_vit_task_lns(self, task: str):
+        """Task-specific LayerNorms (the JAX trainer's, reference
+        ``register_new_task`` / ``use_task``): rebuild the model with
+        ``ln_tasks`` = the registry's tasks and ``task``'s index; every
+        parameter of the registry is kept, the new model's fresh ones taken
+        only for keys it lacks (the new task's sets; at the first task
+        they replace the single set), and body and ``task``'s head are
+        re-split by the model's ``module_order``."""
+        if not (self.opts.use_vit and self.opts.vit_task_specific_ln):
+            return
+        tasks = tuple(self.mh.tasks)
+        idx = tasks.index(task)
+        if (self.model.ln_tasks, self.model.active_task_idx) == (tasks, idx):
+            return
+        self.set_vit_task_lns(tasks, idx)
+        old = self.mh.assemble(task)
+        merged = {k: old.get(k, v) for k, v in self.model.state_dict().items()}
+        body, head = split_params(merged, self.mh.split_at, self.model.module_order())
+        heads = OrderedDict(self.mh.heads)
+        heads[task] = head
+        self.mh = replace(self.mh, body=body, heads=heads,
+                          module_order=self.model.module_order())
+        self.logger(f"[{task}] ViT task-specific LNs active (idx {idx}, "
+                    f"{len(tasks)} task LN sets)")
 
     # ------------------------------------------------------------------ hooks
     def init_cl_state(self):
@@ -211,6 +260,8 @@ class MultiHeadTrainer:
             splits = final_splits(os.path.dirname(stage_dir), ds.cases)
             s = splits[fold % len(splits)]
             tr, val = list(s["train"]), list(s["val"])
+        if self.opts.use_param_split:
+            tr, val = param_search_split(tr)
         self._datasets[task] = (ds, tr, val)
         return tr, val
 
@@ -289,6 +340,7 @@ class MultiHeadTrainer:
         self.register_task_data(task, stage_dir)
         self._ensure_initialized(task)
         self.mh = self.mh.add_new_task(task, use_init=not self.TRANSFER_HEADS)
+        self._maybe_update_vit_task_lns(task)
         self.before_task(task)
         self._build_step()
         self._update_manifest(start_training_on=task, checkpoint_should_exist=False)
@@ -458,8 +510,10 @@ class MultiHeadTrainer:
     # -------------------------------------------------------------- checkpoints
     def manifest(self) -> dict:
         o = self.opts
-        vit = checkpoints.vit_manifest(o.vit_version, o.vit_type, o.vit_lsa, o.vit_spt,
-                                       o.vit_depth_override) if o.use_vit else None
+        vit = checkpoints.vit_manifest(
+            o.vit_version, o.vit_type, o.vit_lsa, o.vit_spt, o.vit_depth_override,
+            o.vit_task_specific_ln, self.model.ln_tasks,
+            self.model.active_task_idx) if o.use_vit else None
         man = checkpoints.base_manifest(self.plans, self.config_name, self.model,
                                         trainer=type(self).__name__,
                                         extension=self.EXTENSION, fold=o.fold, vit=vit)

@@ -35,6 +35,15 @@ console_scripts = [
     "nnUNet_torch_train_body_froz = "
     "lifelong_nnunet_tpu_torch.run.run_training:main_frozen_body_seq",
     "nnUNet_torch_train_vit = lifelong_nnunet_tpu_torch.run.run_training_vit:main",
+    "nnUNet_torch_parameter_search = lifelong_nnunet_tpu_torch.run.run_param_search:main",
+    "nnUNet_torch_plan_and_preprocess = lifelong_nnunet_tpu_torch.run.plan_and_preprocess:main",
+    "nnUNet_torch_dataset_label_mapping = "
+    "lifelong_nnunet_tpu_torch.scripts.dataset_label_mapping:main",
+    "nnUNet_torch_update_checkpoints = lifelong_nnunet_tpu_torch.scripts.update_checkpoints:main",
+    "nnUNet_torch_update_checkpoints_all = "
+    "lifelong_nnunet_tpu_torch.scripts.update_checkpoints:main_all",
+    "nnUNet_torch_delete_tasks = lifelong_nnunet_tpu_torch.scripts.delete_tasks:main",
+    "nnUNet_torch_join_datasets = lifelong_nnunet_tpu_torch.scripts.join_datasets:main",
 ] + [
     "nnUNet_parameter_search = lifelong_nnunet_tpu.run.run_param_search:main",
     "nnUNet_train_vit = lifelong_nnunet_tpu.run.run_training_vit:main",

@@ -18,8 +18,9 @@ at the same relative path of a second tree.  Then:
     ``nnUNet_torch_inference --postprocess`` applies it;
   * ``nnUNet_torch_evaluate`` and ``nnUNet_torch_evaluate2`` with
     ``--device cpu`` write the JAX CLIs' evaluation trees (the Evaluator's
-    values to 1e-4, evaluator2's as above), and refuse
-    ``--task_specific_ln`` and trainers not ported yet."""
+    values to 1e-4, evaluator2's as above), look for
+    ``--task_specific_ln`` models in the ``task_specific`` folder, and
+    refuse trainers not ported yet."""
 
 import csv
 import json
@@ -382,7 +383,9 @@ def test_evaluation_clis_refuse_what_the_port_lacks(env, monkeypatch):
     argv = ["3d_fullres", "lwf", "-trained_on", "97", "98", "-evaluate_on", "97",
             "--device", "cpu"]
     for cli in (run_evaluation, run_evaluation2_cli):
-        with pytest.raises(NotImplementedError):
-            cli(argv + ["--task_specific_ln"])
+        # task-specific LayerNorms are ported: the option names the
+        # task_specific folder, which holds no model here
+        with pytest.raises(FileNotFoundError, match="task_specific"):
+            cli(argv + ["--use_vit", "--task_specific_ln"])
         with pytest.raises(NotImplementedError):
             cli(["3d_fullres", "cascade_fullres"] + argv[2:])

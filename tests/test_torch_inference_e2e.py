@@ -110,18 +110,27 @@ def test_cuda_without_a_gpu_raises(served, monkeypatch):
     assert not (served["root"] / "never").exists()
 
 
-REFUSED = {  # id: (trainer, extra arguments)
-    "extra0": ("nnViTUNetTrainer", ["--task_specific_ln"]),
-    "extra3": ("nnUNetTrainerV2", ["--task_specific_ln"]),
-    "extra6": ("cascade_fullres", []), "extra7": ("cascade_fullres", ["--use_vit"])}
+REFUSED = {  # id: (trainer, extra arguments, what happens)
+    "extra0": ("nnViTUNetTrainer", ["--task_specific_ln"], FileNotFoundError),
+    "extra3": ("nnUNetTrainerV2", ["--task_specific_ln"], None),
+    "extra6": ("cascade_fullres", [], NotImplementedError),
+    "extra7": ("cascade_fullres", ["--use_vit"], NotImplementedError)}
 
 
-@pytest.mark.parametrize("trainer,extra", list(REFUSED.values()), ids=list(REFUSED))
-def test_unported_model_layouts_are_refused(served, trainer, extra):
-    """Trainers the port does not train yet, and every option of the JAX
-    CLI that acts on a model the port does not serve yet (task-specific
-    LayerNorms), are refused instead of ignored."""
-    with pytest.raises(NotImplementedError):
-        run_inference(["3d_fullres", trainer, "-i", served["images"], "-o",
-                       str(served["root"] / "never"), "-trained_on", TASK,
-                       "--device", "cpu"] + extra)
+@pytest.mark.parametrize("trainer,extra,outcome", list(REFUSED.values()), ids=list(REFUSED))
+def test_unported_model_layouts_are_refused(served, trainer, extra, outcome):
+    """Trainers the port does not train yet (the cascade) are refused
+    instead of ignored.  ``--task_specific_ln`` is ported: it names the
+    ``task_specific`` folder of a ViT-U-Net layout (where this test's
+    results hold no model: not found) and leaves a U-Net's folder as it is
+    (the model is served)."""
+    argv = ["3d_fullres", trainer, "-i", served["images"], "-o",
+            str(served["root"] / f"never_{trainer}"), "-trained_on", TASK,
+            "--device", "cpu"] + extra
+    if outcome is None:
+        assert run_inference(argv) == 0
+        assert len(os.listdir(served["root"] / f"never_{trainer}")) == 2
+        return
+    with pytest.raises(outcome, match="task_specific" if outcome is FileNotFoundError
+                       else None):
+        run_inference(argv)

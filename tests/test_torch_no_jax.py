@@ -4,12 +4,15 @@ package ``lifelong_nnunet_tpu``, not even its jax-free modules: a fresh
 interpreter whose ``sys.meta_path`` refuses those imports loads every module
 of ``lifelong_nnunet_tpu_torch`` (the CT routes' ``ops/kernels/block_pack.py``
 and ``ops/kernels/interleave.py``, the evaluation modules and the LwF, MiB,
-PLOP / POD and OwnM trainers among them) and ``chip_smoke.py``, runs one
+PLOP / POD and OwnM trainers, the parameter search, the scripts and the
+helpers among them), resolves every ``nnUNet_torch_*`` console script of
+``setup.py``, loads ``chip_smoke.py``, runs one
 tiny CPU forward through the model and the sliding window and one through
 the CT routes (the blocked conv and the interleave upsample), and one CPU
 training run
-of a single step through ``run/run_training.py`` and one through
-``run/run_training_vit.py``."""
+of a single step through ``run/run_training.py``, one through
+``run/run_training_vit.py`` and one tiny parameter-search experiment
+(``experiment/experiment.py``)."""
 
 import ast
 import json
@@ -57,8 +60,23 @@ SCRIPT = BLOCKER + textwrap.dedent("""
     new |= {"lifelong_nnunet_tpu_torch." + m for m in (
         "evaluation.cl_metrics", "evaluation.evaluator", "evaluation.evaluator2",
         "inference.postprocessing", "run.run_evaluation", "training.trainers.lwf",
-        "training.trainers.mib", "training.trainers.plop", "training.trainers.own")}
+        "training.trainers.mib", "training.trainers.plop", "training.trainers.own",
+        "experiment.experiment", "experiment.param_search", "run.run_param_search",
+        "utilities.helpful_functions", "scripts.create_split",
+        "scripts.dataset_label_mapping", "scripts.delete_tasks", "scripts.join_datasets",
+        "scripts.update_checkpoints")}
     assert new <= set(names), new - set(names)
+    import re
+    setup = re.sub(r'"\\s*\\n\\s*"', "", open("setup.py").read())
+    scripts = re.findall(r"(nnUNet_torch_\\w+) = (lifelong_nnunet_tpu_torch[\\w.]+):(\\w+)",
+                         setup)
+    for _, module, func in scripts:
+        assert callable(getattr(importlib.import_module(module), func)), (module, func)
+    want = {"nnUNet_torch_parameter_search", "nnUNet_torch_plan_and_preprocess",
+            "nnUNet_torch_dataset_label_mapping", "nnUNet_torch_update_checkpoints",
+            "nnUNet_torch_update_checkpoints_all", "nnUNet_torch_delete_tasks",
+            "nnUNet_torch_join_datasets"}
+    assert want <= {name for name, _, _ in scripts}, want - {n for n, _, _ in scripts}
     import chip_smoke
     from lifelong_nnunet_tpu_torch.inference.sliding_window import predict_sliding_window
     from lifelong_nnunet_tpu_torch.models.unet import GenericUNet
@@ -103,6 +121,18 @@ TRAIN_SCRIPT = BLOCKER + textwrap.dedent("""
     run_training_vit(["3d_fullres", "Task097_SynthA", "-1", "-num_epochs", "1",
                       "-num_iters", "1", "-val_iters", "1", "-base_features", "2",
                       "-max_features", "4", "-vit_depth", "1", "--device", "cpu"])
+    from lifelong_nnunet_tpu_torch.experiment.experiment import Experiment
+    from lifelong_nnunet_tpu_torch.planning.plans import Plans, plans_path
+    from lifelong_nnunet_tpu_torch.training.trainer import TrainerOptions
+    pre_task = os.path.join(root, "pre", "Task097_SynthA")
+    stage = os.path.join(pre_task, "nnUNetData_plans_v2.1_3d_fullres")
+    res = Experiment("ewc", Plans.load(plans_path(pre_task)), "3d_fullres",
+                     {"Task097_SynthA": stage}, os.path.join(root, "search"),
+                     {"ewc_lambda": 0.1},
+                     TrainerOptions(num_epochs=1, iters_per_epoch=1, val_iters=1,
+                                    patch_size=(8, 8, 8), base_num_features=2,
+                                    max_num_features=4, fold=-1, device="cpu")).run("exp_0")
+    assert os.path.isfile(res["csv"]), res
     loaded = {m.split(".")[0] for m in sys.modules} & set(Refuse.BLOCKED)
     print(json.dumps({"loaded": sorted(loaded)}))
 """)
@@ -126,7 +156,7 @@ def test_one_train_step_runs_without_jax(tmp_path):
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"loaded": []}
-    assert len(list(tmp_path.rglob("model_final_checkpoint.pt"))) == 2
+    assert len(list(tmp_path.rglob("model_final_checkpoint.pt"))) == 3
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):

@@ -111,14 +111,32 @@ def test_cuda_without_a_gpu_raises(env, monkeypatch):
                                  "--device", "cuda"] + TINY)
 
 
-@pytest.mark.parametrize("extra", [
-    pytest.param(["--task_specific_ln"], id="extra2"),
-    pytest.param(["-n_devices", "2"], id="extra3"),
-    pytest.param(["-model_parallel", "2"], id="extra4"),
-    pytest.param(["--remat"], id="extra7")])
-def test_unported_options_are_refused(env, extra):
-    with pytest.raises(NotImplementedError):
-        run_training("base_v2", ["3d_fullres", "-t", TASK, "--device", "cpu"] + extra)
+@pytest.mark.parametrize("extra,refused", [
+    pytest.param(["--use_vit", "-vit_depth", "1", "--task_specific_ln"], False, id="extra2"),
+    pytest.param(["-n_devices", "2"], True, id="extra3"),
+    pytest.param(["-model_parallel", "2"], True, id="extra4"),
+    pytest.param(["--remat"], False, id="extra7")])
+def test_unported_options_are_refused(env, extra, refused, tmp_path, monkeypatch):
+    """SPMD is refused.  Task-specific LayerNorms and rematerialization are
+    ported: a one-step run trains into the ``task_specific`` folder with
+    the task's LayerNorm set in its manifest, or with every U-Net stage
+    recomputed."""
+    argv = ["3d_fullres", "-t", TASK, "--device", "cpu"] + extra
+    if refused:
+        with pytest.raises(NotImplementedError):
+            run_training("base_v2", argv)
+        return
+    monkeypatch.setenv("RESULTS_FOLDER", str(tmp_path))
+    assert run_training("base_v2", argv + ["-num_epochs", "1", "-num_iters", "1",
+                                           "-val_iters", "1"] + TINY) == 0
+    (manifest,) = tmp_path.rglob("model_final_checkpoint.json")
+    rel = manifest.relative_to(tmp_path).parts
+    man = json.loads(manifest.read_text())
+    if "--remat" in extra:
+        assert "Generic_UNet" in rel and not man["use_vit"]
+    else:
+        assert "task_specific" in rel
+        assert man["vit"]["task_specific_ln"] and man["vit"]["ln_tasks"] == [TASK]
 
 
 def test_only_the_ported_trainers_are_registered():
