@@ -26,7 +26,9 @@ Phases (one line each; any failure raises, so the exit code is not 0):
   4. the serving path: a hippocampus-scale synthetic task is planned and
      preprocessed, a seeded full-width model is saved as a port checkpoint,
      and ``nnUNet_torch_inference --device cuda`` segments its 4 cases (one
-     window each) and one larger case (8 windows, overlap-added); the launch
+     window each) and one larger case (8 windows, overlap-added) through
+     the volume stream, its default (the larger case's batch of 8 x 8, the
+     four small cases' windows in one batch of 4 x 8); the launch
      counters must equal what the route predicts, the larger case's f32
      probabilities must agree with the plain route's, and the plain route
      is timed beside the kernel route;
@@ -51,8 +53,9 @@ Phases (one line each; any failure raises, so the exit code is not 0):
      and the kernel route's device time by kernel (torch.profiler);
   7. the flash-attention kernels (forward, and the backward's three
      kernels) against their plain versions at the ViT train step's
-     (1, 12, 490, 64), serving's (8, 12, 490, 64), CT scale's
-     (1, 12, 512, 64) and hd 80's (1, 16, 512, 80), f32 (on the FMA
+     (1, 12, 490, 64), serving's (8, 12, 490, 64; the stream's four
+     one-window cases 32, 12, 490, 64), CT scale's (1, 12, 512, 64) and
+     hd 80's (1, 16, 512, 80), f32 (on the FMA
      kernels) and bf16 (on the tensor-core kernels), a second run equal
      bit for bit; per shape in bf16, and at the train shape in f32, the
      device time of one launch (torch.profiler), its TFLOP/s and share of
@@ -242,13 +245,53 @@ Phases (one line each; any failure raises, so the exit code is not 0):
      worker starts; ``nnUNet_torch_plan_and_preprocess`` on a copy of task
      A's raw data (the same plan and cases) and
      ``nnUNet_torch_update_checkpoints`` (then ``_all``, back) on a copy of
-     phase 15's task-LN manifests.
-Phases 4, 6, 8 and 11-16 run with both switches set: at hippocampus scale the
-gates admit nothing, so their launch counts are those of the ordinary
-routes.  The fused conv, its data gradient and flash attention (forward
-and backward) count every launch and, apart, those on the tensor-core
-kernels: on the main paths (bf16) every one must take them, in the f32
-checks of phases 4, 6, 8, 10 and 15 none.  The line
+     phase 15's task-LN manifests;
+  17. the other configurations: (a) the ``2d`` configuration of phase 4's
+     task (patch 80x56, batch 11, four pools, 32 -> 512 features; every
+     conv cuDNN's, each followed by the InstanceNorm kernel at 2D shapes)
+     trained by ``nnUNet_torch_train_sequential 2d --use_progress_val``
+     (1 epoch of 20 steps and 2 validation batches, then the sliding
+     window over the validation volumes slice by slice), served by
+     ``nnUNet_torch_inference 2d`` on phase 4's folder (each volume slice by
+     slice, TTA over the two in-plane axes) and scored by
+     ``nnUNet_torch_evaluate 2d``: launches as predicted (the
+     InstanceNorm forward and backward by form, no fused conv), a loss that
+     falls, the kernel route's bf16 segmentations against the plain
+     route's (>= ROUTE_AGREE_2D of voxels) and the largest case's f32
+     probabilities of both (within 1e-3), the InstanceNorm kernels against
+     their plain versions at every 2D shape (the forward at the train and
+     serving batches, the backward at the train batch, each launch in its
+     planned form), Dice recorded; (b) the volume stream: phase 4's
+     folder through ``predict_from_folder`` at its default and case by case
+     (``volume_batch=1``) from phase 6's trained model, in turns: launches
+     as predicted, segmentations equal on >= 0.9999 of voxels, the largest
+     |difference| of the bf16 probabilities and s/volume of both recorded;
+     (c) the cascade: a task of two 272^3 cases (cropped to 268^3), planned
+     to 3d_fullres (128^3) and 3d_lowres (128x160x160, batch 2) and
+     preprocessed to both, ``nnUNet_torch_train_sequential 3d_lowres``
+     (20 steps, 2 validation batches, progress validation),
+     ``nnUNet_torch_prepare_cascade`` (the lowres model over both cases,
+     the one-hot foreground masks appended to the fullres cases),
+     ``CascadeFullResTrainer(...).train_task`` on that stage (3 input
+     channels; 20 steps, 2 validation batches, progress validation) and
+     ``restore_trainer`` on its checkpoint: launches as predicted per path
+     (every pack in the tma form, the lowres patch's 4x5x5 block grid, the
+     interleave), the one-hot channels in {0, 1}, every kernel of both
+     stages against its plain version at the stages' shapes (the copy
+     kernels bit for bit at B=2 and 8; the fused conv at each stride-1
+     shape, the cascade's first at Cin = 3, and its data gradient at B=2;
+     the InstanceNorm forward at B=2 and 8 and its backward at B=2), the
+     f32 step check of phase 6 on the lowres and the cascade model on the
+     CT routes (the cascade's first conv blocked at Cin = 3), seconds and
+     peak memory per stage, warm s/step and the validation Dice recorded;
+     then phase 17's seconds and the run's.
+Phases 4, 6, 8 and 11-17 run with both switches set: at hippocampus scale
+and on the 2D U-Net the gates admit nothing, so their launch counts are
+those of the ordinary routes; phase 17's cascade runs the CT routes.  The
+fused conv, its data gradient and flash attention (forward and backward)
+count every launch and, apart, those on the tensor-core kernels: on the
+main paths (bf16) every one must take them, in the f32 checks of phases
+4, 6, 8, 10, 15 and 17 none.  The line
 before the last is the kernels' JSON record (the U-Net's forward kernels
 per forward at the serving path's largest batch, its backward kernels per
 train step, the flash kernels per ViT-U-Net train step, the copy kernels
@@ -266,8 +309,12 @@ trainings), ``cl_pod_serve`` (its servings of PLOP's heads and the
 evaluations of PLOP's and POD's stages), ``vit_var_train`` /
 ``vit_var_serve`` (phase 15's V2, V3 and V4 runs and servings),
 ``vit_ln_train`` / ``vit_ln_serve`` (its task-LN sequences, their ``-c``
-run and servings), ``remat_train`` (its ``--remat`` run) and
-``param_search`` (phase 16's search in this process); the two kernels of the fused
+run and servings), ``remat_train`` (its ``--remat`` run),
+``param_search`` (phase 16's search in this process), ``2d_train`` /
+``2d_serve`` (phase 17's 2d training; its serving and evaluation),
+``stream_serve`` (its four stream / per-case servings), ``lowres_train``,
+``cascade_prepare`` and ``cascade_train`` (the cascade's training and its
+validation); the two kernels of the fused
 conv, its data gradient and flash attention as ``conv3d_in_lrelu_tc`` /
 ``conv3d_dx_tc`` / ``flash_attention_tc`` / ``flash_attention_bwd_tc``
 (the tensor-core kernels) and ``conv3d_in_lrelu_f32`` / ``conv3d_dx_f32``
@@ -323,8 +370,9 @@ from lifelong_nnunet_tpu_torch.inference.postprocessing import (  # noqa: E402
 from lifelong_nnunet_tpu_torch.inference.predict import (  # noqa: E402
     case_files, predict_case, predict_from_folder, preprocess_for_inference,
     remove_all_but_largest_component)
+from lifelong_nnunet_tpu_torch.inference.cascade import CascadeFullResTrainer  # noqa: E402
 from lifelong_nnunet_tpu_torch.inference.sliding_window import (  # noqa: E402
-    predict_sliding_window, window_grid)
+    predict_sliding_window, predict_sliding_window_multi, window_grid)
 from lifelong_nnunet_tpu_torch.models.unet import (  # noqa: E402
     ConvNormAct, ds_scale_factors, unet_from_plans)
 from lifelong_nnunet_tpu_torch.models.vit_unet import vit_unet_from_plans  # noqa: E402
@@ -344,6 +392,7 @@ from lifelong_nnunet_tpu_torch.ops.cl_losses import (  # noqa: E402
     QuadraticPenalty, local_pod_loss, pod_regions, pod_scales)
 from lifelong_nnunet_tpu_torch.ops.losses import deep_supervision_loss  # noqa: E402
 from lifelong_nnunet_tpu_torch.planning.plans import Plans, plans_path  # noqa: E402
+from lifelong_nnunet_tpu_torch.run import prepare_cascade  # noqa: E402
 from lifelong_nnunet_tpu_torch.run.plan_and_preprocess import plan_and_preprocess  # noqa: E402
 from lifelong_nnunet_tpu_torch.run.plan_and_preprocess import (  # noqa: E402
     main as plan_and_preprocess_main)
@@ -380,6 +429,7 @@ from lifelong_nnunet_tpu_torch.utilities.imageio import read_image  # noqa: E402
 from lifelong_nnunet_tpu_torch.utilities.synthetic import make_synthetic_task  # noqa: E402
 
 WINDOW_BATCH = 8                 # the CLI's default
+VOLUME_BATCH = 8                 # the serving CLI's default volume stream
 STEP_REPS = 10                   # timed train steps per route and turn
 PROFILE_STEPS = 5                # profiled kernel-route train steps
 TTA = 8                          # mirror combos over 3 axes
@@ -395,11 +445,13 @@ TRAIN_EPOCHS, TRAIN_ITERS, VAL_ITERS = 2, 60, 4
 F32_GRAD_LIMIT = 10.0
 # flash attention (phase 7): the train step's shape (ViT-base on the
 # hippocampus plan's first skip, 56x80x56 -> a 7x10x7 grid of patch 8), the
-# serving path's (8 mirrors of one window), CT scale (128^3 -> 16^3 patches)
+# serving path's (8 mirrors of one window; the volume stream's 4 one-window
+# cases x 8 mirrors), CT scale (128^3 -> 16^3 patches)
 # and the huge preset's head dim; limits (atol, rtol) against the plain
 # versions on the same inputs
 FLASH_SHAPES = {"train": (1, 12, 490, 64), "serve": (8, 12, 490, 64),
-                "CT": (1, 12, 512, 64), "hd80": (1, 16, 512, 80)}
+                "stream": (32, 12, 490, 64), "CT": (1, 12, 512, 64),
+                "hd80": (1, 16, 512, 80)}
 FLASH_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-3, 1e-2)}
 NO_JAX = ("lifelong_nnunet_tpu", "jax", "jaxlib", "flax", "optax", "msgpack", "sklearn")
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): bf16 tensor
@@ -444,6 +496,29 @@ VIT_VARIANTS = {"V2": ("--do_LSA", "--do_SPT"), "V3": (), "V4": ()}
 VAR_ITERS, LN_ITERS, REMAT_ITERS, SEARCH_ITERS = 15, 15, 10, 10
 # the checkpoints phases 15-16 write to disk (the others stay in memory)
 FINAL = ("model_final_checkpoint",)
+# the other nnU-Net configurations (phase 17): the 2d plan of phase 4's task
+# and its steps; the cascade's task (two cases of 272^3, cropped to 268^3,
+# which the planner gives a 3d_lowres configuration), the two plans it
+# gives and the steps of each stage
+PLAN_2D = {"patch_size": [80, 56], "batch_size": 11,
+           "pool_op_kernel_sizes": [[2, 2], [2, 2], [2, 2], [2, 1]]}
+CFG2D_ITERS = 20
+CASCADE_TASK = dict(task_name="Task095_Cascade", shape=(272, 272, 272), num_cases=2, seed=3)
+CASCADE_PLANS = {"3d_fullres": {"patch_size": [128, 128, 128], "batch_size": 2},
+                 "3d_lowres": {"patch_size": [128, 160, 160], "batch_size": 2}}
+CASCADE_ITERS, CASCADE_VAL_ITERS = 20, 2
+# the lowres patch's block grid on the blocked route (bs 32 on 128x160x160),
+# and the kernels both cascade trainings must launch
+CASCADE_GRID = (4, 5, 5)
+CASCADE_KERNELS = ("conv3d_in_lrelu", "conv3d_dx", "instance_norm_leaky",
+                   "instance_norm_leaky_bwd", "pack_blocks", "unpack_blocks", "interleave_up2",
+                   "deinterleave2")
+# the stream's segmentations against the per-case path's, and the 2d
+# configuration's kernel route's against its plain route's in bf16 (share
+# of voxels; the second pair rounds differently: after 20 steps 0.99969 of
+# voxels agreed on an H100 80GB HBM3, 700 W, PERF.md)
+STREAM_AGREE = 0.9999
+ROUTE_AGREE_2D = 0.999
 # f32 copies at the serving batch are checked where the kernel's input and
 # output fit in this many bytes (the largest, 64 x 64 x 128^3, would not fit
 # beside its plain version)
@@ -626,10 +701,17 @@ def _named_blocks(model, patch, device):
 
 # the InstanceNorm kernels against their plain versions: (atol, rtol) of
 # the forward's output by its dtype and of the backward's dx by dx's dtype;
-# dscale / dbias
+# dscale / dbias against the plain version's steps in f64
 IN_TOL = {"fwd": {torch.float32: (1e-4, 0.0), torch.bfloat16: (3e-2, 1e-2)},
           "bwd": {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}}
 IN_STAT_TOL = (1e-3, 1e-4)
+# the backward's LeakyReLU branch at an input within this much of 0 (in f64)
+# is a tie within f32 roundoff: the kernel and its plain version compute
+# that input in different orders and may take either branch, which moves
+# that element's dx and its channel's dscale and dbias by ~|g| (phase 9's
+# (2, 32, 2097152) f32 backward once read dx 0.31 and dbias 0.55 off; every
+# such element lay within 4.5e-9 of 0, a few f32 ulps of its terms)
+IN_TIE = 1e-6
 # the InstanceNorm's device time, in a process of its own (see _in_probe)
 IN_PROBE = os.path.join(ROOT, "lifelong_nnunet_tpu_torch", "tools", "in_probe.py")
 
@@ -640,7 +722,8 @@ def _in_check(direction, args, dev, chunk=None) -> float:
     under the form the launch plan predicts for its shape on this card, the
     second equal to the first bit for bit, the first against the plain
     version within IN_TOL (the forward's per batch slice of ``chunk``
-    items where given).  Returns the largest |kernel - plain| of the output
+    items where given; dscale and dbias against its steps in f64 within
+    IN_STAT_TOL).  Returns the largest |kernel - plain| of the output
     or dx."""
     x = args[0]
     B, C, N = x.shape
@@ -665,9 +748,27 @@ def _in_check(direction, args, dev, chunk=None) -> float:
     del again
     if bwd:
         ref = plain_instance_norm_leaky_bwd(*args)
+        tie, flip = _in_bwd_ties(*args), None
+        if bool(tie.any()):
+            # the ties where the kernel's dx is the other branch's: the plain
+            # version takes that branch there too, for dx, dscale and dbias
+            dx, other = out[0].float(), _in_bwd_flipped(*args, flip=tie)[0].float()
+            flip = tie & ((dx - other).abs() < (dx - ref[0].float()).abs())
+            moved = int(flip.sum())
+            if moved:
+                print(f"[IN tie] {what}: {moved} of {int(tie.sum())} elements within "
+                      f"{IN_TIE} of 0 took the kernel's LeakyReLU branch", flush=True)
+            ref = _in_bwd_flipped(*args, flip=flip)
+            del dx, other
+        del tie
         err = _compare(what + " dx", out[0], ref[0], *IN_TOL["bwd"][out[0].dtype])
-        for o, r, stat in zip(out[1:], ref[1:], ("dscale", "dbias")):
-            _compare(f"{what} {stat}", o, r, *IN_STAT_TOL)
+        del ref
+        # dscale and dbias each sum B*N products: held to the plain version's
+        # steps in f64, since its f32 sums carry roundoff of the limit's order
+        # (up to 1e-3 at B*N = 6.5M, against the kernel's own 1-3e-3)
+        ref64 = _in_bwd_flipped(*args, flip=flip, acc=torch.float64)
+        for o, r, stat in zip(out[1:], ref64[1:], ("dscale", "dbias")):
+            _compare(f"{what} {stat} (against f64)", o.double(), r, *IN_STAT_TOL)
         return err
     err = 0.0
     for b0, b1 in _chunks(B, chunk or B):
@@ -675,6 +776,42 @@ def _in_check(direction, args, dev, chunk=None) -> float:
                                 plain_instance_norm_leaky(x[b0:b1], *args[1:3]),
                                 *IN_TOL["fwd"][x.dtype]))
     return err
+
+
+def _in_bwd_ties(x, scale, bias, mean, rstd, *_):
+    """The elements of ``x [B, C, N]`` whose LeakyReLU input lies within
+    IN_TIE of 0 (computed in f64)."""
+    bc = (slice(None), slice(None), None)
+    y = (x.double() - mean.double()[bc]) * rstd.double()[bc] * scale.double()[:, None] \
+        + bias.double()[:, None]
+    return y.abs() < IN_TIE
+
+
+def _in_bwd_flipped(x, scale, bias, mean, rstd, g, alpha=0.01, dx_dtype=None, *, flip,
+                    acc=torch.float32):
+    """plain_instance_norm_leaky_bwd's steps on ``x [B, C, N]`` in ``acc``
+    with the other LeakyReLU branch taken at ``flip`` (None: nowhere):
+    (dx, dscale, dbias).  The branch is the f32 plain version's in any
+    ``acc``, so ``flip`` means the same in f64."""
+    bc = (slice(None), slice(None), None)
+    n = float(x.shape[2])
+    xhat = (x.float() - mean[bc]) * rstd[bc]
+    y = xhat * scale.float()[:, None] + bias.float()[:, None]
+    passes = y >= 0 if flip is None else (y >= 0) ^ flip
+    del y
+    if acc != torch.float32:
+        xhat = (x.to(acc) - mean.to(acc)[bc]) * rstd.to(acc)[bc]
+    gf = g.to(acc)
+    dy = torch.where(passes, gf, alpha * gf)
+    del passes
+    dscale = (dy * xhat).sum(dim=2).sum(dim=0)
+    dbias = dy.sum(dim=2).sum(dim=0)
+    dxhat = dy * scale.to(acc)[:, None]
+    del dy, gf
+    m1 = dxhat.sum(dim=2, keepdim=True) / n
+    m2 = (dxhat * xhat).sum(dim=2, keepdim=True) / n
+    dx = rstd.to(acc)[bc] * (dxhat - m1 - xhat * m2)
+    return dx.to(dx_dtype or x.dtype), dscale, dbias
 
 
 def _in_probe(*groups) -> dict:
@@ -1049,16 +1186,18 @@ def _chunks(n, size=8):
     return [(i, min(n, i + size)) for i in range(0, n, size)]
 
 
-def _ct_copy_phase(blocks, model, dev, gen) -> dict:
+def _ct_copy_phase(blocks, model, dev, gen, batches=(TRAIN_BATCH, CT_SERVE_BATCH),
+                   timed=True) -> dict:
     """Phase 9: the four copy kernels against their plain versions, bit for
     bit, at every shape of the CT train step (B=2; bf16 and f32) and of CT
     serving (B=64; bf16, and f32 where it fits CT_F32_BYTES), the plain
     versions taken in batch chunks of 8 items at B=64; the octant route
-    against F.conv_transpose3d at the same shapes; bf16 medians per train
-    step of the kernel, its plain version, the library call and, for the
-    interleaves, the octant route beside F.conv_transpose3d.  Returns
-    {kernel: {"ms", "plain_ms", "library_ms", "route_ms", "bound", "err",
-    "shapes"}}."""
+    against F.conv_transpose3d at the same shapes; with ``timed``, bf16
+    medians per train step of the kernel, its plain version, the library
+    call and, for the interleaves, the octant route beside
+    F.conv_transpose3d.  Phase 17 gives its own ``batches`` (the train
+    batch first).  Returns {kernel: {"ms", "plain_ms", "library_ms",
+    "route_ms", "bound", "err", "shapes"}}."""
     res = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "route_ms": 0.0, "bytes": 0,
                "err": 0.0, "shapes": 0} for n in ("pack_blocks", "unpack_blocks",
                                                   "interleave_up2", "deinterleave2")}
@@ -1075,15 +1214,16 @@ def _ct_copy_phase(blocks, model, dev, gen) -> dict:
         r["route_ms"] += n * _time_ms(route) if route else 0.0
         r["bytes"] += n * nbytes
 
-    for batch in (TRAIN_BATCH, CT_SERVE_BATCH):
+    for batch in batches:
         work = _ct_work(blocks, model, batch)
-        timed = batch == TRAIN_BATCH
+        train = batch == TRAIN_BATCH
+        timing = timed and train
         for (x_shape, bs), (f, b) in work["pack"].items():
             grid = tuple(s // bs for s in x_shape[2:])
             per_item = math.prod(grid)
             out_numel = batch * per_item * x_shape[1] * (bs + 2) ** 3
             for dtype in (torch.float32, torch.bfloat16):
-                if not timed and dtype == torch.float32 and \
+                if not train and dtype == torch.float32 and \
                         4 * (math.prod(x_shape) + out_numel) > CT_F32_BYTES:
                     continue
                 x = rand(x_shape, dtype)
@@ -1097,7 +1237,7 @@ def _ct_copy_phase(blocks, model, dev, gen) -> dict:
                                        block_pack.plain_pack_blocks(x[b0:b1], bs)), \
                         f"pack_blocks {dtype} {x_shape} bs {bs}"
                 res["pack_blocks"]["shapes"] += 1
-                if timed and dtype == torch.bfloat16:
+                if timing and dtype == torch.bfloat16:
                     assert torch.equal(_library_pack(x, bs), out)
                     add("pack_blocks", f + b, 2 * (x.numel() + out.numel()),
                         lambda: block_pack.pack_blocks(x, bs),
@@ -1107,7 +1247,7 @@ def _ct_copy_phase(blocks, model, dev, gen) -> dict:
         for (y_shape, grid), (f, b) in work["unpack"].items():
             per_item = math.prod(grid)
             for dtype in (torch.float32, torch.bfloat16):
-                if not timed and dtype == torch.float32 and \
+                if not train and dtype == torch.float32 and \
                         8 * math.prod(y_shape) > CT_F32_BYTES:
                     continue
                 y = rand(y_shape, dtype)
@@ -1118,7 +1258,7 @@ def _ct_copy_phase(blocks, model, dev, gen) -> dict:
                         y[b0 * per_item:b1 * per_item], b1 - b0, grid)), \
                         f"unpack_blocks {dtype} {y_shape} grid {grid}"
                 res["unpack_blocks"]["shapes"] += 1
-                if timed and dtype == torch.bfloat16:
+                if timing and dtype == torch.bfloat16:
                     assert torch.equal(_library_unpack(y, batch, grid), out)
                     add("unpack_blocks", f + b, 2 * (y.numel() + out.numel()),
                         lambda: block_pack.unpack_blocks(y, batch, grid),
@@ -1128,7 +1268,7 @@ def _ct_copy_phase(blocks, model, dev, gen) -> dict:
         for (h_shape, w_shape), (f, b) in work["ileave"].items():
             for dtype, atol, rtol in ((torch.float32, 1e-4, 1e-4),
                                       (torch.bfloat16, 2e-2, 1e-2)):
-                if not timed and dtype == torch.float32 and \
+                if not train and dtype == torch.float32 and \
                         4 * 3 * 8 * math.prod(h_shape) // h_shape[1] * w_shape[1] > CT_F32_BYTES:
                     continue
                 x = rand(h_shape, dtype)
@@ -1154,7 +1294,7 @@ def _ct_copy_phase(blocks, model, dev, gen) -> dict:
                     del ref
                 for name in ("interleave_up2", "deinterleave2"):
                     res[name]["shapes"] += 1
-                if timed and dtype == torch.bfloat16:
+                if timing and dtype == torch.bfloat16:
                     wb = w.to(dtype)
                     g = rand(out.shape, dtype).view(
                         (batch, w_shape[1]) + tuple(2 * s for s in h_shape[2:]))
@@ -1217,7 +1357,7 @@ def _opt(v, fmt=".3f") -> str:
 FINISH_PROBE = os.path.join(ROOT, "lifelong_nnunet_tpu_torch", "tools", "conv_finish_probe.py")
 
 
-def _ct_conv_phase(blocks, dev, gen) -> dict:
+def _ct_conv_phase(blocks, dev, gen, batches=(TRAIN_BATCH, CT_SERVE_BATCH)) -> dict:
     """Phase 9, the tensor-core conv at CT scale: the fused forward at every
     stride-1 (Cin, Cout, spatial) of the CT U-Net (the ordinary kernel
     route runs all of them) at the train batch (2) and the serving batch
@@ -1226,8 +1366,8 @@ def _ct_conv_phase(blocks, dev, gen) -> dict:
     (atol 5e-2 + rtol 1e-2; at B=64 the plain version per 8 batch items:
     the statistics are per item), each launch counted on the tensor-core
     kernel.  Per shape at B=64: the kernel's and cuDNN's F.conv3d medians.
-    Returns per-forward sums at B=64 (counts of the kernel route) and the
-    largest errors."""
+    Phase 17 gives its own ``batches``.  Returns per-forward sums at B=64
+    (counts of the kernel route) and the largest errors."""
     fwd, dx = {}, {}
     for i, (_, m, in_shape, out_shape) in enumerate(blocks):
         if m.conv.stride == (1, 1, 1):
@@ -1252,7 +1392,7 @@ def _ct_conv_phase(blocks, dev, gen) -> dict:
     for (cin, cout, sp), count in fwd.items():
         w = rand((cout, cin, 3, 3, 3)) * math.sqrt(2.0 / (27 * cin))
         scale, off = rand(cout) * 0.1 + 1, rand(cout) * 0.1
-        for batch in (TRAIN_BATCH, CT_SERVE_BATCH):
+        for batch in batches:
             x = rand((batch, cin) + sp, torch.bfloat16)
             out = counted("conv3d_in_lrelu", lambda: conv3d_in_lrelu_cf(x, w, scale, off))
             for b0, b1 in _chunks(batch):
@@ -1297,7 +1437,17 @@ def _ct_in_phase(blocks, model, dev, gen) -> tuple:
     batch items); then their device time per launch, bf16, with the bytes
     bound and F.instance_norm beside it, from in_probe.py in a process of
     its own.  Returns ({"fwd" | "bwd": largest error}, {group: timings})."""
-    routes = _ct_work(blocks, model, TRAIN_BATCH)["route"]
+    shapes = _in_shapes(blocks, _ct_work(blocks, model, TRAIN_BATCH)["route"])
+    assert (shapes["fwd"], shapes["bwd"]) == (in_probe.CT_FWD, in_probe.CT_BWD), shapes
+    err = _in_checks(shapes, (TRAIN_BATCH, CT_SERVE_BATCH), (TRAIN_BATCH,), dev, gen)
+    return err, _in_probe("ct_fwd_b2", "ct_fwd_b64", "ct_bwd_b2")
+
+
+def _in_shapes(blocks, routes) -> dict:
+    """{"fwd" | "bwd": ((C, N, blocks), ...)}: the InstanceNorm kernels'
+    rows in a forward and a train step of ``blocks`` on ``routes`` (the
+    forward after each cuDNN or blocked conv, the backward at every conv
+    output)."""
     shapes = {}
     for direction, outs in (("fwd", [o for name, _, _, o in blocks
                                      if routes[name] in ("conv", "blocked")]),
@@ -1306,9 +1456,17 @@ def _ct_in_phase(blocks, model, dev, gen) -> tuple:
         for row in _rows(outs):
             counts[row] = counts.get(row, 0) + 1
         shapes[direction] = tuple((c, n, k) for (c, n), k in counts.items())
-    assert (shapes["fwd"], shapes["bwd"]) == (in_probe.CT_FWD, in_probe.CT_BWD), shapes
+    return shapes
+
+
+def _in_checks(shapes, fwd_batches, bwd_batches, dev, gen) -> dict:
+    """:func:`_in_check` at every row of ``shapes`` (:func:`_in_shapes`),
+    the forward at each of ``fwd_batches``, the backward at each of
+    ``bwd_batches``, f32 and bf16 (f32 where its three copies fit
+    CT_F32_BYTES), the plain forward per 8 batch items.  Returns {"fwd" |
+    "bwd": largest error}."""
     err = {"fwd": 0.0, "bwd": 0.0}
-    for direction, batches in (("fwd", (TRAIN_BATCH, CT_SERVE_BATCH)), ("bwd", (TRAIN_BATCH,))):
+    for direction, batches in (("fwd", fwd_batches), ("bwd", bwd_batches)):
         for c, n, _ in shapes[direction]:
             for b in batches:
                 for dtype in (torch.float32, torch.bfloat16):
@@ -1318,7 +1476,7 @@ def _ct_in_phase(blocks, model, dev, gen) -> tuple:
                     err[direction] = max(err[direction], _in_check(direction, args, dev, 8))
                     del args
                     torch.cuda.empty_cache()
-    return err, _in_probe("ct_fwd_b2", "ct_fwd_b64", "ct_bwd_b2")
+    return err
 
 
 def _ct_path(ct_dir, plans, blocks, model, work, pre, results, dev) -> dict:
@@ -1631,15 +1789,90 @@ def _val_batches(stage, split, patch, batch=SEQ_WINDOW_BATCH) -> list:
     return out
 
 
-def _serve_batches(images, plans, patch) -> list:
-    """The model batches of serving a folder: windows per forward times the
-    mirror variants."""
+def _stream_batches(volumes, patch, window_batch=WINDOW_BATCH, tta=True,
+                    volume_batch=VOLUME_BATCH) -> list:
+    """The model batches of ``predict_from_folder`` on preprocessed
+    ``volumes`` (in case order): chunks of 2 x ``volume_batch`` cases; in a
+    chunk, consecutive volumes that pad alike form groups of up to
+    ``volume_batch`` (an even patch; one volume each otherwise) whose
+    (volume, window) pairs share batches of ``window_batch``; a 2D patch
+    runs each volume's (slice, window) pairs alone; times the mirror
+    variants (``tta``).  ``volume_batch=1`` is the per-case path."""
+    mirrors = 2 ** len(patch) if tta else 1
+    limit = volume_batch if all(p % 2 == 0 for p in patch) else 1
     out = []
-    for _, files in case_files(images):
-        data, _ = preprocess_for_inference(files, plans, "3d_fullres")
-        n = len(window_grid(data.shape[:-1], patch)[2])
-        out += [min(WINDOW_BATCH, n - i) * TTA for i in range(0, n, WINDOW_BATCH)]
+
+    def run(pairs):
+        out.extend(min(window_batch, pairs - i) * mirrors for i in range(0, pairs, window_batch))
+
+    chunk = max(2 * volume_batch, 2) if volume_batch > 1 else 1
+    for c in range(0, len(volumes), chunk):
+        group = []                          # (padded shape, windows) of its volumes
+        for v in volumes[c:c + chunk]:
+            if v.ndim - 1 == len(patch) + 1:
+                run(sum(n for _, n in group))
+                group = []
+                run(v.shape[0] * len(window_grid(v.shape[1:-1], patch)[2]))
+                continue
+            pads, _, origins = window_grid(v.shape[:-1], patch)
+            shape = tuple(s + lo + hi for s, (lo, hi) in zip(v.shape[:-1], pads))
+            if group and group[0][0] != shape:
+                run(sum(n for _, n in group))
+                group = []
+            group.append((shape, len(origins)))
+            if len(group) >= limit:
+                run(sum(n for _, n in group))
+                group = []
+        run(sum(n for _, n in group))
     return out
+
+
+def _serve_batches(images, plans, patch, config="3d_fullres", volume_batch=VOLUME_BATCH,
+                   tta=True) -> list:
+    """The model batches of serving a folder through ``predict_from_folder``
+    (by default the volume stream, the CLIs' path)."""
+    volumes = [preprocess_for_inference(files, plans, config)[0]
+               for _, files in case_files(images)]
+    return _stream_batches(volumes, patch, tta=tta, volume_batch=volume_batch)
+
+
+def _path_expect(blocks, model, dev, runs) -> dict:
+    """Every counter of ``runs`` [(batch, forwards, backwards)] of the model
+    whose blocks are ``blocks`` (:func:`_named_blocks`, any dimension), each
+    block on the route its input takes at that batch (the CT routes' gates
+    included, :func:`_ct_work`): per forward a fused block's conv, another
+    block's InstanceNorm (after cuDNN, or after the blocked conv's pack and
+    unpack), an interleave per admitted upsample; per backward every
+    block's InstanceNorm backward, the data gradient of every stride-1
+    block but the first (on the fused kernel, or the blocked conv's pack
+    and unpack), a de-interleave per interleave; the InstanceNorm's and the
+    pack's launches in the forms their plans give."""
+    counts, fwd_in, bwd_in, packs = {}, [], [], {}
+    for batch, fwd, bwd in runs:
+        work = _ct_work(blocks, model, batch)
+        routes = work["route"]
+        for i, (name, m, _, _) in enumerate(blocks):
+            key = "conv3d_in_lrelu" if routes[name] == "fused" else "instance_norm_leaky"
+            counts[key] = counts.get(key, 0) + fwd
+            if routes[name] == "fused" and i > 0:
+                counts["conv3d_dx"] = counts.get("conv3d_dx", 0) + bwd
+        counts["instance_norm_leaky_bwd"] = \
+            counts.get("instance_norm_leaky_bwd", 0) + len(routes) * bwd
+        for kind, names in (("pack", ("pack_blocks",)), ("unpack", ("unpack_blocks",)),
+                            ("ileave", ("interleave_up2", "deinterleave2"))):
+            for shape_key, (f, b) in work[kind].items():
+                if kind == "ileave":
+                    counts[names[0]] = counts.get(names[0], 0) + f * fwd
+                    counts[names[1]] = counts.get(names[1], 0) + b * bwd
+                else:
+                    counts[names[0]] = counts.get(names[0], 0) + f * fwd + b * bwd
+                if kind == "pack":
+                    packs[shape_key] = packs.get(shape_key, 0) + f * fwd + b * bwd
+        fwd_in += _at(_rows([o for name, _, _, o in blocks
+                             if routes[name] in ("conv", "blocked")]), [(batch, fwd)])
+        bwd_in += _at(_rows([o for _, _, _, o in blocks]), [(batch, bwd)])
+    return _expect(**counts, **_in_forms(dev, fwd=fwd_in, bwd=bwd_in),
+                   **_pack_forms(dev, packs))
 
 
 def _cl_argv(run, iters=SEQ_ITERS) -> list:
@@ -3190,6 +3423,451 @@ def _orchestration_path(task_dir, plans, shapes, work, pre, results, dev) -> dic
     return {"param_search": ps_launches}
 
 
+def _case_dice(folder, labels, classes) -> list:
+    """Per case (in ``labels`` order) the foreground Dice of a folder of
+    segmentations."""
+    out = []
+    for case, label in labels.items():
+        seg = np.asarray(read_image(os.path.join(folder, f"{case}.nii.gz")).data)
+        lab = np.asarray(read_image(label).data)
+        assert seg.shape == lab.shape and int(seg.max()) < classes, (case, seg.shape)
+        out.append([round(d, 4) for d in subject_metrics(seg, lab, classes)["Dice"]])
+    return out
+
+
+def _agreement(folder_a, folder_b, cases) -> float:
+    """The smallest share of voxels on which two folders' segmentations agree."""
+    return min(float((np.asarray(read_image(os.path.join(folder_a, f"{c}.nii.gz")).data)
+                      == np.asarray(read_image(os.path.join(folder_b, f"{c}.nii.gz")).data))
+                     .mean()) for c in cases)
+
+
+def _2d_path(task_dir, images, labels, work, pre, results, dev, gen) -> tuple:
+    """Phase 17 (a): the 2d configuration of phase 4's task through its entry
+    points (see the module docstring).  Returns the launch counts of its
+    training (``2d_train``) and of its serving and evaluation
+    (``2d_serve``), and the InstanceNorm checks' largest errors ({"fwd" |
+    "bwd": error})."""
+    task = os.path.basename(task_dir)
+    t0 = time.perf_counter()
+    plan_and_preprocess([task_dir], pre, configs=("2d",), verbose=False)
+    prep_s = time.perf_counter() - t0
+    plans = Plans.load(plans_path(os.path.join(pre, task)))
+    cfg = plans.config("2d")
+    got = {"patch_size": list(cfg.patch_size), "batch_size": cfg.batch_size,
+           "pool_op_kernel_sizes": [list(k) for k in cfg.pool_op_kernel_sizes]}
+    assert got == PLAN_2D and (cfg.base_num_features, cfg.max_num_features) == (32, 512), got
+    patch, batch, classes = tuple(cfg.patch_size), cfg.batch_size, plans.num_classes + 1
+    model = unet_from_plans(plans, "2d", dtype=torch.bfloat16, deep_supervision=False,
+                            generator=torch.Generator().manual_seed(SEED)).to(dev).eval()
+    blocks = _named_blocks(model, patch, dev)
+    # every conv of the 2D U-Net is cuDNN's, each followed by the InstanceNorm
+    assert {model_block.route((batch,) + i) for _, model_block, i, _ in blocks} == {"conv"}
+    stage = PreprocessedDataset(os.path.join(pre, task, "nnUNetData_plans_v2.1_2d"))
+    split = final_splits(os.path.join(pre, task), stage.cases)[0]
+
+    def pairs(shape):
+        """(slice, window) pairs of a [D, H, W] volume."""
+        return shape[0] * len(window_grid(shape[1:], patch)[2])
+
+    # the progress validation after the epoch: each val case's pairs in
+    # batches of 4, no mirroring
+    progress = [min(4, n - i) for n in (pairs(stage.load(c).shape[1:]) for c in split["val"])
+                for i in range(0, n, 4)]
+
+    torch.backends.cudnn.allow_tf32 = True
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _SequenceProbe() as probe:
+        run_training("sequential", ["2d", "-t", task, "-num_epochs", "1", "-num_iters",
+                                    str(CFG2D_ITERS), "-val_iters", str(SEQ_VAL_ITERS),
+                                    "--use_progress_val", "--device", "cuda"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = _counts()
+    train_peak = torch.cuda.max_memory_allocated() / 1e9
+    steps = CFG2D_ITERS
+    expect = _path_expect(blocks, model, dev, [(batch, steps + SEQ_VAL_ITERS, steps)]
+                          + [(b, 1, 0) for b in progress])
+    assert train_launches == expect, (train_launches, expect)
+    assert train_launches["conv3d_in_lrelu"] == train_launches["conv3d_dx"] == 0
+    folder = build_output_folder(os.path.join(results, "nnUNet_ext"), "2d", [task], [task],
+                                 trainer_name("sequential"), plans.plans_name, 0, True)
+    with open(os.path.join(folder, "progress.json")) as f:
+        losses = json.load(f)["step_losses"]
+    assert len(losses) == steps and all(map(math.isfinite, losses)), losses
+    first5, last5 = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    assert last5 < first5, (first5, last5)
+    with open(os.path.join(folder, "val_metrics.json")) as f:
+        val = json.load(f)[-1]["results"][task]["subjects"]
+    assert sorted(val) == sorted(split["val"]), val
+    val_dice = [[round(d, 4) for d in m["Dice"]] for m in val.values()]
+
+    # serving phase 4's folder through the CLI (the stream; each volume
+    # slice by slice, (slice, window) pairs in batches of 8 x 4 mirrors),
+    # then the evaluation CLI (the val split, TTA, batches of 4 x 4)
+    served = os.path.join(work, "seg_2d")
+    volumes = [preprocess_for_inference(files, plans, "2d")[0]
+               for _, files in case_files(images)]
+    serve_b = _stream_batches(volumes, patch)
+    assert set(serve_b) <= {4 * b for b in range(1, WINDOW_BATCH + 1)}, serve_b
+    eval_b = [4 * min(4, n - i) for n in (pairs(stage.load(c).shape[1:]) for c in split["val"])
+              for i in range(0, n, 4)]
+    os.environ["EVALUATION_FOLDER"] = os.path.join(work, "evaluation")
+    _reset_counts()
+    t0 = time.perf_counter()
+    run_inference(["2d", "nnUNetTrainerSequential", "-i", images, "-o", served, "-trained_on",
+                   task, "--device", "cuda"])
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_evaluation(["2d", "nnUNetTrainerSequential", "-trained_on", task, "-evaluate_on", task,
+                    "--device", "cuda"])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    serve_launches = _counts()
+    expect = _path_expect(blocks, model, dev, [(b, 1, 0) for b in serve_b + eval_b])
+    assert serve_launches == expect, (serve_launches, expect)
+    evaluated = os.path.join(work, "evaluation", "nnUNet_ext",
+                             os.path.relpath(folder, os.path.join(results, "nnUNet_ext")))
+    with open(os.path.join(evaluated, "val_metrics_eval.json")) as f:
+        scored = json.load(f)[-1]["results"][task]["subjects"]
+    eval_dice = [[round(d, 4) for d in m["Dice"]] for m in scored.values()]
+    dice = _case_dice(served, labels, classes)
+
+    # the kernel route's segmentations against the plain route's, same
+    # weights, bf16 (the two round differently: voxels within bf16 roundoff
+    # of a tie may go either way), and the largest case's f32 probabilities
+    # of both routes (2D over 3D, TTA)
+    ckpt = os.path.join(folder, "model_final_checkpoint")
+    m, _, _ = restore_model(ckpt, dev, use_kernels=False)
+    plain_dir = os.path.join(work, "seg_2d_plain")
+    predict_from_folder([m], plans, "2d", images, plain_dir, device=dev,
+                        window_batch=WINDOW_BATCH)
+    del m
+    agree = _agreement(served, plain_dir, labels)
+    assert agree >= ROUTE_AGREE_2D, agree
+    big = max(volumes, key=lambda v: v.size)
+    probs = {}
+    before = _counts()
+    for use_kernels in (True, False):
+        m, _, _ = restore_model(ckpt, dev, use_kernels=use_kernels)
+        m.dtype = torch.float32
+        probs[use_kernels] = predict_sliding_window(m, big, patch, classes, device=dev,
+                                                    window_batch=WINDOW_BATCH)
+        del m
+    assert _counts()["instance_norm_leaky"] > before["instance_norm_leaky"]
+    assert probs[True].shape == big.shape[:-1] + (classes,) and np.isfinite(probs[True]).all()
+    prob_err = float(np.abs(probs[True] - probs[False]).max())
+    assert prob_err <= 1e-3, prob_err
+    # the InstanceNorm kernels against their plain versions at every (C,
+    # H*W) of the 2D U-Net: the forward at the train batch and the serving
+    # batch (8 pairs x 4 mirrors), the backward at the train batch, f32 and
+    # bf16, each launch in the form the launch plan predicts
+    in_err = _in_checks(_in_shapes(blocks, dict.fromkeys((n for n, *_ in blocks), "conv")),
+                        (batch, 4 * WINDOW_BATCH), (batch,), dev, gen)
+    in_shapes = sorted(set(_rows([o for *_, o in blocks])), key=lambda r: -r[1])
+    print(f"[phase 17] 2d configuration of {task}: patch {patch}, batch {batch}, pools "
+          f"{cfg.pool_op_kernel_sizes}, {cfg.base_num_features}->{cfg.max_num_features} "
+          f"features, {len(blocks)} conv blocks (cuDNN conv + the InstanceNorm kernel at "
+          f"(C, H*W) {in_shapes}); preprocessing {prep_s:.2f} s; nnUNet_torch_train_sequential "
+          f"2d --use_progress_val, 1 epoch x {steps} steps + {SEQ_VAL_ITERS} val batches: "
+          f"{train_s:.2f} s, warm s/step {probe.warm_step_s(task):.4f}, progress validation "
+          f"{[round(v, 3) for v in probe.val_s]} s ({len(progress)} forwards of {set(progress)}"
+          f"), peak {train_peak:.2f} GB; loss first 5 {first5:.4f} -> last 5 {last5:.4f}; "
+          f"launches {train_launches} == predicted (per step {len(blocks)} IN forward, "
+          f"{len(blocks)} IN backward, no fused conv, no data-gradient kernel); validation "
+          f"Dice {val_dice}", flush=True)
+    print(f"[phase 17] nnUNet_torch_inference 2d on {len(labels)} cases (the stream; each "
+          f"volume slice by slice: {len(serve_b)} forwards, batches {sorted(set(serve_b))} = "
+          f"pairs x 4 mirrors): {serve_s:.2f} s ({serve_s / len(labels):.3f} s/volume, first "
+          f"run), Dice {dice}; nnUNet_torch_evaluate 2d: {eval_s:.2f} s ({len(eval_b)} "
+          f"forwards), Dice {eval_dice}; launches {serve_launches} == predicted; kernel route "
+          f"vs plain route segmentations (bf16) agree on {agree:.6f} of voxels (limit "
+          f"{ROUTE_AGREE_2D}); the largest case {big.shape[:-1]} in f32, max |probs kernel - "
+          f"plain| {prob_err:.3e} (limit 1e-3); the InstanceNorm kernels against their plain "
+          f"versions at every (C, H*W) above, forward at B={batch} and "
+          f"{4 * WINDOW_BATCH}, backward at B={batch}, f32 and bf16, every launch in "
+          f"its planned form: max err forward {in_err['fwd']:.3e}, backward "
+          f"{in_err['bwd']:.3e} (IN_TOL)", flush=True)
+    return {"2d_train": train_launches, "2d_serve": serve_launches}, in_err
+
+
+def _stream_path(images, labels, plans, shapes, base, dev) -> dict:
+    """Phase 17 (b): phase 4's folder through ``predict_from_folder`` at its
+    default (the volume stream) and case by case (``volume_batch=1``), in
+    turns (stream, per case, per case, stream), from the checkpoint ``base``
+    (phase 6's trained model: random weights leave many voxels within
+    roundoff of a tie).  Returns the launch counts of the four runs
+    (``stream_serve``)."""
+    cfg = plans.config("3d_fullres")
+    patch, classes = tuple(cfg.patch_size), plans.num_classes + 1
+    m, _, _ = restore_model(base, dev)
+    volumes = [preprocess_for_inference(files, plans, "3d_fullres")[0]
+               for _, files in case_files(images)]
+    runs = {8: _stream_batches(volumes, patch), 1: _stream_batches(volumes, patch,
+                                                                  volume_batch=1)}
+    out = {vb: os.path.join(os.path.dirname(images), f"seg_stream_vb{vb}") for vb in runs}
+    secs = {vb: [] for vb in runs}
+    _reset_counts()
+    for vb in (8, 1, 1, 8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predict_from_folder([m], plans, "3d_fullres", images, out[vb], device=dev,
+                            window_batch=WINDOW_BATCH, volume_batch=vb)
+        torch.cuda.synchronize()
+        secs[vb].append((time.perf_counter() - t0) / len(volumes))
+    launches = _counts()
+    assert launches == _forward_expect(dev, shapes, 2 * (runs[8] + runs[1])), launches
+    agree = _agreement(out[8], out[1], labels)
+    assert agree >= STREAM_AGREE, agree
+    stream = predict_sliding_window_multi(m, volumes, patch, classes, device=dev,
+                                          window_batch=WINDOW_BATCH, output="probs_bf16",
+                                          volume_batch=VOLUME_BATCH)
+    diff = max(float(np.abs(p - predict_sliding_window(
+        m, v, patch, classes, device=dev, window_batch=WINDOW_BATCH,
+        output="probs_bf16")).max()) for p, v in zip(stream, volumes))
+    del m
+    print(f"[phase 17] the volume stream on phase 4's {len(volumes)} cases: "
+          f"predict_from_folder at its default (volume_batch {VOLUME_BATCH}, {len(runs[8])} "
+          f"forwards of {runs[8]}) vs volume_batch 1 ({len(runs[1])} forwards of {runs[1]}), "
+          f"in turns: {statistics.median(secs[8]):.4f} vs {statistics.median(secs[1]):.4f} "
+          f"s/volume, synchronized (runs {[round(t, 4) for t in secs[8]]} vs "
+          f"{[round(t, 4) for t in secs[1]]}); launches {launches} == predicted; "
+          f"segmentations agree on {agree:.6f} of voxels (limit {STREAM_AGREE}); largest "
+          f"|stream - per case| of the bf16 probabilities {diff:.3e} (recorded)", flush=True)
+    return {"stream_serve": launches}
+
+
+def _cascade_path(work, pre, results, dev, gen) -> dict:
+    """Phase 17 (c): the 3d_lowres -> cascade stage (see the module
+    docstring).  Returns the launch counts of the lowres training
+    (``lowres_train``), the stage's preparation (``cascade_prepare``) and
+    the cascade's training with its validation (``cascade_train``), the
+    FMA launches of the two stages' f32 step checks, and the largest errors
+    of their kernel checks ({"fwd" | "bwd" | "conv" | "dx": error})."""
+    secs, peak = {}, {}
+
+    def stage_run(name, fn):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        peak[name] = torch.cuda.max_memory_allocated() / 1e9
+        return out
+
+    c_dir = stage_run("task", lambda: make_synthetic_task(
+        os.path.join(work, "raw", "nnUNet_raw_data"), **CASCADE_TASK))
+    task = os.path.basename(c_dir)
+    stage_run("plan_and_preprocess", lambda: plan_and_preprocess(
+        [c_dir], pre, configs=("3d_lowres", "3d_fullres"), verbose=False))
+    plans = Plans.load(plans_path(os.path.join(pre, task)))
+    got = {c: {"patch_size": list(plans.config(c).patch_size),
+               "batch_size": plans.config(c).batch_size} for c in CASCADE_PLANS}
+    assert got == CASCADE_PLANS, got
+    low_cfg, full_cfg = plans.config("3d_lowres"), plans.config("3d_fullres")
+    low_patch, full_patch = tuple(low_cfg.patch_size), tuple(full_cfg.patch_size)
+    stages = {c: PreprocessedDataset(os.path.join(pre, task, f"nnUNetData_plans_v2.1_{c}"))
+              for c in CASCADE_PLANS}
+    split = final_splits(os.path.join(pre, task), stages["3d_fullres"].cases)[0]
+    assert len(split["train"]) == len(split["val"]) == 1, split
+    low_model = unet_from_plans(plans, "3d_lowres", dtype=torch.bfloat16,
+                                deep_supervision=False, **CT_ROUTES).to(dev).eval()
+    low_blocks = _named_blocks(low_model, low_patch, dev)
+    low_routes = _ct_work(low_blocks, low_model, TRAIN_BATCH)["route"]
+    b2, steps, vals = TRAIN_BATCH, CASCADE_ITERS, CASCADE_VAL_ITERS
+
+    def windows(shape, patch):
+        return len(window_grid(shape, patch)[2])
+
+    def val_runs(stage, patch, batch=SEQ_WINDOW_BATCH):
+        """The progress validation's forwards over the val case: (batch, 1, 0)."""
+        n = windows(stage.load(split["val"][0]).shape[1:], patch)
+        return [(min(batch, n - i), 1, 0) for i in range(0, n, batch)]
+
+    # -- the lowres stage through the CLI, both CT switches on (phase 4)
+    torch.backends.cudnn.allow_tf32 = True
+    _reset_counts()
+    with _SequenceProbe() as low_probe:
+        stage_run("lowres_train", lambda: run_training(
+            "sequential", ["3d_lowres", "-t", task, "-num_epochs", "1", "-num_iters", str(steps),
+                           "-val_iters", str(vals), "--use_progress_val", "--device", "cuda"]))
+    low_launches = _counts()
+    expect = _path_expect(low_blocks, low_model, dev, [(b2, steps + vals, steps)]
+                          + val_runs(stages["3d_lowres"], low_patch))
+    assert low_launches == expect, (low_launches, expect)
+    assert low_launches["pack_blocks.scalar"] == 0, low_launches
+    assert min(low_launches[k] for k in CASCADE_KERNELS) > 0, low_launches
+    low_folder = build_output_folder(os.path.join(results, "nnUNet_ext"), "3d_lowres", [task],
+                                     [task], trainer_name("sequential"), plans.plans_name, 0,
+                                     True)
+    with open(os.path.join(low_folder, "progress.json")) as f:
+        low_losses = json.load(f)["step_losses"]
+    assert len(low_losses) == steps and all(map(math.isfinite, low_losses)), low_losses
+    low_grid = {name: tuple(s // m.packed_bs((b2,) + i) for s in i[1:])
+                for name, m, i, _ in low_blocks if low_routes[name] == "blocked"}
+    assert CASCADE_GRID in low_grid.values(), low_grid
+
+    # -- the cascade stage through nnUNet_torch_prepare_cascade: each lowres
+    # case's windows in batches of 8, no mirroring
+    low_ckpt = os.path.join(low_folder, "model_final_checkpoint")
+    prep_b = [(min(8, n - i), 1, 0) for n in (windows(stages["3d_lowres"].load(c).shape[1:],
+                                                      low_patch)
+                                               for c in stages["3d_fullres"].cases)
+              for i in range(0, n, 8)]
+    _reset_counts()
+    stage_run("cascade_prepare", lambda: prepare_cascade.main(
+        ["-t", task, "-ckpt", low_ckpt, "--device", "cuda"]))
+    prep_launches = _counts()
+    expect = _path_expect(low_blocks, low_model, dev, prep_b)
+    assert prep_launches == expect, (prep_launches, expect)
+    low_checks = _stage_checks(low_blocks, low_model, low_routes, dev, gen)
+    del low_model
+
+    # the f32 step check of phase 6 on the lowres model, on the CT routes
+    low_sampler = PatchSampler(stages["3d_lowres"], stages["3d_lowres"].cases, low_patch, b2,
+                               seed=SEED)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in low_sampler.next_batch().items()
+             if k in ("data", "seg")}
+
+    def low_unet(dtype, use_kernels):
+        return unet_from_plans(plans, "3d_lowres", dtype=dtype, use_kernels=use_kernels,
+                               generator=torch.Generator().manual_seed(SEED),
+                               **(CT_ROUTES if use_kernels else DIRECT_ROUTES))
+
+    fma_low, low_step_text = _step_check(
+        low_unet, batch, tuple(ds_scale_factors(low_cfg.pool_op_kernel_sizes)), dev)
+    del batch
+    torch.cuda.empty_cache()
+    cascade_dir = prepare_cascade.cascade_stage_dir(pre, task)
+    cascade = PreprocessedDataset(cascade_dir)
+    assert cascade.cases == stages["3d_fullres"].cases, cascade.cases
+    onehot_fg = []
+    for case in cascade.cases:
+        arr = cascade.load(case)
+        full = stages["3d_fullres"].load(case)
+        assert arr.shape == (plans.num_modalities + plans.num_classes + 1,) + full.shape[1:]
+        oh = np.asarray(arr[1:1 + plans.num_classes])
+        assert bool(((oh == 0) | (oh == 1)).all()) and not (oh.sum(0) > 1).any(), case
+        onehot_fg.append(round(float(oh.mean(axis=(1, 2, 3)).sum()), 5))
+        del arr, oh
+
+    # -- the cascade's fullres stage through the trainer API
+    casc_model = unet_from_plans(plans, "3d_fullres", dtype=torch.bfloat16,
+                                 deep_supervision=False, in_channels=3,
+                                 **CT_ROUTES).to(dev).eval()
+    casc_blocks = _named_blocks(casc_model, full_patch, dev)
+    casc_routes = _ct_work(casc_blocks, casc_model, b2)["route"]
+    casc_out = os.path.join(results, "cascade", task)
+    opts = TrainerOptions(num_epochs=1, iters_per_epoch=steps, val_iters=vals,
+                          use_progress_val=True, device="cuda")
+    torch.backends.cudnn.allow_tf32 = True   # as every main path (the checks above unset it)
+    _reset_counts()
+    def train_cascade():
+        trainer = CascadeFullResTrainer(plans, "3d_fullres", casc_out, opts)
+        trainer.train_task(task, cascade_dir)
+        return trainer
+
+    with _SequenceProbe() as casc_probe:
+        trainer = stage_run("cascade_train", train_cascade)
+    casc_launches = _counts()
+    expect = _path_expect(casc_blocks, casc_model, dev, [(b2, steps + vals, steps)]
+                          + val_runs(cascade, full_patch))
+    assert casc_launches == expect, (casc_launches, expect)
+    assert casc_launches["pack_blocks.scalar"] == 0, casc_launches
+    assert min(casc_launches[k] for k in CASCADE_KERNELS) > 0, casc_launches
+    assert trainer.in_channels == 3 and all(map(math.isfinite, trainer.step_losses))
+    ((_, val),) = trainer._val_history[-1]["results"].items()
+    casc_dice = [[round(d, 4) for d in m["Dice"]] for m in val["subjects"].values()]
+    again = restore_trainer(os.path.join(casc_out, "model_final_checkpoint"),
+                            TrainerOptions(device="cuda"))
+    assert type(again) is CascadeFullResTrainer and again.in_channels == 3
+    assert again.model.enc0.block0.conv.in_channels == 3 and again.mh.tasks == [task]
+    del trainer, again
+    torch.cuda.empty_cache()
+    casc_checks = _stage_checks(casc_blocks, casc_model, casc_routes, dev, gen)
+    del casc_model
+    # the f32 step check of phase 6 on the cascade model, on the CT routes
+    # (its first conv, Cin = 3, blocked)
+    sampler = PatchSampler(cascade, cascade.cases, full_patch, b2, seed=SEED)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in sampler.next_batch().items()
+             if k in ("data", "seg")}
+    assert batch["data"].shape[1] == 3
+
+    def casc_unet(dtype, use_kernels):
+        return unet_from_plans(plans, "3d_fullres", dtype=dtype, use_kernels=use_kernels,
+                               generator=torch.Generator().manual_seed(SEED), in_channels=3,
+                               **(CT_ROUTES if use_kernels else DIRECT_ROUTES))
+
+    fma_step, step_text = _step_check(
+        casc_unet, batch, tuple(ds_scale_factors(full_cfg.pool_op_kernel_sizes)), dev)
+    del batch
+    torch.cuda.empty_cache()
+    blocked = lambda routes: [n for n, r in routes.items() if r == "blocked"]  # noqa: E731
+    print(f"[phase 17] cascade task {task}: {CASCADE_TASK['num_cases']} cases of "
+          f"{CASCADE_TASK['shape']}, plans 3d_lowres patch {low_patch} (spacing "
+          f"{[round(s, 3) for s in low_cfg.spacing]}, pools {low_cfg.pool_op_kernel_sizes}), "
+          f"3d_fullres patch {full_patch}, batch {b2}; seconds "
+          f"{ {k: round(v, 2) for k, v in secs.items()} }, peak GB "
+          f"{ {k: round(v, 2) for k, v in peak.items() if k not in ('task',)} }", flush=True)
+    print(f"[phase 17] nnUNet_torch_train_sequential 3d_lowres (LNN_BLOCKED_CONV=1 "
+          f"LNN_UPT_MODE=pallas), 1 epoch x {steps} steps + {vals} val batches + progress "
+          f"validation: warm s/step {low_probe.warm_step_s(task):.4f}, loss first 5 "
+          f"{statistics.mean(low_losses[:5]):.4f} -> last 5 "
+          f"{statistics.mean(low_losses[-5:]):.4f}; routes at B={b2}: blocked "
+          f"{blocked(low_routes)} (block grids {low_grid}); launches {low_launches} == "
+          f"predicted, every pack in the tma form; nnUNet_torch_prepare_cascade: "
+          f"{len(prep_b)} forwards of {[b for b, _, _ in prep_b]}, launches {prep_launches} == "
+          f"predicted; the stage's one-hot channels in {{0, 1}}, one class a voxel, "
+          f"foreground share per case {onehot_fg}; {low_checks['text']}; {low_step_text}",
+          flush=True)
+    print(f"[phase 17] CascadeFullResTrainer(...).train_task ({plans.num_modalities} + "
+          f"{plans.num_classes} input channels), 1 epoch x {steps} steps + {vals} val batches "
+          f"+ sliding-window validation: warm s/step {casc_probe.warm_step_s(task):.4f}, "
+          f"validation {[round(v, 2) for v in casc_probe.val_s]} s, Dice {casc_dice}; routes at "
+          f"B={b2}: blocked {blocked(casc_routes)}; launches {casc_launches} == predicted; "
+          f"restore_trainer gives CascadeFullResTrainer with in_channels 3; "
+          f"{casc_checks['text']}; {step_text}", flush=True)
+    errs = {k: max(low_checks[k], casc_checks[k]) for k in ("fwd", "bwd", "conv", "dx")}
+    return ({"lowres_train": low_launches, "cascade_prepare": prep_launches,
+             "cascade_train": casc_launches},
+            {"lowres_train_f32_step": fma_low, "cascade_train_f32_step": fma_step}, errs)
+
+
+def _stage_checks(blocks, model, routes, dev, gen) -> dict:
+    """Phase 17: every kernel of a CT-routed stage against its plain version
+    at the stage's shapes: the copy kernels (:func:`_ct_copy_phase`) bit
+    for bit at the train batch and the serving batch of 8, every pack in
+    the tma form; the fused conv at every stride-1 shape (the first at the
+    stage's Cin) and its data gradient (:func:`_ct_conv_phase`) at the train
+    batch; the InstanceNorm (:func:`_in_checks`) after every cuDNN and
+    blocked conv at both batches and its backward at every conv output at
+    the train batch.  Returns the largest errors and a line of text."""
+    torch.backends.cudnn.allow_tf32 = False     # the plain versions in true f32
+    copies = _ct_copy_phase(blocks, model, dev, gen, (TRAIN_BATCH, WINDOW_BATCH),
+                            timed=False)
+    conv = _ct_conv_phase(blocks, dev, gen, (TRAIN_BATCH,))
+    in_err = _in_checks(_in_shapes(blocks, routes), (TRAIN_BATCH, WINDOW_BATCH),
+                        (TRAIN_BATCH,), dev, gen)
+    torch.cuda.empty_cache()
+    shapes = {k: copies[k]["shapes"] for k in ("pack_blocks", "unpack_blocks",
+                                               "interleave_up2", "deinterleave2")}
+    text = (f"kernels against their plain versions at B={TRAIN_BATCH} and "
+            f"{WINDOW_BATCH}: the copy kernels bit for bit at {shapes} (shape, dtype) "
+            f"pairs, the octant upsample's max err "
+            f"{ {str(d).replace('torch.', ''): f'{e:.3e}' for d, e in copies['up_err'].items()} }"
+            f"; the fused conv at {conv['shapes']} stride-1 blocks (first Cin "
+            f"{blocks[0][2][0]}) max err {conv['err']:.3e}, its data gradient at "
+            f"{conv['dx_shapes']} max err {conv['dx_err']:.3e} (bf16, atol 5e-2 + rtol 1e-2); "
+            f"the InstanceNorm forward max err {in_err['fwd']:.3e}, backward "
+            f"{in_err['bwd']:.3e} (IN_TOL, f32 and bf16, every launch in its planned form)")
+    return {**in_err, "conv": conv["err"], "dx": conv["dx_err"], "text": text}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs an NVIDIA GPU: "
@@ -3197,6 +3875,7 @@ def main() -> int:
     # plain f32 references run in true f32 (cuDNN would use TF32 by default)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
     dev = resolve_device("cuda")
     print(_card())
     t0 = time.perf_counter()
@@ -3254,7 +3933,11 @@ def main() -> int:
             batches += [min(WINDOW_BATCH, n - i) * TTA
                         for i in range(0, n, WINDOW_BATCH)]
         assert max(windows) == 8 and min(windows) == 1, windows
-        forwards, batch = len(batches), max(batches)
+        # the CLI serves them through the volume stream (the default): the
+        # four one-window cases pad alike and share one batch of 4 x 8
+        serve_b = _stream_batches(volumes, patch)
+        assert sorted(serve_b) == [4 * TTA, 8 * TTA], serve_b
+        forwards, batch = len(serve_b), max(batches)
         model_k = unet_from_plans(plans, "3d_fullres", dtype=torch.bfloat16,
                                   deep_supervision=False,
                                   generator=torch.Generator().manual_seed(SEED)).to(dev).eval()
@@ -3267,7 +3950,8 @@ def main() -> int:
         # (bf16, device time) at that batch and the train step's
         strided = _rows([o for f, _, o in shapes if not f])
         assert tuple((c, n, 1) for c, n in strided) == in_probe.HIPPO_FWD, strided
-        timed = sorted(set(batches) | {TRAIN_BATCH})     # phase 2's batches
+        # phase 2's batches: the per-case path's, the stream's, the train step's
+        timed = sorted(set(batches) | set(serve_b) | {TRAIN_BATCH})
         in_err = 0.0
         for c, n in strided:
             for dtype in (torch.float32, torch.bfloat16):
@@ -3404,7 +4088,7 @@ def main() -> int:
         launches = _counts()
         expect = _expect(conv3d_in_lrelu=n_fused * forwards,
                          instance_norm_leaky=n_strided * forwards,
-                         **_in_forms(dev, fwd=_at(strided, [(b, 1) for b in batches])))
+                         **_in_forms(dev, fwd=_at(strided, [(b, 1) for b in serve_b])))
         assert launches == expect, (launches, expect)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -3476,8 +4160,9 @@ def main() -> int:
                 for run in window_s[use_kernels])
 
         print(f"[phase 4] nnUNet_torch_inference on {n} cases (windows per volume "
-              f"{windows}; {forwards} forwards, batches {sorted(set(batches))} = windows x {TTA} "
-              f"mirrors): {main_s / n:.3f} s/volume (first run, {main_s:.2f} s), peak "
+              f"{windows}; the volume stream: {forwards} forwards, batches {serve_b} = "
+              f"windows x {TTA} mirrors): {main_s / n:.3f} s/volume (first run, "
+              f"{main_s:.2f} s), peak "
               f"{peak_gb:.2f} GB; warm, in turns: kernel route "
               f"{statistics.median(route_s[True]) / n:.3f} s/volume vs plain route "
               f"{statistics.median(route_s[False]) / n:.3f} s/volume (runs "
@@ -3709,13 +4394,10 @@ def main() -> int:
                        os.path.join(task_dir, "imagesTr"), "-o", served_vit, "-trained_on",
                        task, "--use_vit", "--device", "cuda"])
         vit_serve_launches = _counts()
-        per_case = dict(zip((c for c, _ in cases), windows))
-        vit_forwards = sum(math.ceil(per_case[c] / WINDOW_BATCH)
-                           for c, _ in case_files(os.path.join(task_dir, "imagesTr")))
-        served_batches = [min(WINDOW_BATCH, per_case[c] - i) * TTA
-                          for c, _ in case_files(os.path.join(task_dir, "imagesTr"))
-                          for i in range(0, per_case[c], WINDOW_BATCH)]
-        assert len(served_batches) == vit_forwards
+        # the volume stream: the task's four one-window cases in one batch
+        served_batches = _serve_batches(os.path.join(task_dir, "imagesTr"), plans, patch)
+        assert served_batches == [4 * TTA], served_batches
+        vit_forwards = len(served_batches)
         expect = _expect(conv3d_in_lrelu=v_fused * vit_forwards,
                          instance_norm_leaky=v_strided * vit_forwards,
                          flash_attention=n_attn * vit_forwards,
@@ -3863,6 +4545,22 @@ def main() -> int:
 
         # ---- phase 16: the parameter search and the scripts
         search_paths = _orchestration_path(task_dir, plans, shapes, work, pre, results, dev)
+
+        # ---- phase 17: the 2d configuration, the volume stream, the cascade
+        t17 = time.perf_counter()
+        cfg_paths, in_err_2d = _2d_path(task_dir, images, labels, work, pre, results, dev,
+                                        gen)
+        cfg_paths.update(_stream_path(images, labels, plans, shapes,
+                                      os.path.join(trained, "model_final_checkpoint"), dev))
+        cascade_paths, fma_cascade, casc_err = _cascade_path(work, pre, results, dev, gen)
+        cfg_paths.update(cascade_paths)
+        print(f"[phase 17] {time.perf_counter() - t17:.1f} s for phase 17; "
+              f"{time.perf_counter() - t_start:.1f} s since the script started; the kernels "
+              f"against their plain versions at this phase's shapes, max err: InstanceNorm "
+              f"forward {max(in_err_2d['fwd'], casc_err['fwd']):.3e}, backward "
+              f"{max(in_err_2d['bwd'], casc_err['bwd']):.3e}, fused conv {casc_err['conv']:.3e}, "
+              f"its data gradient {casc_err['dx']:.3e}, the copy kernels bit for bit",
+              flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3915,12 +4613,12 @@ def main() -> int:
                                   ("deinterleave2", "interleave.cu", "interleave.py:73"))]
     paths = {"serve": launches, "train": train_launches, "vit_train": vit_train_launches,
              "vit_serve": vit_serve_launches, **ct_paths, **cl_paths, **reg_paths,
-             **distill_paths, **pod_paths, **var_paths, **search_paths}
+             **distill_paths, **pod_paths, **var_paths, **search_paths, **cfg_paths}
     # the FMA kernel runs f32 input only, off the bf16 main paths (0
     # launches there, asserted above); its launches in the f32 checks of
-    # phases 4, 6, 8 and 10 are kept apart, under ``check_launches``
+    # phases 4, 6, 8, 10 and 17 are kept apart, under ``check_launches``
     f32_checks = {"serve_f32": fma_serve, "train_f32_step": fma_train,
-                  "vit_train_f32_step": fma_vit, **fma_ct}
+                  "vit_train_f32_step": fma_vit, **fma_ct, **fma_cascade}
     kernels = []
     for name, src, where, err, ms, plain_ms, bound, lib_ms, per in rows:
         kernels.append(

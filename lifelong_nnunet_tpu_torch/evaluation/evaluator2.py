@@ -2,10 +2,11 @@
 ``lifelong_nnunet_tpu/evaluation/evaluator2.py``.
 
 For each evaluated task, ``predict_from_folder`` segments the raw
-``imagesTr`` (preprocessing, sliding window with mirror TTA on the device,
-resampling back, export) with the model of the checkpoint and the task's
-head (or ``use_head``, or the last head), then each case is scored against
-``labelsTr``: per-class Dice and IoU (:func:`compute_scores_and_build_dict`).
+``imagesTr`` (preprocessing, sliding window with mirror TTA on the device
+through the volume stream, its default, resampling back, export) with the
+model of the checkpoint and the task's head (or ``use_head``, or the last
+head), then each case is scored against ``labelsTr``: per-class Dice and
+IoU (:func:`compute_scores_and_build_dict`).
 The model is restored as ``nnUNet_torch_inference`` restores it
 (``training/restore.py:restore_model``), so both give the same
 segmentations.

@@ -5,9 +5,16 @@ Per case: preprocess (crop / resample / normalize, on the host with the port's
 planning code), Gaussian sliding window with
 mirror TTA on the device, undo resampling and crop on the host, argmax,
 NIfTI export.  Host preprocessing runs ahead of the device on worker
-threads and export trails behind, as in the JAX package.  Only the
-per-case path is ported; the JAX CLI's default volume-batched stream
-gives the same numbers.
+threads and export trails behind, as in the JAX package.
+
+``predict_from_folder`` serves through the volume stream by default
+(``volume_batch=8``, the JAX package's default): chunks of
+``2 * volume_batch`` cases go through ``predict_sliding_window_multi``
+with its bfloat16-rounded input, so cases that share a padded shape share
+model batches; ``volume_batch=1`` is the per-case path (one case at a
+time, f32 input: ``predict_case``'s numbers).  The two differ by the input's bfloat16 rounding, which the
+card's bfloat16 model applies anyway.  The ``2d`` configuration serves
+through both (2D-over-3D prediction in ``sliding_window.py``).
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ from ..planning.fingerprint import crop_to_nonzero
 from ..planning.preprocess import normalize, resample_image
 from ..utilities.imageio import image_suffix, read_image, write_image
 from ..utilities.nifti import NiftiImage
-from .sliding_window import predict_sliding_window
+from .sliding_window import predict_sliding_window, predict_sliding_window_multi
 
 
 def preprocess_for_inference(image_files: list, plans, config_name: str):
@@ -160,15 +167,27 @@ def case_files(input_folder: str) -> list:
     return [(c, sorted(fs)) for c, fs in sorted(cases.items())]
 
 
+def _finish_case(probs: np.ndarray, props: dict, postprocess_labels, out_file: str):
+    """The host tail of one case: undo, argmax, export."""
+    seg, _, props = finalize_case(probs, props, postprocess_labels)
+    export_segmentation(seg, props, out_file)
+
+
 def predict_from_folder(models_per_fold: list, plans, config_name: str,
                         input_folder: str, output_folder: str, *,
                         device: torch.device, do_tta: bool = True,
                         window_batch: int = 4, postprocess_labels=None,
-                        io_workers: int = 2, lookahead: int = 2) -> list:
+                        io_workers: int = 2, lookahead: int = 2,
+                        volume_batch: int = 8) -> list:
     """Predict every case in ``input_folder`` into
     ``output_folder/<case>.nii.gz``; returns the written paths in case
     order.  Preprocessing runs ``lookahead`` cases ahead of the device on
-    worker threads; export trails behind."""
+    worker threads; the host tail (undo, argmax, export) trails behind.
+    ``volume_batch > 1`` serves chunks of ``max(2 * volume_batch, 2)``
+    cases through the volume stream with its bfloat16-rounded input (the
+    JAX package's chunked loop, softmax summed over folds);
+    ``volume_batch=1`` serves case by case from the f32 input, as
+    ``predict_case`` does."""
     os.makedirs(output_folder, exist_ok=True)
     ordered = case_files(input_folder)
     written = []
@@ -180,19 +199,34 @@ def predict_from_folder(models_per_fold: list, plans, config_name: str,
                 prep[idx] = pool.submit(preprocess_for_inference,
                                         ordered[idx][1], plans, config_name)
 
+        def case_out(case):
+            out_file = os.path.join(output_folder, f"{case}.nii.gz")
+            written.append(out_file)
+            return out_file
+
         for i in range(lookahead + 1):
             submit_prep(i)
         exports = []
-        for i, (case, imgs) in enumerate(ordered):
-            pre = prep.pop(i).result()
-            submit_prep(i + lookahead + 1)
-            seg, _, props = predict_case(
-                models_per_fold, imgs, plans, config_name, device=device,
-                do_tta=do_tta, window_batch=window_batch,
-                postprocess_labels=postprocess_labels, preprocessed=pre)
-            out_file = os.path.join(output_folder, f"{case}.nii.gz")
-            written.append(out_file)
-            exports.append(pool.submit(export_segmentation, seg, props, out_file))
+        cfg = plans.config(config_name)
+        chunk_n = max(2 * volume_batch, 2) if volume_batch > 1 else 1
+        for i in range(0, len(ordered), chunk_n):
+            chunk = ordered[i:i + chunk_n]
+            pres = []
+            for j in range(len(chunk)):
+                pres.append(prep.pop(i + j).result())
+                submit_prep(i + j + lookahead + 1)
+            probs = None
+            for model in models_per_fold:
+                ps = predict_sliding_window_multi(
+                    model, [p[0] for p in pres],
+                    getattr(model, "patch_size", cfg.patch_size), plans.num_classes + 1,
+                    device=device, mirror_axes=(0, 1, 2) if do_tta else (),
+                    window_batch=window_batch, output="probs_bf16",
+                    input_bf16=volume_batch > 1, volume_batch=volume_batch)
+                probs = ps if probs is None else [a + b for a, b in zip(probs, ps)]
+            for (case, _), p, (_, props) in zip(chunk, probs, pres):
+                exports.append(pool.submit(_finish_case, p / len(models_per_fold), props,
+                                           postprocess_labels, case_out(case)))
         for f in exports:
             f.result()
     return written

@@ -4,13 +4,19 @@ the port of ``lifelong_nnunet_tpu/inference/sliding_window.py``.
 The grid arithmetic (``compute_steps``, ``gaussian_importance_map``,
 ``_center_pads``/``pad_to_min``, ``bucket_shape`` and the bucket-padded
 regular grid of ``_prepare_meta``) is copied with identical numerics.  The
-device side has ONE accumulation path: every window batch runs the model
-once on all 2^n mirror variants, the mean softmax is weighted by the
-Gaussian and slice-added into a class-major ``[K, *volume]`` float32 buffer
-beside the summed weights, and the normalization divides by those weights.
-The JAX package's scatter, overlap-add and slab cores exist for TPU
+device side has ONE accumulation path (``_overlap_add``): a stack of
+volumes padded alike is windowed at the same origins, every model batch
+runs up to ``window_batch`` (volume, window) pairs on all 2^n mirror
+variants, the mean softmax is weighted by the Gaussian and slice-added into
+a class-major ``[K, V, *padded]`` float32 buffer beside the summed weights,
+and the normalization divides by those weights.  One volume is a stack of
+one; a 2D patch over a 3D volume is the stack of its slices (the JAX
+package's ``_predict_2d_over_3d``); the volume stream
+(``predict_sliding_window_multi``) stacks the volumes that share a padded
+shape.  The JAX package's scatter, overlap-add and slab cores, its vmapped
+stream with its program caps and compile-shape padding exist for TPU
 dispatch limits and are not ported; the card's memory holds the
-accumulator of any volume the slice serves.
+accumulator of any volume or group the slice serves.
 """
 
 from __future__ import annotations
@@ -82,6 +88,13 @@ def bucket_shape(shape, patch_size, step_fraction: float = 0.5):
     return tuple(out)
 
 
+def _regular(patch_size, step_fraction: float) -> bool:
+    """An even patch at step 0.5: the bucket-padded grid is the regular one
+    (origins ``i * patch // 2``), where volumes that pad alike group and
+    ``seg`` sums bfloat16 windows (the JAX package's overlap-add cores)."""
+    return step_fraction == 0.5 and all(int(p) % 2 == 0 for p in patch_size)
+
+
 def window_grid(spatial_shape, patch_size, step_fraction: float = 0.5):
     """Padding and window origins for one volume (``_prepare_meta``).
 
@@ -93,7 +106,7 @@ def window_grid(spatial_shape, patch_size, step_fraction: float = 0.5):
     patch_size = tuple(int(p) for p in patch_size)
     pads, undo = _center_pads(spatial_shape, patch_size)
     padded = tuple(s + lo + hi for s, (lo, hi) in zip(spatial_shape, pads))
-    if step_fraction == 0.5 and all(p % 2 == 0 for p in patch_size):
+    if _regular(patch_size, step_fraction):
         bshape = bucket_shape(padded, patch_size, step_fraction)
         for a in range(len(pads)):
             pads[a][1] += bshape[a] - padded[a]
@@ -123,45 +136,60 @@ def tta_softmax(model, x: torch.Tensor, mirror_axes) -> torch.Tensor:
     return acc / len(combos)
 
 
-def predict_sliding_window(model, data: np.ndarray, patch_size,
-                           num_classes: int, *, device: torch.device,
-                           mirror_axes=(0, 1, 2), step_fraction: float = 0.5,
-                           window_batch: int = 4, use_gaussian: bool = True,
-                           output: str = "probs") -> np.ndarray:
-    """``data`` [*spatial, C] (channels-last, preprocessed, as in the JAX
-    package).  Returns softmax probabilities ``[*spatial, num_classes]``
-    float32, the same rounded through bfloat16 with ``output='probs_bf16'``,
-    or the argmax segmentation ``[*spatial]`` uint8 with ``output='seg'``.
+OUTPUTS = ("probs", "probs_bf16", "seg")
 
-    ``model(x [B, C, *patch])`` returns the U-Net's output list, highest
-    resolution first; it must already live on ``device``."""
-    if output not in ("probs", "probs_bf16", "seg"):
+
+def _check_output(output: str) -> None:
+    if output not in OUTPUTS:
         raise ValueError(f"output must be probs, probs_bf16 or seg: {output!r}")
-    patch_size = tuple(int(p) for p in patch_size)
-    data = np.asarray(data)
-    if data.ndim - 1 != len(patch_size):
-        raise ValueError(f"data {data.shape} does not match a {len(patch_size)}D "
-                         "patch (2D-over-3D prediction is not ported)")
-    pads, undo, origins = window_grid(data.shape[:-1], patch_size, step_fraction)
-    host = np.pad(np.moveaxis(data.astype(np.float32), -1, 0),
-                  ((0, 0),) + pads)
-    vol = torch.from_numpy(np.ascontiguousarray(host)).to(device)
-    vol_shape = vol.shape[1:]
+
+
+def _upload(host: np.ndarray, device: torch.device, input_bf16: bool) -> torch.Tensor:
+    """``host [V, *padded, C]`` (a padded copy) -> ``[V, C, *padded]`` on
+    ``device``, rounded to bfloat16 with ``input_bf16`` (the model casts it
+    back to its own dtype)."""
+    x = torch.from_numpy(np.ascontiguousarray(host, dtype=np.float32))
+    if input_bf16:
+        x = x.to(torch.bfloat16)
+    return x.movedim(-1, 1).contiguous().to(device)
+
+
+def _overlap_add(model, vols: torch.Tensor, origins, patch_size, num_classes: int,
+                 mirror_axes, window_batch: int, use_gaussian: bool,
+                 output: str, regular: bool) -> np.ndarray:
+    """The accumulation path of a stack of volumes padded alike, ``vols [V,
+    C, *padded]`` on the model's device, windowed at the same ``origins``:
+    the (volume, window) pairs run in order, ``window_batch`` to a model
+    batch (times the mirror variants), so one batch may carry windows of
+    several volumes.  Each volume keeps its own f32 accumulator (slices of
+    one ``[K, V, *padded]`` buffer); the Gaussian weights are the same for
+    all of them.  Returns ``[V, *padded, K]`` float32 (rounded through
+    bfloat16 for ``probs_bf16``) or ``[V, *padded]`` uint8 (``seg``), on the
+    host.  For ``seg`` on the ``regular`` grid each window's weighted
+    probabilities are rounded to bfloat16 before the f32 sum, as the JAX
+    package's overlap-add cores keep their window buffer; its irregular
+    grid sums them in f32."""
+    device = vols.device
+    padded = tuple(vols.shape[2:])
     g = torch.from_numpy(gaussian_importance_map(patch_size) if use_gaussian
                          else np.ones(patch_size, np.float32)).to(device)
-    acc = torch.zeros((num_classes,) + tuple(vol_shape), dtype=torch.float32,
+    acc = torch.zeros((num_classes, vols.shape[0]) + padded, dtype=torch.float32,
                       device=device)
-    weight = torch.zeros(vol_shape, dtype=torch.float32, device=device)
+    weight = torch.zeros(padded, dtype=torch.float32, device=device)
     windows = [tuple(slice(o, o + p) for o, p in zip(origin, patch_size))
                for origin in origins]
+    pairs = [(v, w) for v in range(vols.shape[0]) for w in windows]
     with torch.inference_mode():
-        for i in range(0, len(windows), window_batch):
-            batch = windows[i:i + window_batch]
-            x = torch.stack([vol[(slice(None),) + w] for w in batch])
+        for w in windows:
+            weight[w] += g
+        for i in range(0, len(pairs), window_batch):
+            batch = pairs[i:i + window_batch]
+            x = torch.stack([vols[(v, slice(None)) + w] for v, w in batch])
             probs = tta_softmax(model, x, mirror_axes) * g
-            for w, p in zip(batch, probs):
-                acc[(slice(None),) + w] += p
-                weight[w] += g
+            if output == "seg" and regular:
+                probs = probs.to(torch.bfloat16).float()
+            for (v, w), p in zip(batch, probs):
+                acc[(slice(None), v) + w] += p
         if output == "seg":
             # the positive per-voxel normalization cannot change the argmax
             out = acc.argmax(dim=0).to(torch.uint8)
@@ -169,5 +197,96 @@ def predict_sliding_window(model, data: np.ndarray, patch_size,
             out = (acc * (1.0 / weight)).movedim(0, -1)
             if output == "probs_bf16":
                 out = out.to(torch.bfloat16).float()
-        out = out.cpu().numpy()
-    return out[undo]
+        return out.cpu().numpy()
+
+
+def predict_sliding_window(model, data: np.ndarray, patch_size,
+                           num_classes: int, *, device: torch.device,
+                           mirror_axes=(0, 1, 2), step_fraction: float = 0.5,
+                           window_batch: int = 4, use_gaussian: bool = True,
+                           output: str = "probs", input_bf16: bool = False) -> np.ndarray:
+    """``data`` [*spatial, C] (channels-last, preprocessed, as in the JAX
+    package).  Returns softmax probabilities ``[*spatial, num_classes]``
+    float32, the same rounded through bfloat16 with ``output='probs_bf16'``,
+    or the argmax segmentation ``[*spatial]`` uint8 with ``output='seg'``.
+    ``input_bf16`` rounds the input through bfloat16 (the JAX package's
+    halved upload; on the card the model computes in bfloat16 anyway).
+
+    A 2D ``patch_size`` over a 3D ``data [D, H, W, C]`` predicts every
+    slice on its own (the JAX package's ``_predict_2d_over_3d``, upstream
+    nnU-Net's ``_internal_predict_3D_2Dconv_tiled``): the 2D window grid of
+    ``(H, W)`` on each slice, the mirror axes cut to the two in-plane ones,
+    and a model batch carrying up to ``window_batch`` (slice, window) pairs.
+
+    ``model(x [B, C, *patch])`` returns the U-Net's output list, highest
+    resolution first; it must already live on ``device``."""
+    _check_output(output)
+    patch_size = tuple(int(p) for p in patch_size)
+    data = np.asarray(data)
+    over_3d = data.ndim - 1 == len(patch_size) + 1
+    if data.ndim - 1 != len(patch_size) and not over_3d:
+        raise ValueError(f"data {data.shape} does not match a {len(patch_size)}D patch")
+    stack = data if over_3d else data[None]
+    mirror_axes = tuple(a for a in mirror_axes if a < len(patch_size))
+    pads, undo, origins = window_grid(stack.shape[1:-1], patch_size, step_fraction)
+    host = np.pad(stack, ((0, 0),) + pads + ((0, 0),))
+    out = _overlap_add(model, _upload(host, device, input_bf16), origins, patch_size,
+                       num_classes, mirror_axes, window_batch, use_gaussian, output,
+                       _regular(patch_size, step_fraction))
+    out = out[(slice(None),) + undo]
+    return out if over_3d else out[0]
+
+
+def predict_sliding_window_multi(model, volumes: list, patch_size, num_classes: int, *,
+                                 device: torch.device, mirror_axes=(0, 1, 2),
+                                 step_fraction: float = 0.5, window_batch: int = 4,
+                                 output: str = "seg", input_bf16: bool = True,
+                                 volume_batch: int = 1) -> list:
+    """Sliding-window prediction over a stream of volumes (the JAX
+    package's ``predict_sliding_window_multi``): a list of ``[*spatial, C]``
+    arrays in, the list of their results (as
+    :func:`predict_sliding_window` gives them) out, in input order.
+
+    Consecutive volumes whose padded shape is the same (different raw shapes
+    that bucket-pad alike included) form groups of up to ``volume_batch``
+    when the window grid is the regular one (an even patch at step 0.5);
+    a group's (volume, window) pairs share model batches of ``window_batch``
+    windows (times the mirror variants), so the largest forward is the one
+    volume's.  Other volumes, and a 2D patch over a 3D volume, run one by
+    one."""
+    _check_output(output)
+    patch_size = tuple(int(p) for p in patch_size)
+    regular = _regular(patch_size, step_fraction)
+    limit = max(1, volume_batch) if regular else 1
+    kw = dict(device=device, mirror_axes=mirror_axes, step_fraction=step_fraction,
+              window_batch=window_batch, output=output, input_bf16=input_bf16)
+    results: list = [None] * len(volumes)
+    group: list = []          # [(index, volume, pads, undo, origins)]
+
+    def flush():
+        if not group:
+            return
+        host = np.stack([np.pad(v, pads + ((0, 0),)) for _, v, pads, _, _ in group])
+        out = _overlap_add(model, _upload(host, device, input_bf16), group[0][4], patch_size,
+                           num_classes, mirror_axes, window_batch, True, output, regular)
+        for (i, _, _, undo, _), r in zip(group, out):
+            results[i] = r[undo]
+        group.clear()
+
+    def padded(v, pads):
+        return tuple(s + lo + hi for s, (lo, hi) in zip(v.shape[:-1], pads))
+
+    for i, v in enumerate(volumes):
+        v = np.asarray(v)
+        if v.ndim - 1 == len(patch_size) + 1:       # a 2D net on a 3D volume
+            flush()
+            results[i] = predict_sliding_window(model, v, patch_size, num_classes, **kw)
+            continue
+        pads, undo, origins = window_grid(v.shape[:-1], patch_size, step_fraction)
+        if group and padded(group[0][1], group[0][2]) != padded(v, pads):
+            flush()
+        group.append((i, v, pads, undo, origins))
+        if len(group) >= limit:
+            flush()
+    flush()
+    return results

@@ -342,14 +342,16 @@ def unet_from_plans(plans, config_name: str, dtype: torch.dtype = torch.float32,
                     base_num_features: int | None = None,
                     max_num_features: int | None = None,
                     blocked_conv: bool = False, upsample: str = "direct",
-                    remat: bool = False) -> GenericUNet:
+                    remat: bool = False, in_channels: int | None = None) -> GenericUNet:
     """The U-Net a plans configuration describes.  ``base_num_features`` /
     ``max_num_features`` override the plans' widths, as a checkpoint
     manifest may (``training/restore.py``); ``blocked_conv`` / ``upsample``
-    pick the CT-scale routes; ``remat`` recomputes the stages."""
+    pick the CT-scale routes; ``remat`` recomputes the stages;
+    ``in_channels`` (default the plans' modalities) is the cascade stage's
+    modalities plus its one-hot channels."""
     cfg = plans.config(config_name)
     return GenericUNet(
-        in_channels=plans.num_modalities,
+        in_channels=in_channels or plans.num_modalities,
         num_classes=plans.num_classes + 1,
         pool_op_kernel_sizes=cfg.pool_op_kernel_sizes,
         conv_kernel_sizes=cfg.conv_kernel_sizes,

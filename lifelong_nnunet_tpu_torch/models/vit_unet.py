@@ -197,14 +197,15 @@ def vit_unet_from_plans(plans, config_name: str, patch_size=None,
                         base_num_features: int | None = None,
                         max_num_features: int | None = None, blocked_conv: bool = False,
                         upsample: str = "direct", ln_tasks=(), active_task_idx: int = 0,
-                        **overrides) -> GenericViTUNet:
+                        in_channels: int | None = None, **overrides) -> GenericViTUNet:
     """The ViT-U-Net a plans configuration describes, for inputs of
     ``patch_size`` (default the plans'); ``overrides``: ``vit_embed_dim``,
     ``vit_depth``, ``vit_heads`` (see :func:`vit_overrides`); ``ln_tasks``
-    and ``active_task_idx``: the task-specific LayerNorms."""
+    and ``active_task_idx``: the task-specific LayerNorms; ``in_channels``
+    (default the plans' modalities): the cascade stage's input."""
     cfg = plans.config(config_name)
     return GenericViTUNet(
-        in_channels=plans.num_modalities, num_classes=plans.num_classes + 1,
+        in_channels=in_channels or plans.num_modalities, num_classes=plans.num_classes + 1,
         pool_op_kernel_sizes=cfg.pool_op_kernel_sizes,
         conv_kernel_sizes=cfg.conv_kernel_sizes,
         patch_size=tuple(patch_size or cfg.patch_size),

@@ -41,8 +41,8 @@
 // memory (map_shared_rank), every block in rank order, so every block
 // computes the same bits: forward, each piece's (count, mean, M2) is taken
 // two-pass and the pieces merge by Chan's formula (the kept part first,
-// then the streamed chunks, then the ranks); backward, the two sums add in
-// rank order.  No atomics: a second run repeats bit for bit.  16-byte
+// then the streamed chunks, then the ranks); backward, the two sums (in
+// f64 from each thread's running sums to the row's) add in rank order.  No atomics: a second run repeats bit for bit.  16-byte
 // vector access (8 bf16 or 4 f32) wherever the rows are aligned, scalar
 // access elsewhere (245- and 490-element bf16 rows start off 16 bytes).
 // Per-row dscale / dbias go to a [2, B, C] scratch that a second, tiny
@@ -396,9 +396,9 @@ __global__ void __launch_bounds__(kClusterThreads, 2)
                           int C, long long N, long long slice, long long keep, int cs,
                           float alpha) {
   extern __shared__ __align__(16) unsigned char in_smem[];
-  __shared__ float red[32];
-  __shared__ float piece[2];   // this block's (sum dz, sum dz xhat)
-  __shared__ float merged[2];  // the row's, from thread 0
+  __shared__ double red[32];
+  __shared__ double piece[2];   // this block's (sum dz, sum dz xhat)
+  __shared__ double merged[2];  // the row's, from thread 0
   using P = Pack<T, W>;
   using Q = Pack<Tdx, W>;
   T* sx = reinterpret_cast<T*>(in_smem);
@@ -421,16 +421,22 @@ __global__ void __launch_bounds__(kClusterThreads, 2)
 
   const int c = (int)(row % C);
   const float m = mean[row], r = rstd[row], sc = scale[c], bi = bias[c];
-  float s_dz = 0.f, s_dzx = 0.f;
+  // the sums in f64 up to the row's: in f32 they carried ~1e-3 of
+  // roundoff into dscale and dbias at rows of 3.3M elements (a 128x160x160
+  // map), each thread adding hundreds of items; a pack's W terms add in f32
+  double a_dz = 0.0, a_dzx = 0.0;
   auto acc = [&](const P& px, const P& pg) {
+    float p_dz = 0.f, p_dzx = 0.f;
 #pragma unroll
     for (int k = 0; k < W; ++k) {
       const float xhat = (lnn_to_f32(px.v[k]) - m) * r;
       const float gi = lnn_to_f32(pg.v[k]);
       const float d = xhat * sc + bi >= 0.f ? gi : alpha * gi;
-      s_dz += d;
-      s_dzx += d * xhat;
+      p_dz += d;
+      p_dzx += d * xhat;
     }
+    a_dz += p_dz;
+    a_dzx += p_dzx;
   };
   for (long long i = tid; i < k_items; i += nt)
     acc(load_pack<T, W>(sx, i), load_pack<T, W>(sg, i));
@@ -448,8 +454,8 @@ __global__ void __launch_bounds__(kClusterThreads, 2)
     for (int u = 0; u < kBwdItems; ++u)
       if (c0 + tid + (long long)u * nt < n_items) acc(px[u], pg[u]);
   }
-  s_dz = lnn_block_sum(s_dz, red);
-  s_dzx = lnn_block_sum(s_dzx, red);
+  double s_dz = lnn_block_sum(a_dz, red);
+  double s_dzx = lnn_block_sum(a_dzx, red);
 
   if (cs > 1) {  // the row's sums, added in rank order by every block
     cg::cluster_group cluster = cg::this_cluster();
@@ -459,9 +465,9 @@ __global__ void __launch_bounds__(kClusterThreads, 2)
     }
     cluster.sync();
     if (tid == 0) {
-      float t_dz = 0.f, t_dzx = 0.f;
+      double t_dz = 0.0, t_dzx = 0.0;
       for (int q = 0; q < cs; ++q) {
-        const float* o = cluster.map_shared_rank(piece, q);
+        const double* o = cluster.map_shared_rank(piece, q);
         t_dz += o[0];
         t_dzx += o[1];
       }
@@ -472,9 +478,8 @@ __global__ void __launch_bounds__(kClusterThreads, 2)
     s_dz = merged[0];
     s_dzx = merged[1];
   }
-  const float n = (float)N;
-  const float m1 = sc * s_dz / n;   // mean(dxhat)
-  const float m2 = sc * s_dzx / n;  // mean(dxhat * xhat)
+  const float m1 = (float)(sc * s_dz / N);   // mean(dxhat)
+  const float m2 = (float)(sc * s_dzx / N);  // mean(dxhat * xhat)
 
   Q* dp = reinterpret_cast<Q*>(dx + row * N + s0);
   auto grad = [&](const P& px, const P& pg) {
@@ -508,8 +513,8 @@ __global__ void __launch_bounds__(kClusterThreads, 2)
   for (long long i = tid; i < k_items; i += nt)
     dp[i] = grad(load_pack<T, W>(sx, i), load_pack<T, W>(sg, i));
   if (rank == 0 && tid == 0) {
-    partials[row] = s_dzx;        // dscale of (b, c)
-    partials[rows + row] = s_dz;  // dbias of (b, c)
+    partials[row] = (float)s_dzx;        // dscale of (b, c)
+    partials[rows + row] = (float)s_dz;  // dbias of (b, c)
   }
 }
 

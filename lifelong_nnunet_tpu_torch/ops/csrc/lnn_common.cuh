@@ -55,3 +55,23 @@ static __device__ __forceinline__ float lnn_block_sum(float v, float* red) {
   __syncthreads();  // `red` may be reused by the next call
   return total;
 }
+
+// The same in f64, `red` a shared buffer of 32 doubles.
+static __device__ __forceinline__ double lnn_block_sum(double v, double* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (lane == 0) red[0] = v;
+  }
+  __syncthreads();
+  const double total = red[0];
+  __syncthreads();
+  return total;
+}

@@ -31,8 +31,10 @@ checkpoint's manifest says whether the network is a U-Net or a ViT-U-Net.
 (``inference/postprocessing.py``), of every class where there is none.
 A ViT-U-Net with task-specific LayerNorms serves every head with the
 LayerNorm set of its manifest's ``active_task_idx`` (the last trained
-task's), as the JAX CLI does.  The cascade trainer (not ported yet) is
-refused.
+task's), as the JAX CLI does.  Cases are served through the volume
+stream (``inference/predict.py``, the JAX CLI's default); the ``2d``
+configuration predicts each volume slice by slice.  An unknown trainer
+raises.
 """
 
 from __future__ import annotations
@@ -99,7 +101,7 @@ def _resolve_task(task: str) -> str:
 
 def _refuse_unported(args) -> None:
     if args.trainer not in BASE_TRAINERS:
-        get_trainer(args.trainer)      # raises for a trainer not ported yet
+        get_trainer(args.trainer)      # raises for an unknown trainer
 
 
 def _locate_model(args, results: str, fold: int) -> str:

@@ -26,7 +26,10 @@ and ``--use_progress_val``, and the per-method hyperparameters of
 ``--no_transfer_heads`` changes only the folder (``SEQ`` -> ``MH``), as in
 the JAX CLI: the trainer still follows its class's ``TRANSFER_HEADS``.
 Options whose parts are not ported yet (SPMD: ``-n_devices``,
-``-model_parallel``) are refused, as is the cascade trainer.  ``--use_vit``
+``-model_parallel``) are refused.  The cascade's fullres stage
+(``CascadeFullResTrainer``, ``inference/cascade.py``, on the stage that
+``nnUNet_torch_prepare_cascade`` writes) trains through the trainer API,
+as in the JAX package, which has no training CLI for it.  ``--use_vit``
 trains the ViT-U-Net (``-v``, ``-v_type``, ``--do_LSA``, ``--do_SPT``,
 ``-vit_depth``, ``--task_specific_ln``: one LayerNorm set per task) into
 the ``Generic_ViT_UNetV{v}/...`` folder of the JAX CLI (``task_specific``

@@ -56,7 +56,9 @@ def vit_manifest(version: str, vit_type: str, lsa: bool, spt: bool,
 def base_manifest(plans, config_name: str, model, trainer: str = "nnUNetTrainerV2",
                   extension: str = "base_v2", fold: int = 0, vit: dict | None = None) -> dict:
     """The JAX manifest's keys for a single-task U-Net, or a ViT-U-Net
-    with ``vit`` (:func:`vit_manifest`) trained on the plans' patch."""
+    with ``vit`` (:func:`vit_manifest`) trained on the plans' patch, and
+    the network's input channels (the cascade stage's exceed the plans'
+    modalities)."""
     cfg = plans.config(config_name)
     return {
         "plans": dataclasses.asdict(plans),
@@ -69,6 +71,7 @@ def base_manifest(plans, config_name: str, model, trainer: str = "nnUNetTrainerV
         "batch_size": cfg.batch_size,
         "base_num_features": int(model.base_num_features),
         "max_num_features": int(model.max_num_features),
+        "in_channels": int(model.enc0.block0.conv.in_channels),
         "use_vit": vit is not None,
         "vit": vit,
         "fold": fold,

@@ -2,7 +2,8 @@
 ``lifelong_nnunet_tpu/training/restore.py``.
 
 The manifest embeds the full plans (the first task's, so later tasks never
-reshape the network), the network widths and, for a ViT-U-Net, its
+reshape the network), the network widths and input channels (a cascade
+stage's modalities plus its one-hot channels) and, for a ViT-U-Net, its
 ``vit`` options (its task-specific LayerNorms' ``ln_tasks`` and
 ``active_task_idx`` too) and the patch size its position embeddings were
 sized for;
@@ -65,7 +66,8 @@ def model_from_manifest(manifest: dict, plans: Plans, **kwargs) -> GenericUNet:
     rules, ``restore.py:45-66``), built with ``kwargs`` (dtype, deep
     supervision, routes, generator)."""
     widths = dict(base_num_features=manifest.get("base_num_features"),
-                  max_num_features=manifest.get("max_num_features"), **kwargs)
+                  max_num_features=manifest.get("max_num_features"),
+                  in_channels=manifest.get("in_channels"), **kwargs)
     vit = manifest.get("vit")
     if not (manifest.get("use_vit") and vit):
         return unet_from_plans(plans, manifest["config_name"], **widths)

@@ -131,6 +131,7 @@ class MultiHeadTrainer:
         self.output_folder = output_folder
         self.hyperparams = hyperparams
         self.num_classes = plans.num_classes + 1
+        self.in_channels = self.input_channels(plans)
         # nnU-Net's batch-dice rule: 2d and 3d_fullres pool over the batch
         self.batch_dice = config_name in ("2d", "3d_fullres")
         self.device = resolve_device(self.opts.device)
@@ -167,6 +168,12 @@ class MultiHeadTrainer:
         self._skip_before_ckpt = False
         self._suppress_finalize = False
 
+    @classmethod
+    def input_channels(cls, plans) -> int:
+        """The network's input channels: the plans' modalities (the cascade
+        stage adds its one-hot channels)."""
+        return plans.num_modalities
+
     def _make_model(self, ln_tasks=(), active_task_idx: int = 0):
         """The network of the options (``ln_tasks`` / ``active_task_idx``:
         the ViT's task-specific LayerNorms), seeded, on the CPU; the
@@ -176,7 +183,8 @@ class MultiHeadTrainer:
         widths = dict(dtype=self._dtype, use_kernels=o.use_kernels,
                       generator=torch.Generator().manual_seed(SEED),
                       base_num_features=o.base_num_features,
-                      max_num_features=o.max_num_features, **route_switches())
+                      max_num_features=o.max_num_features, in_channels=self.in_channels,
+                      **route_switches())
         if o.use_vit:
             return vit_unet_from_plans(
                 self.plans, self.config_name, self.patch_size, vit_version=o.vit_version,

@@ -1,8 +1,8 @@
 """Trainer registry of the port: extension name / class name -> trainer
 class, as the JAX package's
-(``lifelong_nnunet_tpu/training/trainers/__init__.py:20-66``).  The JAX
-package's cascade trainer (``cascade_fullres``) is not ported yet; asking
-for it raises."""
+(``lifelong_nnunet_tpu/training/trainers/__init__.py:20-76``), the cascade
+trainer (``inference/cascade.py``) resolved late by :func:`get_trainer`,
+as there (that module imports this registry)."""
 
 from ..trainer import MultiHeadTrainer
 from .ewc import EWCLNTrainer, EWCTrainer, EWCUNetTrainer, EWCViTTrainer
@@ -71,9 +71,12 @@ CLASS_NAME_MAP = {
 
 
 def get_trainer(name: str):
+    if name in ("cascade_fullres", "CascadeFullResTrainer",
+                "nnViTUNetTrainer_CascadeFullRes"):
+        from ...inference.cascade import CascadeFullResTrainer
+        return CascadeFullResTrainer
     if name in TRAINER_MAP:
         return TRAINER_MAP[name]
     if name in CLASS_NAME_MAP:
         return CLASS_NAME_MAP[name]
-    raise NotImplementedError(f"trainer/extension {name!r} is not ported yet; the "
-                              f"port trains {sorted(TRAINER_MAP)}")
+    raise KeyError(f"unknown trainer/extension {name!r}; known: {sorted(TRAINER_MAP)}")

@@ -44,6 +44,7 @@ console_scripts = [
     "lifelong_nnunet_tpu_torch.scripts.update_checkpoints:main_all",
     "nnUNet_torch_delete_tasks = lifelong_nnunet_tpu_torch.scripts.delete_tasks:main",
     "nnUNet_torch_join_datasets = lifelong_nnunet_tpu_torch.scripts.join_datasets:main",
+    "nnUNet_torch_prepare_cascade = lifelong_nnunet_tpu_torch.run.prepare_cascade:main",
 ] + [
     "nnUNet_parameter_search = lifelong_nnunet_tpu.run.run_param_search:main",
     "nnUNet_train_vit = lifelong_nnunet_tpu.run.run_training_vit:main",

@@ -4,15 +4,16 @@ package ``lifelong_nnunet_tpu``, not even its jax-free modules: a fresh
 interpreter whose ``sys.meta_path`` refuses those imports loads every module
 of ``lifelong_nnunet_tpu_torch`` (the CT routes' ``ops/kernels/block_pack.py``
 and ``ops/kernels/interleave.py``, the evaluation modules and the LwF, MiB,
-PLOP / POD and OwnM trainers, the parameter search, the scripts and the
-helpers among them), resolves every ``nnUNet_torch_*`` console script of
-``setup.py``, loads ``chip_smoke.py``, runs one
-tiny CPU forward through the model and the sliding window and one through
-the CT routes (the blocked conv and the interleave upsample), and one CPU
-training run
-of a single step through ``run/run_training.py``, one through
-``run/run_training_vit.py`` and one tiny parameter-search experiment
-(``experiment/experiment.py``)."""
+PLOP / POD and OwnM trainers, the parameter search, the scripts, the
+helpers and the cascade among them), resolves every ``nnUNet_torch_*``
+console script of ``setup.py``, loads ``chip_smoke.py``, runs one tiny CPU
+forward through the model and the sliding window (a 3D volume, a 2D patch
+over a 3D volume, the volume stream) and one through the CT routes (the
+blocked conv and the interleave upsample), and one CPU training run of a
+single step through ``run/run_training.py``, one through
+``run/run_training_vit.py``, one tiny parameter-search experiment
+(``experiment/experiment.py``), ``run/prepare_cascade.py`` on the first
+run's checkpoint and one step of the cascade trainer on its stage."""
 
 import ast
 import json
@@ -64,7 +65,7 @@ SCRIPT = BLOCKER + textwrap.dedent("""
         "experiment.experiment", "experiment.param_search", "run.run_param_search",
         "utilities.helpful_functions", "scripts.create_split",
         "scripts.dataset_label_mapping", "scripts.delete_tasks", "scripts.join_datasets",
-        "scripts.update_checkpoints")}
+        "scripts.update_checkpoints", "inference.cascade", "run.prepare_cascade")}
     assert new <= set(names), new - set(names)
     import re
     setup = re.sub(r'"\\s*\\n\\s*"', "", open("setup.py").read())
@@ -75,7 +76,7 @@ SCRIPT = BLOCKER + textwrap.dedent("""
     want = {"nnUNet_torch_parameter_search", "nnUNet_torch_plan_and_preprocess",
             "nnUNet_torch_dataset_label_mapping", "nnUNet_torch_update_checkpoints",
             "nnUNet_torch_update_checkpoints_all", "nnUNet_torch_delete_tasks",
-            "nnUNet_torch_join_datasets"}
+            "nnUNet_torch_join_datasets", "nnUNet_torch_prepare_cascade"}
     assert want <= {name for name, _, _ in scripts}, want - {n for n, _, _ in scripts}
     import chip_smoke
     from lifelong_nnunet_tpu_torch.inference.sliding_window import predict_sliding_window
@@ -85,6 +86,16 @@ SCRIPT = BLOCKER + textwrap.dedent("""
     probs = predict_sliding_window(model, np.ones((10, 9, 8, 1), np.float32), (8, 8, 8), 3,
                                    device=torch.device("cpu"), window_batch=2)
     assert probs.shape == (10, 9, 8, 3) and np.isfinite(probs).all()
+    from lifelong_nnunet_tpu_torch.inference.sliding_window import (
+        predict_sliding_window_multi)
+    flat = GenericUNet(1, 3, ((2, 2),), ((3, 3),) * 2, 4, 8, deep_supervision=False).eval()
+    seg = predict_sliding_window(flat, np.ones((3, 9, 8, 1), np.float32), (8, 8), 3,
+                                 device=torch.device("cpu"), output="seg")
+    assert seg.shape == (3, 9, 8)
+    segs = predict_sliding_window_multi(model, [np.ones((10, 9, 8, 1), np.float32)] * 2,
+                                        (8, 8, 8), 3, device=torch.device("cpu"),
+                                        volume_batch=2)
+    assert [s.shape for s in segs] == [(10, 9, 8)] * 2
     ct = GenericUNet(1, 3, ((2, 2, 2),), ((3, 3, 3),) * 2, 2, 4, blocked_conv=True,
                      upsample="interleave").eval()
     assert ct.enc0.block0.route((2, 1, 64, 64, 64)) == "blocked"
@@ -133,6 +144,20 @@ TRAIN_SCRIPT = BLOCKER + textwrap.dedent("""
                                     patch_size=(8, 8, 8), base_num_features=2,
                                     max_num_features=4, fold=-1, device="cpu")).run("exp_0")
     assert os.path.isfile(res["csv"]), res
+    from lifelong_nnunet_tpu_torch.inference.cascade import CascadeFullResTrainer
+    from lifelong_nnunet_tpu_torch.run import prepare_cascade
+    low = [os.path.join(d, "model_final_checkpoint") for d, _, fs in
+           os.walk(os.path.join(root, "results")) if "model_final_checkpoint.pt" in fs
+           and "Generic_UNet" in d]
+    assert prepare_cascade.main(["-t", "97", "-ckpt", low[0], "-lowres_config", "3d_fullres",
+                                 "--device", "cpu"]) == 0
+    cascade = CascadeFullResTrainer(
+        Plans.load(plans_path(pre_task)), "3d_fullres", os.path.join(root, "cascade"),
+        TrainerOptions(num_epochs=1, iters_per_epoch=1, val_iters=1, patch_size=(8, 8, 8),
+                       base_num_features=2, max_num_features=4, fold=-1, device="cpu"))
+    cascade.train_task("Task097_SynthA", prepare_cascade.cascade_stage_dir(
+        os.path.join(root, "pre"), "Task097_SynthA"))
+    assert cascade.model.enc0.block0.conv.in_channels == 3
     loaded = {m.split(".")[0] for m in sys.modules} & set(Refuse.BLOCKED)
     print(json.dumps({"loaded": sorted(loaded)}))
 """)
@@ -150,13 +175,14 @@ def test_port_imports_and_runs_without_jax():
 def test_one_train_step_runs_without_jax(tmp_path):
     """``run/run_training.py`` and ``run/run_training_vit.py`` (a ViT-U-Net)
     each take one CPU train step (and its validation batch and
-    checkpoints) under the blocker."""
+    checkpoints) under the blocker, and so does the cascade trainer on the
+    stage ``run/prepare_cascade.py`` writes from the first run."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", TRAIN_SCRIPT, str(tmp_path)], cwd=ROOT,
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"loaded": []}
-    assert len(list(tmp_path.rglob("model_final_checkpoint.pt"))) == 3
+    assert len(list(tmp_path.rglob("model_final_checkpoint.pt"))) == 4
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):

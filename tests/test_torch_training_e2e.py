@@ -140,9 +140,13 @@ def test_unported_options_are_refused(env, extra, refused, tmp_path, monkeypatch
 
 
 def test_only_the_ported_trainers_are_registered():
+    """The cascade trainer resolves late, as in the JAX registry; an unknown
+    name raises."""
+    from lifelong_nnunet_tpu_torch.inference.cascade import CascadeFullResTrainer
     assert get_trainer("nnUNetTrainerV2") is BaseUNetTrainer
-    with pytest.raises(NotImplementedError, match="cascade_fullres"):
-        get_trainer("cascade_fullres")
+    assert get_trainer("cascade_fullres") is CascadeFullResTrainer
+    with pytest.raises(KeyError, match="cascade_fullresX"):
+        get_trainer("cascade_fullresX")
 
 
 def test_trainers_give_the_jax_trainers_losses(env, tmp_path):
