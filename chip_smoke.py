@@ -112,7 +112,7 @@ Phases (one line each; any failure raises, so the exit code is not 0):
      (``Task098_SynthB``, seed 7, intensity shift 0.8), planned and
      preprocessed the same way, trained at full width by
      ``nnUNet_torch_train_sequential 3d_fullres -t A B`` and then
-     ``nnUNet_torch_train_rehearsal`` (1 epoch of 30 steps and 2 validation
+     ``nnUNet_torch_train_rehearsal`` (1 epoch of 20 steps and 2 validation
      batches per task, ``-save_interval 1 --use_progress_val --device
      cuda``): each task's loss finite, the launch counters of the four
      kernels as the route predicts per train step, per validation batch
@@ -131,7 +131,7 @@ Phases (one line each; any failure raises, so the exit code is not 0):
   12. the regularizing and freezing trainers: phase 11's tasks A and B and
      a third, ``Task099_SynthC`` (made like B: seed 11, intensity shift
      -0.6), planned and preprocessed the same way, each trained 1 epoch of
-     30 steps and 2 validation batches per task (``-save_interval 1
+     20 steps and 2 validation batches per task (``-save_interval 1
      --use_progress_val --device cuda``) at full width by
      ``nnUNet_torch_train_ewc 3d_fullres -t A B C`` (the main path),
      ``_rw -t A B``, ``_frozen_body_seq -t A B``, and with ``--use_vit``
@@ -285,7 +285,28 @@ Phases (one line each; any failure raises, so the exit code is not 0):
      CT routes (the cascade's first conv blocked at Cin = 3), seconds and
      peak memory per stage, warm s/step and the validation Dice recorded;
      then phase 17's seconds and the run's.
-Phases 4, 6, 8 and 11-17 run with both switches set: at hippocampus scale
+  18. Several devices (``_multi_device_path``): the full-width U-Net
+     trained ``MULTI_STEPS`` steps (one val batch, augmentation on)
+     through the trainer at data parallel 2 and at model parallel 2, two
+     ranks spawned (``parallel/launch.py``, the patch gather and the
+     kernels built in this process first) on ``cuda:0`` and ``cuda:1``
+     over NCCL where the host has two GPUs, else both on ``cuda:0`` over
+     gloo (printed, with a probe of gloo's all_reduce / all_gather /
+     broadcast on CUDA tensors in f32 and bf16): each rank's launches as
+     predicted (a data-parallel rank's the one-device counts at batch 1,
+     a model-parallel rank's at batch 2 on half the channels), the losses
+     equal on both ranks, each run's parameter update within
+     ``MULTI_UPDATE_RTOL`` of one device's (bf16), the gradient
+     all-reduce's ms per step, the per-rank parameter bytes under model
+     parallel below ``MP_BYTES_RATIO`` of data parallel's; the fused conv,
+     its data gradient and the InstanceNorm kernels against their plain
+     versions at both layouts' shapes; ``predict_sliding_window_sharded``
+     on phase 4's cases that pad alike over the same two device slots
+     (phase 6's model): equal bit for bit to the volume stream over the
+     same groups, on >= ``SHARDED_AGREE`` of voxels to the per-volume
+     path; the CT task's sampler at 128^3, batch 2, native gather against
+     numpy: equal batches, ms/batch of both in turns.
+Phases 4, 6, 8 and 11-18 run with both switches set: at hippocampus scale
 and on the 2D U-Net the gates admit nothing, so their launch counts are
 those of the ordinary routes; phase 17's cascade runs the CT routes.  The
 fused conv, its data gradient and flash attention (forward and backward)
@@ -314,7 +335,9 @@ run and servings), ``remat_train`` (its ``--remat`` run),
 ``2d_serve`` (phase 17's 2d training; its serving and evaluation),
 ``stream_serve`` (its four stream / per-case servings), ``lowres_train``,
 ``cascade_prepare`` and ``cascade_train`` (the cascade's training and its
-validation); the two kernels of the fused
+validation), ``dp2_train.rank{0,1}`` / ``mp2_train.rank{0,1}`` (phase 18's
+ranks, counted in their own processes) and ``sharded_serve``; the two
+kernels of the fused
 conv, its data gradient and flash attention as ``conv3d_in_lrelu_tc`` /
 ``conv3d_dx_tc`` / ``flash_attention_tc`` / ``flash_attention_bwd_tc``
 (the tensor-core kernels) and ``conv3d_in_lrelu_f32`` / ``conv3d_dx_f32``
@@ -376,6 +399,11 @@ from lifelong_nnunet_tpu_torch.inference.sliding_window import (  # noqa: E402
 from lifelong_nnunet_tpu_torch.models.unet import (  # noqa: E402
     ConvNormAct, ds_scale_factors, unet_from_plans)
 from lifelong_nnunet_tpu_torch.models.vit_unet import vit_unet_from_plans  # noqa: E402
+from lifelong_nnunet_tpu_torch.data import native as native_gather  # noqa: E402
+from lifelong_nnunet_tpu_torch.inference.sliding_window import (  # noqa: E402
+    predict_sliding_window_sharded)
+from lifelong_nnunet_tpu_torch.parallel.launch import backend_for, spawn  # noqa: E402
+from lifelong_nnunet_tpu_torch.parallel.mesh import param_bytes  # noqa: E402
 from lifelong_nnunet_tpu_torch.ops.kernels import build  # noqa: E402
 from lifelong_nnunet_tpu_torch.ops.kernels import block_pack  # noqa: E402
 from lifelong_nnunet_tpu_torch.ops.kernels import interleave  # noqa: E402
@@ -430,7 +458,7 @@ from lifelong_nnunet_tpu_torch.utilities.synthetic import make_synthetic_task  #
 
 WINDOW_BATCH = 8                 # the CLI's default
 VOLUME_BATCH = 8                 # the serving CLI's default volume stream
-STEP_REPS = 10                   # timed train steps per route and turn
+STEP_REPS = 5                    # timed train steps per route and turn
 PROFILE_STEPS = 5                # profiled kernel-route train steps
 TTA = 8                          # mirror combos over 3 axes
 SEED = 0
@@ -438,6 +466,7 @@ SMALL_SHAPE = (60, 84, 60)       # hippocampus scale: crops to one patch
 LARGE_SHAPE = (84, 120, 84)      # crops to 80x116x80: a 2x2x2 window grid
 TRAIN_BATCH = 2                  # the plan's batch
 TRAIN_EPOCHS, TRAIN_ITERS, VAL_ITERS = 2, 60, 4
+VIT_TRAIN_ITERS = 30             # phase 8's steps an epoch (cut from 60 for time)
 # one f32 train step's worst gradient |diff| from the f64 plain route, in
 # units of 1e-5 + 1e-3 of each gradient's scale: the limit both f32 routes
 # must meet and the bf16 control must exceed.  On an H100 80GB HBM3 (700 W)
@@ -468,9 +497,10 @@ CT_WINDOWS = 8
 CT_SERVE_BATCH = WINDOW_BATCH * TTA
 CT_TRAIN_ITERS, CT_VAL_ITERS, CT_STEP_REPS = 20, 2, 5
 CT_ROUTES = {"blocked_conv": True, "upsample": "interleave"}
-# the task sequence (phase 11): steps and validation batches per task, the
-# progress validation's window batch (the trainer's)
-SEQ_ITERS, SEQ_VAL_ITERS, SEQ_WINDOW_BATCH = 30, 2, 4
+# the task sequence (phase 11): steps and validation batches per task (cut
+# from 30 to keep the whole run inside its time limit), the progress
+# validation's window batch (the trainer's)
+SEQ_ITERS, SEQ_VAL_ITERS, SEQ_WINDOW_BATCH = 20, 2, 4
 # the regularizing trainers (phase 12): its third task, made like task B,
 # and the limit on the penalty's (and its gradient's) relative difference
 # between the card and the CPU from one checkpoint
@@ -519,6 +549,24 @@ CASCADE_KERNELS = ("conv3d_in_lrelu", "conv3d_dx", "instance_norm_leaky",
 # voxels agreed on an H100 80GB HBM3, 700 W, PERF.md)
 STREAM_AGREE = 0.9999
 ROUTE_AGREE_2D = 0.999
+# the multi-device paths (phase 18): train steps of each run, validation
+# batches, the bf16 tolerance on a rank's parameter update against one
+# device's (|d2 - d1| / |d1| over every parameter), the least share of
+# voxels on which the sharded serving agrees with the per-volume path (its
+# shards equal the volume stream over the same groups bit for bit; the
+# per-volume path runs other batches, so bf16 near ties may flip), the
+# per-rank parameter bytes under model_parallel 2 against data parallel, and
+# the patch gather's batches (the CT patch) timed native vs numpy
+MULTI_STEPS = 3
+MULTI_VAL = 1
+MULTI_VIT_ATTN = 12              # ViT-base's blocks: a flash launch each per pass
+MULTI_UPDATE_RTOL = 5e-2
+# the checkpoints phase 18 writes to disk (the update check reads them; the
+# others stay in memory)
+MULTI_KEEP = ("before_training", "model_final_checkpoint")
+SHARDED_AGREE = 0.999
+MP_BYTES_RATIO = 0.62
+GATHER_BATCHES = 6
 # f32 copies at the serving batch are checked where the kernel's input and
 # output fit in this many bytes (the largest, 64 x 64 x 128^3, would not fit
 # beside its plain version)
@@ -595,6 +643,108 @@ IN_FORMED = ("instance_norm_leaky", "instance_norm_leaky_bwd")
 FORM_KEYS = [f"{name}.{form}" for name in IN_FORMED for form in FORMS]
 # the pack likewise, by the form of its launch plan (tma, scalar)
 PACK_FORM_KEYS = [f"pack_blocks.{form}" for form in block_pack.FORMS]
+
+
+class _ModelCache:
+    """While active, ``unet_from_plans`` and ``vit_unet_from_plans`` (in
+    every module of the port that calls them, and here) return a copy of
+    the model they built before from the same arguments and the same
+    generator state, and leave the generator in the state that building it
+    left: the same parameters bit for bit, without drawing them again.
+    Drawing a ViT-base's 114M seeded parameters takes seconds of one CPU
+    core, and the script builds such models tens of times (each trainer,
+    each restore, the four routes of each step check, each turn).  The
+    parameters (f32) do not depend on ``ROUTE`` (the dtype and the
+    routes), which only set attributes that the forward reads: a model
+    asked for in another dtype or route is a copy of one built in another,
+    with those attributes set.  A model is kept as its ``torch.save`` bytes in
+    memory and copied by ``torch.load``; the least recently used are
+    dropped past ``max_bytes``.  A call that passes its generator by
+    position is not cached."""
+
+    MODULES = ("lifelong_nnunet_tpu_torch.models.unet",
+               "lifelong_nnunet_tpu_torch.models.vit_unet",
+               "lifelong_nnunet_tpu_torch.training.trainer",
+               "lifelong_nnunet_tpu_torch.training.restore", __name__)
+    ROUTE = ("dtype", "use_kernels", "blocked_conv", "upsample")
+
+    def __init__(self, max_bytes=24e9):
+        self.max_bytes = max_bytes
+        self.models = {}     # key without ROUTE -> (saved model, generator state after, bytes)
+        self.hits = self.misses = 0
+        self._saved = []
+
+    @staticmethod
+    def _bind(fn, args, kwargs):
+        """The call's arguments by name, the defaults filled in and the
+        ones the builders take from the plans resolved as they do."""
+        code = fn.__code__
+        names = code.co_varnames[:code.co_argcount]
+        defaults = fn.__defaults__ or ()
+        bound = dict(zip(names[len(names) - len(defaults):], defaults))
+        bound.update(zip(names, args))
+        bound.update((k, v) for k, v in kwargs.items() if k in names)
+        bound["overrides"] = {k: v for k, v in kwargs.items() if k not in names}
+        plans = bound.pop("plans")
+        cfg = plans.config(bound["config_name"])
+        bound["in_channels"] = bound["in_channels"] or plans.num_modalities
+        for k in ("base_num_features", "max_num_features"):
+            bound[k] = bound[k] or getattr(cfg, k)
+        if "patch_size" in bound:
+            bound["patch_size"] = tuple(bound["patch_size"] or cfg.patch_size)
+        bound["plans"] = (plans.num_modalities, plans.num_classes, repr(cfg))
+        return bound
+
+    def _wrap(self, fn):
+        def build(*args, **kwargs):
+            if any(isinstance(a, torch.Generator) for a in args):
+                return fn(*args, **kwargs)
+            bound = self._bind(fn, args, kwargs)
+            gen = bound.pop("generator")
+            route = {k: bound.pop(k) for k in self.ROUTE}
+            key = (fn.__name__, repr(sorted(bound.items())),
+                   None if gen is None else bytes(gen.get_state().numpy()))
+            if key not in self.models:
+                self.misses += 1
+                model = fn(*args, **kwargs)
+                buf = tempfile.SpooledTemporaryFile(max_size=1 << 40)   # stays in memory
+                torch.save(model, buf)
+                self.models[key] = (buf, None if gen is None else gen.get_state(), buf.tell())
+                while sum(n for _, _, n in self.models.values()) > self.max_bytes:
+                    self.models.pop(next(iter(self.models)))[0].close()
+                return model
+            self.hits += 1
+            entry = self.models.pop(key)
+            self.models[key] = entry                    # the most recently used
+            buf, state, _ = entry
+            if gen is not None:
+                gen.set_state(state)
+            buf.seek(0)
+            model = torch.load(buf, weights_only=False)
+            for m in model.modules():
+                for k, v in route.items():
+                    if hasattr(m, k):
+                        setattr(m, k, v)
+            return model
+        return build
+
+    def __enter__(self):
+        for mod_name in self.MODULES:
+            mod = sys.modules[mod_name]
+            for name in ("unet_from_plans", "vit_unet_from_plans"):
+                if hasattr(mod, name):
+                    self._saved.append((mod, name, getattr(mod, name)))
+        wrapped = {name: self._wrap(fn) for _, name, fn in self._saved}
+        for mod, name, _ in self._saved:
+            setattr(mod, name, wrapped[name])
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        for buf, _, _ in self.models.values():
+            buf.close()
+        self._saved, self.models = [], {}
 
 
 def _reset_counts():
@@ -714,6 +864,7 @@ IN_STAT_TOL = (1e-3, 1e-4)
 IN_TIE = 1e-6
 # the InstanceNorm's device time, in a process of its own (see _in_probe)
 IN_PROBE = os.path.join(ROOT, "lifelong_nnunet_tpu_torch", "tools", "in_probe.py")
+CT_IN_GROUPS = ("ct_fwd_b2", "ct_fwd_b64", "ct_bwd_b2")
 
 
 def _in_check(direction, args, dev, chunk=None) -> float:
@@ -1357,12 +1508,13 @@ def _opt(v, fmt=".3f") -> str:
 FINISH_PROBE = os.path.join(ROOT, "lifelong_nnunet_tpu_torch", "tools", "conv_finish_probe.py")
 
 
-def _ct_conv_phase(blocks, dev, gen, batches=(TRAIN_BATCH, CT_SERVE_BATCH)) -> dict:
+def _ct_conv_phase(blocks, dev, gen, batches=(TRAIN_BATCH, CT_SERVE_BATCH),
+                   dx_batch=TRAIN_BATCH) -> dict:
     """Phase 9, the tensor-core conv at CT scale: the fused forward at every
     stride-1 (Cin, Cout, spatial) of the CT U-Net (the ordinary kernel
     route runs all of them) at the train batch (2) and the serving batch
-    (64), and its data gradient at the train batch for every block but the
-    first, bf16, against the plain versions with phases 2 and 5's limits
+    (64), and its data gradient at the train batch (``dx_batch``) for every
+    block but the first, bf16, against the plain versions with phases 2 and 5's limits
     (atol 5e-2 + rtol 1e-2; at B=64 the plain version per 8 batch items:
     the statistics are per item), each launch counted on the tensor-core
     kernel.  Per shape at B=64: the kernel's and cuDNN's F.conv3d medians.
@@ -1417,10 +1569,10 @@ def _ct_conv_phase(blocks, dev, gen, batches=(TRAIN_BATCH, CT_SERVE_BATCH)) -> d
             del x
             torch.cuda.empty_cache()
         if (cin, cout, sp) in dx:
-            dy = rand((TRAIN_BATCH, cout) + sp, torch.bfloat16)
+            dy = rand((dx_batch, cout) + sp, torch.bfloat16)
             out = counted("conv3d_dx", lambda: conv3d_dx_cf(dy, w))
             res["dx_err"] = max(res["dx_err"], _compare(
-                f"CT conv dx bf16 B={TRAIN_BATCH} {cin}<-{cout} {sp}", out,
+                f"CT conv dx bf16 B={dx_batch} {cin}<-{cout} {sp}", out,
                 plain_conv3d_dx(dy, w), 5e-2, 1e-2))
             del dy, out
     res["dx_shapes"] = sum(dx.values())
@@ -1428,19 +1580,20 @@ def _ct_conv_phase(blocks, dev, gen, batches=(TRAIN_BATCH, CT_SERVE_BATCH)) -> d
     return res
 
 
-def _ct_in_phase(blocks, model, dev, gen) -> tuple:
+def _ct_in_phase(blocks, model, dev, gen, probe) -> tuple:
     """Phase 9, the InstanceNorm kernels at CT scale: the forward at the
     outputs of the CT U-Net's cuDNN and blocked convs at the train batch (2)
     and the serving batch (64), the backward at every conv output at the
     train batch, f32 and bf16 (f32 at B=64 where its three copies fit
     CT_F32_BYTES), each through :func:`_in_check` (the plain forward per 8
-    batch items); then their device time per launch, bf16, with the bytes
-    bound and F.instance_norm beside it, from in_probe.py in a process of
-    its own.  Returns ({"fwd" | "bwd": largest error}, {group: timings})."""
+    batch items); beside them their device time per launch, bf16, with the
+    bytes bound and F.instance_norm, from ``probe`` (in_probe.py's groups,
+    read in a process of its own in phase 1).  Returns ({"fwd" | "bwd":
+    largest error}, {group: timings})."""
     shapes = _in_shapes(blocks, _ct_work(blocks, model, TRAIN_BATCH)["route"])
     assert (shapes["fwd"], shapes["bwd"]) == (in_probe.CT_FWD, in_probe.CT_BWD), shapes
     err = _in_checks(shapes, (TRAIN_BATCH, CT_SERVE_BATCH), (TRAIN_BATCH,), dev, gen)
-    return err, _in_probe("ct_fwd_b2", "ct_fwd_b64", "ct_bwd_b2")
+    return err, {g: probe[g] for g in CT_IN_GROUPS}
 
 
 def _in_shapes(blocks, routes) -> dict:
@@ -3868,6 +4021,257 @@ def _stage_checks(blocks, model, routes, dev, gen) -> dict:
     return {**in_err, "conv": conv["err"], "dx": conv["dx_err"], "text": text}
 
 
+def _multi_rank(device, plans, task, stage, runs, devices, tf32) -> list:
+    """One rank of phase 18: the gloo / NCCL probe of the collectives the
+    port uses on CUDA tensors, then for each of ``runs`` [(output folder,
+    model_parallel, vit)] ``MULTI_STEPS`` train steps of the full-width
+    U-Net (``vit``: the V1 ViT-U-Net, ViT-base) through the trainer at
+    ``n_devices = len(devices)``, each with its launch counts.  Rank 0
+    returns every rank's records, by run."""
+    import torch.distributed as dist
+    from lifelong_nnunet_tpu_torch.training.trainers.sequential import BaseUNetTrainer
+
+    torch.backends.cudnn.allow_tf32 = tf32
+    rank = dist.get_rank()
+    probe = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.full((4,), float(rank + 1), device=device, dtype=dtype)
+        for name, op in (("all_reduce", lambda t: dist.all_reduce(t)),
+                         ("all_gather", lambda t: dist.all_gather(
+                             [torch.empty_like(t) for _ in devices], t)),
+                         ("broadcast", lambda t: dist.broadcast(t, 0))):
+            try:
+                op(x.clone())
+                probe[f"{name}.{str(dtype)[6:]}"] = "ok"
+            except (RuntimeError, ValueError) as e:
+                probe[f"{name}.{str(dtype)[6:]}"] = f"{type(e).__name__}: {str(e)[:80]}"
+    records = []
+    for out, mp, vit in runs:
+        opts = TrainerOptions(num_epochs=1, iters_per_epoch=MULTI_STEPS, val_iters=MULTI_VAL,
+                              save_every=1, device=device, n_devices=len(devices),
+                              model_parallel=mp, devices=tuple(devices), use_vit=vit)
+        t0 = time.perf_counter()
+        tr = BaseUNetTrainer(plans, "3d_fullres", out, opts)
+        reduce_s = []
+        if tr.dp is not None:
+            inner = tr.dp.all_reduce_grads
+
+            def timed(tensors, inner=inner, reduce_s=reduce_s):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                inner(tensors)
+                torch.cuda.synchronize()
+                reduce_s.append(time.perf_counter() - t1)
+            tr.dp.all_reduce_grads = timed
+        _reset_counts()
+        with _CheckpointBytes(keep=MULTI_KEEP):
+            tr.train_task(task, stage)
+        torch.cuda.synchronize()
+        lo, hi = tr._sampler_shard()["rows"]
+        records.append({"rank": rank, "counts": _counts(), "probe": probe,
+                        "param_bytes": param_bytes(tr.model), "local_batch": hi - lo,
+                        "reduce_ms": [1e3 * t for t in reduce_s],
+                        "seconds": time.perf_counter() - t0, "losses": tr.step_losses,
+                        "backend": tr.mesh.backend})
+        del tr
+        torch.cuda.empty_cache()
+    out_list = [None] * len(devices)
+    dist.all_gather_object(out_list, records)
+    return [[ranks[i] for ranks in out_list] for i in range(len(runs))]
+
+
+def _update_rtol(base, ref, other) -> float:
+    """|d_other - d_ref| / |d_ref| over every parameter, d the change from
+    the ``before_training`` checkpoint ``base``."""
+    def params(path):
+        blob = torch.load(path + ".pt", map_location="cpu", weights_only=True)
+        return {**blob["body"], **next(iter(blob["heads"].values()))}
+    p0, p1, p2 = params(base), params(ref), params(other)
+    num = sum(float(((p2[k] - p0[k]) - (p1[k] - p0[k])).float().square().sum()) for k in p0)
+    den = sum(float((p1[k] - p0[k]).float().square().sum()) for k in p0)
+    return math.sqrt(num / den)
+
+
+def _multi_device_path(task_dir, plans, shapes, vit_shapes, images, trained, ct_stage, work,
+                       pre, results, dev, gen) -> dict:
+    """Phase 18: the port's multi-device paths on the card.  Data parallel 2
+    and model parallel 2 (the full-width U-Net, ``MULTI_STEPS`` steps,
+    augmentation on) through the trainer over two ranks: on ``cuda:0`` and
+    ``cuda:1`` over NCCL when the host has two GPUs, else both on ``cuda:0``
+    over gloo (NCCL refuses two ranks on one device); each rank's launches
+    against the prediction, each run's parameter update against one
+    device's within ``MULTI_UPDATE_RTOL`` (bf16), the per-rank parameter
+    bytes; the V1 ViT-U-Net (ViT-base) at model parallel 2 likewise, its
+    flash attention on every rank; the fused conv, its data gradient and the InstanceNorm kernels
+    against their plain versions at each layout's shapes (a rank's batch,
+    its half of the channels under model parallel).  Then the sharded
+    serving of phase 4's cases over two device slots against the
+    per-volume path, voxel for voxel, and the patch gather native vs numpy
+    at the CT patch."""
+    task = os.path.basename(task_dir)
+    stage = os.path.join(pre, task, "nnUNetData_plans_v2.1_3d_fullres")
+    devices = ["cuda:0", "cuda:1"] if torch.cuda.device_count() >= 2 else ["cuda:0"] * 2
+    backend = backend_for(devices)
+    native_gather.load()   # built here, before any rank starts
+    tf32 = torch.backends.cudnn.allow_tf32
+    base = os.path.join(work, "multi")
+    single = {}
+    for vit in (False, True):
+        single[vit] = os.path.join(base, "world1_vit" if vit else "world1")
+        tr1 = get_trainer("base_v2")(plans, "3d_fullres", single[vit], TrainerOptions(
+            num_epochs=1, iters_per_epoch=MULTI_STEPS, val_iters=MULTI_VAL, save_every=1,
+            device=str(dev), use_vit=vit))
+        with _CheckpointBytes(keep=MULTI_KEEP):
+            tr1.train_task(task, stage)
+        single[f"bytes{vit}"] = param_bytes(tr1.model)
+        del tr1
+    paths, texts, bytes_ = {}, [], {}
+    batch = plans.config("3d_fullres").batch_size
+    layouts = (("dp2", 1, False), ("mp2", 2, False), ("vit_mp2", 2, True))
+    t0 = time.perf_counter()
+    by_run = spawn(_multi_rank, (plans, task, stage,
+                                 [(os.path.join(base, n), mp, vit) for n, mp, vit in layouts],
+                                 devices, tf32), devices, rdzv_dir=base, threads=4)
+    wall = time.perf_counter() - t0
+    for (name, mp, vit), records in zip(layouts, by_run):
+        out = os.path.join(base, name)
+        probe = records[0]["probe"]
+        assert all(r["backend"] == backend for r in records), records[0]["backend"]
+        # the trainer halves the ViT-U-Net's batch, as the JAX trainer does
+        local = (batch // 2 if vit else batch) // (2 // mp)
+        blocks = vit_shapes if vit else shapes
+        local_shapes = blocks if mp == 1 else [(f, i, (o[0] // mp,) + tuple(o[1:]))
+                                               for f, i, o in blocks]
+        want = _train_expect(dev, local_shapes, local, MULTI_STEPS, MULTI_VAL, [],
+                             attn=MULTI_VIT_ATTN if vit else 0)
+        for r in records:
+            assert r["local_batch"] == local, (name, r["local_batch"])
+            assert r["counts"] == want, (name, r["rank"], r["counts"], want)
+            paths[f"{name}_train.rank{r['rank']}"] = r["counts"]
+        assert records[0]["losses"] == records[1]["losses"], [r["losses"] for r in records]
+        rtol = _update_rtol(os.path.join(single[vit], "before_training"),
+                            os.path.join(single[vit], "model_final_checkpoint"),
+                            os.path.join(out, "model_final_checkpoint"))
+        assert rtol <= MULTI_UPDATE_RTOL, (name, rtol)
+        bytes_[name] = records[0]["param_bytes"]
+        reduce = [t for r in records for t in r["reduce_ms"]]
+        texts.append(
+            f"{name} ({'ViT-U-Net V1, ViT-base, ' if vit else ''}"
+            f"{'data 2 x model 1' if mp == 1 else 'data 1 x model 2'}, local batch "
+            f"{local} of {batch // 2 if vit else batch}): {records[0]['seconds']:.1f} s on "
+            f"rank 0 (set-up, {MULTI_STEPS} steps, {MULTI_VAL} val batch, checkpoints); "
+            f"launches per rank == predicted (fused fwd {want['conv3d_in_lrelu']}, IN fwd "
+            f"{want['instance_norm_leaky']}, conv dx {want['conv3d_dx']}, IN bwd "
+            f"{want['instance_norm_leaky_bwd']}, flash fwd {want['flash_attention']}, "
+            f"bwd {want['flash_attention_bwd']}); parameter bytes per rank "
+            f"{records[0]['param_bytes']:,} of one device's "
+            f"{single[f'bytes{vit}']:,}; losses equal on both ranks; update vs one "
+            f"device |d2 - d1| / |d1| = {rtol:.3e} (limit {MULTI_UPDATE_RTOL})"
+            + (f"; gradient all-reduce {statistics.median(reduce):.3f} ms/step "
+               f"(median over ranks and steps, synchronized: {[round(t, 3) for t in reduce]})"
+               if reduce else ""))
+    ratio = bytes_["mp2"] / bytes_["dp2"]
+    assert bytes_["dp2"] == single[f"bytes{False}"] and ratio < MP_BYTES_RATIO, (bytes_, single)
+    print(f"[phase 18] {len(devices)} ranks on {devices} over {backend}, spawned once for "
+          f"the three runs ({wall:.1f} s wall); collectives on CUDA tensors: {probe}",
+          flush=True)
+    for text in texts:
+        print(f"[phase 18] {text}", flush=True)
+    print(f"[phase 18] per-rank parameter bytes: model parallel 2 {bytes_['mp2']:,} vs data "
+          f"parallel {bytes_['dp2']:,} (= one device's): ratio {ratio:.4f} (limit "
+          f"{MP_BYTES_RATIO})", flush=True)
+
+    # the kernels at the ranks' shapes, against their plain versions
+    cfg = plans.config("3d_fullres")
+    patch = tuple(cfg.patch_size)
+    named = {}
+    for vit, make in ((False, unet_from_plans), (True, vit_unet_from_plans)):
+        model = make(plans, "3d_fullres", dtype=torch.bfloat16, deep_supervision=False,
+                     generator=torch.Generator().manual_seed(SEED)).to(dev).eval()
+        named[vit] = _named_blocks(model, patch, dev)
+        del model
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False     # the plain versions in true f32
+    for name, mp, vit in (("dp2", 1, False), ("mp2", 2, False), ("vit_mp2", 2, True)):
+        local = (batch // 2 if vit else batch) // (2 // mp)
+        part = [(n, m, i, (o[0] // mp,) + tuple(o[1:])) for n, m, i, o in named[vit]]
+        conv = _ct_conv_phase(part, dev, gen, (local,), dx_batch=local)
+        in_err = _in_checks(_in_shapes(part, {n: "fused" if m.fused else "conv"
+                                              for n, m, _, _ in part}),
+                            (local,), (local,), dev, gen)
+        print(f"[phase 18] {name}'s kernel shapes (batch {local}, Cout / {mp}): the fused "
+              f"conv at {conv['shapes']} stride-1 blocks max err {conv['err']:.3e}, its data "
+              f"gradient at {conv['dx_shapes']} max err {conv['dx_err']:.3e} (bf16, atol "
+              f"5e-2 + rtol 1e-2); the InstanceNorm forward max err {in_err['fwd']:.3e}, "
+              f"backward {in_err['bwd']:.3e} (IN_TOL, f32 and bf16, each launch in its "
+              f"planned form)", flush=True)
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+
+    # the sharded serving: phase 4's cases that pad alike over two slots
+    classes = plans.num_classes + 1
+    m, _, _ = restore_model(os.path.join(trained, "model_final_checkpoint"), dev)
+    volumes = [preprocess_for_inference(files, plans, "3d_fullres")[0]
+               for _, files in case_files(images)]
+    groups = {}
+    for v in volumes:
+        pads = window_grid(v.shape[:-1], patch)[0]
+        groups.setdefault(tuple(s + a + b for s, (a, b) in zip(v.shape[:-1], pads)),
+                          []).append(v)
+    vols = max(groups.values(), key=len)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sharded = predict_sliding_window_sharded(m, vols, patch, classes, devices=devices,
+                                             window_batch=WINDOW_BATCH, output="seg",
+                                             volume_batch=VOLUME_BATCH)
+    torch.cuda.synchronize()
+    t_sharded = time.perf_counter() - t0
+    paths["sharded_serve"] = _counts()
+    # each slot's shard is the volume stream over its groups (the padding
+    # of the JAX package's _shard_pad: copies of volume 0)
+    g_size = min(VOLUME_BATCH, max(1, len(vols) // len(devices)))
+    stack = vols + [vols[0]] * ((-len(vols)) % (len(devices) * g_size))
+    per = len(stack) // len(devices)
+    stream = [r for i in range(len(devices)) for r in predict_sliding_window_multi(
+        m, stack[i * per:(i + 1) * per], patch, classes, device=dev,
+        window_batch=WINDOW_BATCH, output="seg", volume_batch=g_size)][:len(vols)]
+    assert all(np.array_equal(a, b) for a, b in zip(sharded, stream))
+    agree = min(float((s == predict_sliding_window(
+        m, v, patch, classes, device=dev, window_batch=WINDOW_BATCH, output="seg",
+        input_bf16=True)).mean()) for s, v in zip(sharded, vols))
+    assert agree >= SHARDED_AGREE, agree
+    assert paths["sharded_serve"]["conv3d_in_lrelu"] > 0, paths["sharded_serve"]
+    del m
+    print(f"[phase 18] predict_sliding_window_sharded: {len(vols)} of phase 4's cases "
+          f"(padded alike) over {devices}, {t_sharded:.3f} s; equal bit for bit to the "
+          f"volume stream over the same groups of {g_size}; segmentations agree with "
+          f"predict_sliding_window per volume on {agree:.6f} of voxels (limit "
+          f"{SHARDED_AGREE}); launches {paths['sharded_serve']['conv3d_in_lrelu']} fused, "
+          f"{paths['sharded_serve']['instance_norm_leaky']} IN", flush=True)
+
+    # the patch gather at the CT patch: the same draws, native vs numpy
+    ds = PreprocessedDataset(ct_stage)
+    ct_patch, ct_batch = tuple(CT_PLAN["patch_size"]), CT_PLAN["batch_size"]
+    samplers = {kind: PatchSampler(ds, ds.cases, ct_patch, ct_batch, seed=SEED,
+                                   native=kind == "native") for kind in ("native", "numpy")}
+    secs = {kind: [] for kind in samplers}
+    for _ in range(GATHER_BATCHES):
+        got = {}
+        for kind in ("native", "numpy"):
+            t0 = time.perf_counter()
+            got[kind] = samplers[kind].next_batch()
+            secs[kind].append(time.perf_counter() - t0)
+        assert np.array_equal(got["native"]["data"], got["numpy"]["data"]) \
+            and np.array_equal(got["native"]["seg"], got["numpy"]["seg"])
+    ms = {k: 1e3 * statistics.median(v) for k, v in secs.items()}
+    print(f"[phase 18] PatchSampler at the CT patch {ct_patch}, batch {ct_batch}: native "
+          f"gather {ms['native']:.2f} ms/batch vs numpy {ms['numpy']:.2f} ms/batch (median of "
+          f"{GATHER_BATCHES}, in turns), {GATHER_BATCHES} batches equal bit for bit; host "
+          f"cores {os.cpu_count()}", flush=True)
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs an NVIDIA GPU: "
@@ -3889,6 +4293,14 @@ def main() -> int:
     work_root = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(work_root, exist_ok=True)
     work = tempfile.mkdtemp(dir=work_root)
+    # seconds from the script's start to each phase's start (set-up steps
+    # shared by later phases count to the phase before them)
+    phase_start = {"0": 0.0}
+
+    def lap(phase):
+        phase_start[phase] = round(time.perf_counter() - t_start, 1)
+
+    models = _ModelCache().__enter__()
     try:
         # ---- the hippocampus-scale task and its plan (set-up for 1-4)
         raw = os.path.join(work, "raw", "nnUNet_raw_data")
@@ -3945,6 +4357,7 @@ def main() -> int:
         n_fused = sum(f for f, _, _ in shapes)
         n_strided = len(shapes) - n_fused
 
+        lap("1")
         # ---- phase 1: IN + LeakyReLU kernel at the post-stride maps
         # checked at the serving path's largest batch in f32 and bf16, timed
         # (bf16, device time) at that batch and the train step's
@@ -3959,13 +4372,16 @@ def main() -> int:
                 in_err = max(in_err, _in_check("fwd", args, dev))
                 del args
         assert batch == 64, batches
-        in_t = _in_probe("hippo_fwd_b2", "hippo_fwd_b64")
+        # in_probe.py's groups of phases 1, 5 and 9, from one process
+        in_t = _in_probe("hippo_fwd_b2", "hippo_fwd_b64", "hippo_bwd_b2", *CT_IN_GROUPS)
         print(f"[phase 1] instance_norm_leaky: {n_strided} post-stride shapes ok (B={batch}: "
               f"f32 atol 1e-4; bf16 atol 3e-2 + rtol 1e-2), max err {in_err:.3e}, second "
               f"runs equal bit for bit, each launch in the form its plan gives; per forward, "
               f"bf16, device time (in_probe.py): " + "; ".join(
-                  f"B={g['batch']} {_in_text(g, dev)}" for g in in_t.values()), flush=True)
+                  f"B={in_t[k]['batch']} {_in_text(in_t[k], dev)}"
+                  for k in ("hippo_fwd_b2", "hippo_fwd_b64")), flush=True)
 
+        lap("2")
         # ---- phase 2: fused conv kernel at every stride-1 shape
         # bf16 input runs the tensor-core kernel (timed at every batch of
         # the serving path and the train step, cuDNN's F.conv3d beside it),
@@ -4038,6 +4454,7 @@ def main() -> int:
               f"vs cuDNN f32 {fma_lib_ms:.3f} ms, bound {fma_bound[0]:.3f} ms "
               f"({fma_bound[1]})", flush=True)
 
+        lap("3")
         # ---- phase 3: the full-width model, kernel route vs plain route
         model_p = unet_from_plans(plans, "3d_fullres", dtype=torch.bfloat16,
                                   deep_supervision=False, use_kernels=False).to(dev).eval()
@@ -4062,6 +4479,7 @@ def main() -> int:
         assert res[torch.float32][0] <= 1e-3 and res[torch.bfloat16][1] >= 0.95, res
         del model_k, model_p, x
 
+        lap("4")
         # ---- phase 4: the serving path through the CLI entry point
         results = os.path.join(work, "results")
         # the CT routes' switches stay on for every CLI from here on: at
@@ -4178,6 +4596,7 @@ def main() -> int:
               f"the plain route {min(agree):.5f}; Dice (random weights, recorded) "
               f"{[[round(d, 4) for d in ds] for ds in dice]}", flush=True)
 
+        lap("5")
         # ---- phase 5: the backward kernels at the train step's shapes (B=2)
         # every block's InstanceNorm backward runs on its conv output (the
         # raw conv output of a fused block); every fused block but the first,
@@ -4201,7 +4620,7 @@ def main() -> int:
                 for dx_dtype in (torch.float32, torch.bfloat16):
                     inb_err = max(inb_err, _in_check("bwd", args + (0.01, dx_dtype), dev))
                 del args
-        inb_t = _in_probe("hippo_bwd_b2")["hippo_bwd_b2"]
+        inb_t = in_t["hippo_bwd_b2"]
         print(f"[phase 5] instance_norm_leaky_bwd: {len(bwd_rows)} shapes ({n_in_bwd} per "
               f"step) ok (B={b2}, every (x, dx) dtype pair: dx f32 atol 1e-4 + rtol 1e-4, bf16 "
               f"atol 2e-2 + rtol 1e-2; dscale/dbias atol 1e-3 + rtol 1e-4), max err "
@@ -4260,6 +4679,7 @@ def main() -> int:
               f"kernel {dxf_ms:.3f} ms vs plain {dxf_plain_ms:.3f} ms vs cuDNN dgrad "
               f"{dxf_lib_ms:.3f} ms, bound {dxf_bound[0]:.3f} ms ({dxf_bound[1]})", flush=True)
 
+        lap("6")
         # ---- phase 6: the training path through its entry point
         # the library's defaults (TF32 in cuDNN's f32 weight gradient) while
         # training; the f32 comparison below turns TF32 off again
@@ -4332,9 +4752,11 @@ def main() -> int:
               + _turns_text(step_s), flush=True)
         _print_profile(6, "train step", profile)
 
+        lap("7")
         # ---- phase 7: the flash-attention kernels at the ViT path's shapes
         flash = _flash_phase(randn)
 
+        lap("8")
         # ---- phase 8: the ViT-U-Net (V1, base) through its entry points
         # what one forward runs: every block but the bottleneck's, whose
         # output V1 replaces, and one attention per transformer block
@@ -4355,15 +4777,17 @@ def main() -> int:
         _reset_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        run_training_vit(["3d_fullres", task, "0", "-num_epochs", str(TRAIN_EPOCHS),
-                          "-num_iters", str(TRAIN_ITERS), "-val_iters", str(VAL_ITERS),
-                          "--device", "cuda"])
+        with _CheckpointBytes(keep=FINAL):      # serving reads the final one
+            run_training_vit(["3d_fullres", task, "0", "-num_epochs", str(TRAIN_EPOCHS),
+                              "-num_iters", str(VIT_TRAIN_ITERS), "-val_iters",
+                              str(VAL_ITERS), "--device", "cuda"])
         torch.cuda.synchronize()
         vit_train_s = time.perf_counter() - t0
         vit_train_launches = _counts()
         vit_peak_gb = torch.cuda.max_memory_allocated() / 1e9
         # the ViT-U-Net trains at half the plan's batch
         vit_b = max(1, b2 // 2)
+        steps = TRAIN_EPOCHS * VIT_TRAIN_ITERS
         v_rows = _rows([o for f, _, o in vit_shapes if not f])
         expect = _expect(conv3d_in_lrelu=v_fused * (steps + val_steps),
                          instance_norm_leaky=v_strided * (steps + val_steps),
@@ -4426,7 +4850,7 @@ def main() -> int:
         print(f"[phase 8] nnUNet_torch_train_vit 3d_fullres --device cuda: V1 ViT-U-Net, "
               f"ViT base (embed 768, depth {n_attn}, 12 heads, {tokens} tokens), U-Net "
               f"{plans.num_modalities}->{plans.num_classes + 1} full width, "
-              f"patch {patch}, batch 1, {TRAIN_EPOCHS} epochs x {TRAIN_ITERS} steps + "
+              f"patch {patch}, batch 1, {TRAIN_EPOCHS} epochs x {VIT_TRAIN_ITERS} steps + "
               f"{VAL_ITERS} val batches, augmentation on: {vit_train_s:.2f} s in all, peak "
               f"{vit_peak_gb:.2f} GB; launches {vit_train_launches} == predicted per step "
               f"{{conv3d_in_lrelu: {v_fused} (+{v_fused} per val batch), "
@@ -4441,6 +4865,7 @@ def main() -> int:
         _print_profile(8, "ViT-U-Net train step", vit_profile)
         del vit_batches, dev_batches
 
+        lap("9")
         # ---- phases 9-10: the CT scale; the task and its plan (set-up)
         torch.backends.cudnn.allow_tf32 = False
         torch.cuda.empty_cache()
@@ -4512,7 +4937,7 @@ def main() -> int:
               f"(statistics + normalize) {finish['finish']:.3f} ms of {finish['ms']:.3f} ms",
               flush=True)
 
-        ct_in_err, ct_in = _ct_in_phase(ct_blocks, model_ct, dev, gen)
+        ct_in_err, ct_in = _ct_in_phase(ct_blocks, model_ct, dev, gen, in_t)
         for name, g in ct_in.items():
             print(f"[phase 9]   IN {name}, bf16, device time (in_probe.py): {_in_text(g, dev)}",
                   flush=True)
@@ -4521,31 +4946,39 @@ def main() -> int:
               f"{ct_in_err['fwd']:.3e}, backward {ct_in_err['bwd']:.3e} (IN_TOL), second runs "
               f"equal bit for bit, each launch in the form its plan gives", flush=True)
 
+        lap("10")
         # ---- phase 10: the CT path through its entry points
         ct_paths, fma_ct = _ct_path(ct_dir, ct_plans, ct_blocks, model_ct, work, pre,
                                     results, dev)
 
+        lap("11")
         # ---- phase 11: a task sequence through the CL entry points
         cl_paths, seq_step_s = _sequence_path(task_dir, plans, shapes, work, pre, results, dev)
 
+        lap("12")
         # ---- phase 12: the regularizing and freezing trainers
         vit = {"shapes": vit_shapes, "n_attn": n_attn}
         reg_paths, ewc_dice = _regularizer_path(task_dir, plans, shapes, vit, work, pre,
                                                 results, dev, seq_step_s)
 
+        lap("13")
         # ---- phase 13: the distilling trainers and the evaluation CLIs
         distill_paths = _distill_eval_path(task_dir, plans, shapes, vit, work, pre, results,
                                            dev, ewc_dice)
 
+        lap("14")
         # ---- phase 14: the POD trainers (PLOP, POD, OwnM1-4)
         pod_paths = _pod_path(task_dir, plans, shapes, vit, work, pre, results, dev)
 
+        lap("15")
         # ---- phase 15: ViT-U-Net V2-V4, task-specific LayerNorms, remat
         var_paths = _vit_variant_path(task_dir, plans, shapes, vit, work, pre, results, dev)
 
+        lap("16")
         # ---- phase 16: the parameter search and the scripts
         search_paths = _orchestration_path(task_dir, plans, shapes, work, pre, results, dev)
 
+        lap("17")
         # ---- phase 17: the 2d configuration, the volume stream, the cascade
         t17 = time.perf_counter()
         cfg_paths, in_err_2d = _2d_path(task_dir, images, labels, work, pre, results, dev,
@@ -4561,7 +4994,19 @@ def main() -> int:
               f"{max(in_err_2d['bwd'], casc_err['bwd']):.3e}, fused conv {casc_err['conv']:.3e}, "
               f"its data gradient {casc_err['dx']:.3e}, the copy kernels bit for bit",
               flush=True)
+
+        lap("18")
+        # ---- phase 18: multi-device training and serving, the patch gather
+        t18 = time.perf_counter()
+        multi_paths = _multi_device_path(
+            task_dir, plans, shapes, vit_shapes, images, trained,
+            os.path.join(pre, os.path.basename(ct_dir), "nnUNetData_plans_v2.1_3d_fullres"),
+            work, pre, results, dev, gen)
+        print(f"[phase 18] {time.perf_counter() - t18:.1f} s for phase 18; "
+              f"{time.perf_counter() - t_start:.1f} s since the script started", flush=True)
+        lap("end")
     finally:
+        models.__exit__()
         shutil.rmtree(work, ignore_errors=True)
 
     loaded = sorted({m.split(".")[0] for m, mod in sys.modules.items()
@@ -4613,7 +5058,8 @@ def main() -> int:
                                   ("deinterleave2", "interleave.cu", "interleave.py:73"))]
     paths = {"serve": launches, "train": train_launches, "vit_train": vit_train_launches,
              "vit_serve": vit_serve_launches, **ct_paths, **cl_paths, **reg_paths,
-             **distill_paths, **pod_paths, **var_paths, **search_paths, **cfg_paths}
+             **distill_paths, **pod_paths, **var_paths, **search_paths, **cfg_paths,
+             **multi_paths}
     # the FMA kernel runs f32 input only, off the bf16 main paths (0
     # launches there, asserted above); its launches in the f32 checks of
     # phases 4, 6, 8, 10 and 17 are kept apart, under ``check_launches``
@@ -4651,6 +5097,9 @@ def main() -> int:
                 serve_library_ms=sv["library_ms"], serve_plain_ms=sv["plain_ms"],
                 launches_by_form={form: sum(c[f"pack_blocks.{form}"] for c in paths.values())
                                   for form in block_pack.FORMS})
+    print(f"[timing] seconds from the script's start to each phase's start: {phase_start}; "
+          f"models built {models.misses} times, copied from an earlier build "
+          f"{models.hits} times", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

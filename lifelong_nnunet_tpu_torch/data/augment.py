@@ -274,9 +274,17 @@ def apply_params(data: torch.Tensor, seg: torch.Tensor, params: dict,
 
 
 def augment_batch(data: torch.Tensor, seg: torch.Tensor, cfg: AugmentConfig,
-                  generator: torch.Generator):
-    """Draw and apply one batch's augmentation on ``data``'s device."""
-    params = draw_params(data.shape[0], data.dim() - 2, cfg, generator, data.device)
-    noise = torch.randn(data.shape, generator=generator, device=data.device) \
-        if cfg.p_noise > 0 else None
+                  generator: torch.Generator, rows: tuple | None = None):
+    """Draw and apply one batch's augmentation on ``data``'s device.
+    ``rows=(lo, hi, B)``: ``data`` holds rows ``[lo, hi)`` of a global batch
+    of ``B`` (a data-parallel rank); the parameters and the noise are drawn
+    for all ``B`` from the generator, which every rank seeds alike, and
+    this rank keeps its rows, so N ranks augment as one rank would."""
+    lo, hi, total = rows or (0, data.shape[0], data.shape[0])
+    params = draw_params(total, data.dim() - 2, cfg, generator, data.device)
+    noise = torch.randn((total,) + tuple(data.shape[1:]), generator=generator,
+                        device=data.device) if cfg.p_noise > 0 else None
+    if (lo, hi) != (0, total):
+        params = {k: v[lo:hi] for k, v in params.items()}
+        noise = noise[lo:hi] if noise is not None else None
     return apply_params(data, seg, params, cfg, noise)

@@ -6,7 +6,9 @@ the explicit device ahead of the train step: on a CUDA device from pinned
 host memory with a ``non_blocking`` copy on a stream of its own, which the
 consumer's stream waits for before it reads the batch.  Augmentation runs
 on the device inside the train step (``augment.py``), so one thread and a
-queue of depth 2 keep the device fed.
+queue of depth 2 keep the device fed.  Under data parallelism each rank's
+sampler yields only that rank's rows of the global batch, so each rank's
+prefetcher moves only those.
 """
 
 from __future__ import annotations

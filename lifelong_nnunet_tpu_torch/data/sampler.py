@@ -9,42 +9,78 @@ draw (``np.random.RandomState(seed)``), so one seed gives the same batches
 in both packages; the output is channels-first, PyTorch's layout:
 ``data [B, C, *patch]`` float32, ``seg [B, *patch]`` int8.
 
-One process feeds one device, so the JAX package's multi-host input shard
-is always (0, 1) here.  Its C++ gather engine (``csrc/patch_gather.cpp``)
-is host code and waits for a later part of the port.
+``shard=(i, n)`` is the JAX package's multi-host input split: node ``i``
+of ``n`` samples the contiguous rows ``[i B / n, (i + 1) B / n)`` of the
+global batch ``B``, with the forced-foreground rule evaluated at global
+positions and the random stream ``seed + 7919 i``.  ``rows=(lo, hi)``
+splits the node's rows between its ranks: every rank draws the node's
+whole random sequence (cases, slices, origins), so the draws stay the
+JAX sampler's, and reads and gathers only its own rows.  On one host,
+``-n_devices N`` thus trains on exactly the batch that the JAX trainer
+draws with ``n_devices=N``.
+
+A 3D sampler gathers with the C++ engine (``data/native.py``, the JAX
+package's ``_next_batch_native``): the same draws, the patches copied on
+threads outside the interpreter lock; ``native=False`` keeps the numpy
+path, which the tests hold it to bit for bit.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from . import native as native_gather
 from .dataset import PreprocessedDataset
 
 
 class PatchSampler:
     def __init__(self, dataset: PreprocessedDataset | None, cases: list, patch_size,
                  batch_size: int, oversample_foreground_percent: float = 0.33,
-                 seed: int = 0):
+                 seed: int = 0, shard: tuple = (0, 1), rows: tuple | None = None,
+                 native: bool = True):
         """``cases`` entries are case-name strings (resolved against
-        ``dataset``) or explicit ``(PreprocessedDataset, case)`` pairs."""
-        assert len(cases) > 0, "empty case list"
+        ``dataset``) or explicit ``(PreprocessedDataset, case)`` pairs;
+        ``batch_size`` is the global batch, ``shard`` and ``rows`` this
+        sampler's part of it (module docstring)."""
+        if not cases:
+            raise ValueError("empty case list")
         self.items = [(dataset, c) if isinstance(c, str) else tuple(c) for c in cases]
         self.patch_size = tuple(int(p) for p in patch_size)
         self.dim = len(self.patch_size)
-        self.batch_size = int(batch_size)
+        self.global_batch_size = int(batch_size)
+        self.shard_index, self.shard_count = int(shard[0]), int(shard[1])
+        if not 0 <= self.shard_index < self.shard_count:
+            raise ValueError(f"shard {shard}: index outside [0, count)")
+        if batch_size % self.shard_count:
+            raise ValueError(f"global batch {batch_size} must divide evenly over "
+                             f"{self.shard_count} input shards (hosts)")
+        self.node_batch = self.global_batch_size // self.shard_count
+        self.rows = tuple(rows) if rows is not None else (0, self.node_batch)
+        if not 0 <= self.rows[0] < self.rows[1] <= self.node_batch:
+            raise ValueError(f"rows {self.rows} outside the node's {self.node_batch}")
+        self.batch_size = self.rows[1] - self.rows[0]
         self.oversample = oversample_foreground_percent
-        self.rng = np.random.RandomState(seed)
+        self.native = bool(native) and self.dim == 3
+        self.rng = np.random.RandomState(seed + 7919 * self.shard_index)
 
     def _needs_fg(self, sample_idx: int) -> bool:
-        return sample_idx >= round(self.batch_size * (1 - self.oversample))
+        """The nnU-Net rule at the global position of the node's sample
+        ``sample_idx``: the last round(B * oversample) are forced-fg."""
+        global_idx = self.shard_index * self.node_batch + sample_idx
+        return global_idx >= round(self.global_batch_size * (1 - self.oversample))
 
-    def _extract(self, ds: PreprocessedDataset, case: str, force_fg: bool):
+    def _draw(self, i: int):
+        """The draws of the node's sample ``i``: (case key, the array the
+        patch is cut from, its origin)."""
+        ds, case = self.items[self.rng.randint(len(self.items))]
         arr = ds.load(case)                           # [C+1, X, Y, Z] memmap
+        force_fg = self._needs_fg(i)
         if self.dim == 2:
             # 2D config: a random slice along the leading (coarsest) axis
             z = self.rng.randint(arr.shape[1])
-            return self._extract_nd(arr[:, z], ds, case, force_fg, slice_z=z)
-        return self._extract_nd(arr, ds, case, force_fg)
+            arr = arr[:, z]
+            return case, arr, self._sample_origin(arr, ds, case, force_fg, slice_z=z)
+        return case, arr, self._sample_origin(arr, ds, case, force_fg)
 
     def _random_origin(self, spatial) -> list:
         patch = self.patch_size
@@ -71,10 +107,10 @@ class PatchSampler:
             center = center[-len(patch):]
         return [int(center[a]) - patch[a] // 2 for a in range(len(patch))]
 
-    def _extract_nd(self, arr, ds, case: str, force_fg: bool, slice_z=None):
+    def _crop(self, arr, lo):
+        """The padded patch at origin ``lo``: (data [C, *patch], seg [*patch])."""
         spatial = arr.shape[1:]
         patch = self.patch_size
-        lo = self._sample_origin(arr, ds, case, force_fg, slice_z)
         pads, sl = [(0, 0)], []
         for a in range(len(patch)):
             start, stop = lo[a], lo[a] + patch[a]
@@ -86,15 +122,16 @@ class PatchSampler:
         return data, seg[0]
 
     def next_batch(self) -> dict:
-        datas, segs, keys = [], [], []
-        for i in range(self.batch_size):
-            ds, case = self.items[self.rng.randint(len(self.items))]
-            data, seg = self._extract(ds, case, self._needs_fg(i))
-            datas.append(data)
-            segs.append(seg)
-            keys.append(case)
-        return {"data": np.stack(datas).astype(np.float32),
-                "seg": np.stack(segs).astype(np.int8), "keys": keys}
+        """This sampler's rows of the next global batch."""
+        draws = [self._draw(i) for i in range(self.node_batch)][self.rows[0]:self.rows[1]]
+        keys = [case for case, _, _ in draws]
+        if self.native:
+            data, seg = native_gather.gather_patches(
+                [arr for _, arr, _ in draws], [lo for _, _, lo in draws], self.patch_size)
+            return {"data": data, "seg": seg, "keys": keys}
+        crops = [self._crop(arr, lo) for _, arr, lo in draws]
+        return {"data": np.stack([d for d, _ in crops]).astype(np.float32),
+                "seg": np.stack([s for _, s in crops]).astype(np.int8), "keys": keys}
 
     def __iter__(self):
         return self

@@ -69,12 +69,13 @@ class Experiment:
                              **{k: str(v) for k, v in self.settings.items()}})
                 summary[(task, t)] = mean_dice
         csv_path = os.path.join(exp_dir, "experiment_results.csv")
-        with open(csv_path, "w", newline="") as f:
-            w = csv.DictWriter(f, fieldnames=list(rows[0].keys()))
-            w.writeheader()
-            w.writerows(rows)
-        with open(os.path.join(exp_dir, "settings.json"), "w") as f:
-            json.dump({k: str(v) for k, v in self.settings.items()}, f, indent=2)
+        if trainer.is_main:
+            with open(csv_path, "w", newline="") as f:
+                w = csv.DictWriter(f, fieldnames=list(rows[0].keys()))
+                w.writeheader()
+                w.writerows(rows)
+            with open(os.path.join(exp_dir, "settings.json"), "w") as f:
+                json.dump({k: str(v) for k, v in self.settings.items()}, f, indent=2)
         final = float(np.nanmean([v for (a, t), v in summary.items()
                                   if a == list(self.tasks)[-1]]))
         return {"exp_id": exp_id, "settings": self.settings,

@@ -19,10 +19,13 @@ sets ``CUDA_VISIBLE_DEVICES`` in the worker before CUDA initializes there
 (the spawn start method: a fork after CUDA is initialized breaks).  A
 search that asks for more devices than ``torch.cuda.device_count()`` is
 refused before any worker starts, so no worker finds no card and trains on
-the CPU.  With ``devices_per_exp = 0`` the workers share the card.  The
-port trains one experiment on one device (SPMD is not ported), so
-``devices_per_exp`` above 1 is refused.  ``device_backend="cpu"`` trains
-every worker on the CPU (``TrainerOptions.device``).  Two workers that
+the CPU.  With ``devices_per_exp = 0`` the workers share the card.  With
+``devices_per_exp = d`` above 1 each experiment trains with ``n_devices =
+d``: its worker (a pool worker is not daemonic, so it may start processes)
+spawns ``d`` ranks (``parallel/launch.py``) over the devices its partition
+gives it, ``cuda:0`` ... ``cuda:d-1`` of its ``CUDA_VISIBLE_DEVICES``, or
+``d`` on the CPU.  ``device_backend="cpu"`` trains every worker on the CPU
+(``TrainerOptions.device``).  Two workers that
 build the kernels at once are serialized by the build's file lock
 (``ops/kernels/build.py``).
 """
@@ -40,6 +43,7 @@ from dataclasses import asdict, replace
 import numpy as np
 import torch
 
+from ..parallel.launch import spawn
 from ..training.trainer import TrainerOptions
 from .experiment import Experiment
 
@@ -64,17 +68,36 @@ def _worker_init(slot_queue, device_envs):
     os.environ.update(device_envs[slot_queue.get()])
 
 
-def _experiment_worker(spec: dict) -> dict:
-    """Worker entry (spawn-safe, module level): rebuild the Experiment from
-    its spec and run it; the result records which slot and devices ran it."""
-    for k, v in spec.get("env", {}).items():
-        os.environ[k] = str(v)
+def _run_experiment(device: str, spec: dict) -> dict:
+    """One experiment of ``spec`` on ``device`` (in a rank process when it
+    trains over several devices)."""
     from ..training.restore import plans_from_manifest
     plans = plans_from_manifest({"plans": spec["plans"]})
-    opts = TrainerOptions(**spec["options"])
+    opts = replace(TrainerOptions(**spec["options"]), device=device)
     exp = Experiment(spec["extension"], plans, spec["config_name"], spec["tasks"],
                      spec["output_base"], spec["settings"], opts)
-    res = exp.run(spec["exp_id"])
+    return exp.run(spec["exp_id"])
+
+
+def _experiment_worker(spec: dict) -> dict:
+    """Worker entry (spawn-safe, module level): rebuild the Experiment from
+    its spec and run it, over ``spec["world"]`` ranks when that is above 1;
+    the result records which slot and devices ran it."""
+    for k, v in spec.get("env", {}).items():
+        os.environ[k] = str(v)
+    opts = TrainerOptions(**spec["options"])
+    world = int(spec.get("world", 1))
+    if world > 1:
+        if mp.current_process().daemon:
+            raise RuntimeError("a daemonic worker cannot start the ranks of an experiment")
+        cuda = opts.device.startswith("cuda")
+        devices = [f"cuda:{i}" for i in range(world)] if cuda else ["cpu"] * world
+        spec = {**spec, "options": {**spec["options"], "n_devices": world,
+                                    "model_parallel": 1, "devices": None}}
+        res = spawn(_run_experiment, (spec,), devices, rdzv_dir=spec["output_base"])
+    else:
+        res = _run_experiment(opts.device, spec)
+    res["world"] = world
     res["device_slot"] = os.environ.get("LNN_DEVICE_SLOT")
     res["visible_devices"] = os.environ.get("CUDA_VISIBLE_DEVICES")
     res["device"] = opts.device
@@ -140,10 +163,6 @@ class ParamSearcher:
         give."""
         if backend not in BACKENDS:
             raise ValueError(f"device_backend must be one of {BACKENDS}, got {backend!r}")
-        if devices_per_exp > 1:
-            raise NotImplementedError(
-                "devices_per_exp > 1 trains an experiment over several devices, which "
-                "needs SPMD (not ported): use 0 (shared) or 1")
         if backend == "cuda":
             want = max(1, n_workers * devices_per_exp)
             have = torch.cuda.device_count()
@@ -180,7 +199,7 @@ class ParamSearcher:
                               "config_name": self.config_name, "tasks": self.tasks,
                               "output_base": self.output_base, "settings": settings,
                               "options": asdict(opts), "env": dict(worker_env or {}),
-                              "exp_id": exp_id}
+                              "exp_id": exp_id, "world": max(1, devices_per_exp)}
                      for exp_id, settings in todo.items()}
             backup["started"] = sorted(set(backup["started"]) | set(todo))
             self._save_backup(backup)

@@ -13,7 +13,8 @@ and the normalization divides by those weights.  One volume is a stack of
 one; a 2D patch over a 3D volume is the stack of its slices (the JAX
 package's ``_predict_2d_over_3d``); the volume stream
 (``predict_sliding_window_multi``) stacks the volumes that share a padded
-shape.  The JAX package's scatter, overlap-add and slab cores, its vmapped
+shape; ``predict_sliding_window_sharded`` splits a stack over devices, one
+thread, stream and model replica per device.  The JAX package's scatter, overlap-add and slab cores, its vmapped
 stream with its program caps and compile-shape padding exist for TPU
 dispatch limits and are not ported; the card's memory holds the
 accumulator of any volume or group the slice serves.
@@ -21,7 +22,10 @@ accumulator of any volume or group the slice serves.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import itertools
+from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache
 
 import numpy as np
@@ -237,6 +241,11 @@ def predict_sliding_window(model, data: np.ndarray, patch_size,
     return out if over_3d else out[0]
 
 
+def _padded(v: np.ndarray, pads) -> tuple:
+    """The spatial shape of ``v [*spatial, C]`` padded by ``pads``."""
+    return tuple(s + lo + hi for s, (lo, hi) in zip(v.shape[:-1], pads))
+
+
 def predict_sliding_window_multi(model, volumes: list, patch_size, num_classes: int, *,
                                  device: torch.device, mirror_axes=(0, 1, 2),
                                  step_fraction: float = 0.5, window_batch: int = 4,
@@ -273,9 +282,6 @@ def predict_sliding_window_multi(model, volumes: list, patch_size, num_classes: 
             results[i] = r[undo]
         group.clear()
 
-    def padded(v, pads):
-        return tuple(s + lo + hi for s, (lo, hi) in zip(v.shape[:-1], pads))
-
     for i, v in enumerate(volumes):
         v = np.asarray(v)
         if v.ndim - 1 == len(patch_size) + 1:       # a 2D net on a 3D volume
@@ -283,10 +289,68 @@ def predict_sliding_window_multi(model, volumes: list, patch_size, num_classes: 
             results[i] = predict_sliding_window(model, v, patch_size, num_classes, **kw)
             continue
         pads, undo, origins = window_grid(v.shape[:-1], patch_size, step_fraction)
-        if group and padded(group[0][1], group[0][2]) != padded(v, pads):
+        if group and _padded(group[0][1], group[0][2]) != _padded(v, pads):
             flush()
         group.append((i, v, pads, undo, origins))
         if len(group) >= limit:
             flush()
     flush()
     return results
+
+
+def _shard_pad(n_volumes: int, n_dev: int, g_size: int) -> int:
+    """The number of copies of volume 0 appended so the stack splits into
+    equal per-device shards of whole volume groups: the least pad to a
+    multiple of ``n_dev * max(1, g_size)`` (the JAX package's)."""
+    return (-n_volumes) % (n_dev * max(1, g_size))
+
+
+def predict_sliding_window_sharded(model, volumes: list, patch_size, num_classes: int, *,
+                                   devices=None, mirror_axes=(0, 1, 2),
+                                   step_fraction: float = 0.5, window_batch: int = 8,
+                                   output: str = "seg", input_bf16: bool = True,
+                                   volume_batch: int = 1) -> list:
+    """Multi-device serving (the JAX package's ``predict_sliding_window_sharded``):
+    the volumes, which must share their padded shape, are split one shard
+    per device; each device runs :func:`predict_sliding_window_multi` on its
+    shard with its own replica of ``model`` (the parameters replicated), on
+    a thread of its own and, on a GPU, a CUDA stream of its own.  The stack
+    is padded with copies of volume 0 (:func:`_shard_pad`) so every device
+    gets an equal shard of whole groups of ``volume_batch``; each volume is
+    cut back by its own undo.  ``devices``: the devices (default every
+    visible GPU); a device named twice gets two replicas.  Needs no process
+    group.  Returns the results in input order."""
+    _check_output(output)
+    patch_size = tuple(int(p) for p in patch_size)
+    devices = [torch.device(d) for d in (devices if devices is not None else
+               [f"cuda:{i}" for i in range(torch.cuda.device_count())])]
+    if not devices:
+        raise ValueError("no devices to shard over")
+    vols = [np.asarray(v) for v in volumes]
+    shapes = {_padded(v, window_grid(v.shape[:-1], patch_size, step_fraction)[0])
+              for v in vols}
+    if len(shapes) != 1:
+        raise ValueError(f"volumes must share their padded shape, got {sorted(shapes)}")
+    n_dev = len(devices)
+    regular = _regular(patch_size, step_fraction)
+    g_size = min(max(1, volume_batch) if regular else 1, max(1, len(vols) // n_dev)) \
+        if volume_batch > 1 else 1
+    stack = vols + [vols[0]] * _shard_pad(len(vols), n_dev, g_size)
+    per = len(stack) // n_dev
+    replicas = [model if torch.device(next(model.parameters()).device) == d and i == 0
+                else copy.deepcopy(model).to(d) for i, d in enumerate(devices)]
+
+    def run(i):
+        dev = devices[i]
+        stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+            out = predict_sliding_window_multi(
+                replicas[i], stack[i * per:(i + 1) * per], patch_size, num_classes,
+                device=dev, mirror_axes=mirror_axes, step_fraction=step_fraction,
+                window_batch=window_batch, output=output, input_bf16=input_bf16,
+                volume_batch=g_size)
+        return out
+
+    with ThreadPoolExecutor(max_workers=n_dev) as pool:
+        shards = [f.result() for f in [pool.submit(run, i) for i in range(n_dev)]]
+    return [r for shard in shards for r in shard][:len(vols)]

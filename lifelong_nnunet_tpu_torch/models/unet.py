@@ -53,6 +53,13 @@ every kernel's wrapper runs its plain PyTorch version.
 composition (conv with bias, :class:`InstanceNorm`, LeakyReLU, the direct
 transposed conv), kept to measure the kernels against; it ignores both
 switches.
+
+Under model parallelism (``parallel/mesh.py:shard_model``) a block, a
+transposed conv or a head whose output features the rule shards holds its
+slice of them (``module.mp``): it runs its route on that slice (the fused
+kernel, the InstanceNorm kernel and the blocked route take any channel
+count; the InstanceNorm is per channel) and all-gathers the channels
+(``parallel/collectives.py:sharded_call``).
 """
 
 from __future__ import annotations
@@ -70,6 +77,7 @@ from ..ops.kernels.block_pack import packed_conv_in_lrelu, pick_bs
 from ..ops.kernels.conv3d import conv3d_in_lrelu_cf
 from ..ops.kernels.instance_norm import instance_norm_leaky_cf
 from ..ops.kernels.interleave import conv_transpose3d_interleave, upsample_eligible
+from ..parallel.collectives import sharded_call
 
 _CONV = {2: nn.Conv2d, 3: nn.Conv3d}
 _CONV_T = {2: nn.ConvTranspose2d, 3: nn.ConvTranspose3d}
@@ -122,6 +130,10 @@ class ConvNormAct(nn.Module):
     """conv -> InstanceNorm -> LeakyReLU(0.01), routed as the module
     docstring says."""
 
+    # the parameters model parallelism shards with the conv's output
+    # channels, and their channel dim
+    MP_PARAMS = (("conv.weight", 0), ("conv.bias", 0), ("norm.weight", 0), ("norm.bias", 0))
+
     def __init__(self, cin: int, cout: int, kernel: Sequence[int],
                  stride: Sequence[int], use_kernels: bool = True,
                  negative_slope: float = 0.01, blocked_conv: bool = False):
@@ -158,6 +170,9 @@ class ConvNormAct(nn.Module):
         return "fused" if self.fused else "conv"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return sharded_call(self, x, self._forward, 1)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         bs = self.packed_bs(x.shape)
         if bs is not None:
             return packed_conv_in_lrelu(x, self.conv.weight, self.norm.weight,
@@ -327,12 +342,15 @@ class GenericUNet(nn.Module):
         """The transposed conv ``up{d}`` in h's dtype."""
         up = getattr(self, f"up{d}")
         if self.interleaved(d, h.shape):
-            return conv_transpose3d_interleave(h, up.weight, up.bias)
-        return _CONV_T_FN[self.dim](h, up.weight.to(h.dtype), up.bias.to(h.dtype), up.stride)
+            return sharded_call(up, h, lambda x: conv_transpose3d_interleave(
+                x, up.weight, up.bias), 1)
+        return sharded_call(up, h, lambda x: _CONV_T_FN[self.dim](
+            x, up.weight.to(x.dtype), up.bias.to(x.dtype), up.stride), 1)
 
     def _seg(self, d: int, h: torch.Tensor) -> torch.Tensor:
         """The logits of head ``seg{d}``, f32 (f64 for an f64 model)."""
-        logits = _conv(getattr(self, f"seg{d}"), h, self.dim)
+        seg = getattr(self, f"seg{d}")
+        logits = sharded_call(seg, h, lambda x: _conv(seg, x, self.dim), 1)
         return logits if logits.dtype == torch.float64 else logits.float()
 
 

@@ -31,6 +31,11 @@ scopes), and ``task_idx`` selects the set a forward uses, as the JAX
 ``TaskLayerNorm`` does.  Without ``ln_tasks`` a TaskLayerNorm keeps its
 one set as ``weight`` / ``bias`` (flax's ``LayerNorm_0``).  SPT's
 LayerNorm is never task-specific.
+
+Under model parallelism the Linear layers (qkv, proj, the MLP, the heads)
+and the patch embedding hold a slice of their output features and gather
+it (``_dense``); the LayerNorms, the attention and the position
+embeddings run on the full, replicated activations.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels.attention import flash_attention, plain_attention
+from ..parallel.collectives import sharded_call
 
 VIT_SIZES = {
     "base": {"embed_dim": 768, "depth": 12, "num_heads": 12},
@@ -81,8 +87,11 @@ def _trunc_normal_(w: torch.Tensor, scale: float, fan_in: int,
 
 
 def _dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """flax ``Dense(dtype=dtype)``: the product in ``dtype``, then the bias."""
-    return F.linear(x.to(dtype), lin.weight.to(dtype)) + lin.bias.to(dtype)
+    """flax ``Dense(dtype=dtype)``: the product in ``dtype``, then the bias
+    (on the layer's slice of the output features, gathered, when model
+    parallelism shards it)."""
+    return sharded_call(lin, x, lambda h: F.linear(h.to(dtype), lin.weight.to(dtype))
+                        + lin.bias.to(dtype), -1)
 
 
 def _linear(cin: int, cout: int, generator: torch.Generator) -> nn.Linear:
@@ -151,8 +160,9 @@ class PatchEmbed(nn.Module):
         perm = ((0,) + tuple(2 + 2 * a for a in range(dim)) + (1,)
                 + tuple(3 + 2 * a for a in range(dim)))
         xt = xr.permute(perm).reshape(B, math.prod(grid), -1).to(dtype)
-        w = self.proj.weight.reshape(self.proj.out_channels, -1).to(dtype)
-        return F.linear(xt, w) + self.proj.bias.to(dtype), grid
+        w = self.proj.weight.reshape(self.proj.weight.shape[0], -1).to(dtype)
+        return sharded_call(self.proj, xt, lambda h: F.linear(h, w)
+                            + self.proj.bias.to(dtype), -1), grid
 
 
 class ShiftedPatchTokenization(nn.Module):

@@ -48,7 +48,7 @@ from __future__ import annotations
 
 import torch
 
-from .losses import cross_entropy_loss, downsample_target
+from .losses import cross_entropy_loss, downsample_target, gmean, gsum
 
 
 def quadratic_penalty(params: dict, anchors: list, lam: float, mask: dict | None = None,
@@ -191,7 +191,7 @@ class QuadraticPenalty:
 # ------------------------------------------------------------------ LwF / MiB
 
 def lwf_distill_loss(current_logits: list, target_logits: list,
-                     temperature: float = 2.0) -> torch.Tensor:
+                     temperature: float = 2.0, dp=None) -> torch.Tensor:
     """Sum over the earlier heads of KL(teacher^T || current^T) with
     'batchmean' reduction: the sum over voxels and classes divided by the
     batch size only (the reference's ``F.kl_div(..., reduction='batchmean',
@@ -200,12 +200,13 @@ def lwf_distill_loss(current_logits: list, target_logits: list,
     for cur, tgt in zip(current_logits, target_logits):
         logp = torch.log_softmax(cur.float() / temperature, dim=1)
         logq = torch.log_softmax(tgt.float() / temperature, dim=1)
-        total = total + (logq.exp() * (logq - logp)).sum() / cur.shape[0]
+        batch = cur.shape[0] * (1 if dp is None else dp.size)
+        total = total + gsum((logq.exp() * (logq - logp)).sum(), dp) / batch
     return total
 
 
 def unbiased_cross_entropy(logits: torch.Tensor, target: torch.Tensor,
-                           old_num_classes: int, ignore: int = -1) -> torch.Tensor:
+                           old_num_classes: int, ignore: int = -1, dp=None) -> torch.Tensor:
     """MiB's unbiased CE: the background's log-probability absorbs every
     old class (< ``old_num_classes``), and every target label below
     ``old_num_classes`` collapses to 0; the mean over the voxels whose
@@ -221,11 +222,11 @@ def unbiased_cross_entropy(logits: torch.Tensor, target: torch.Tensor,
     picked = log_probs.gather(1, tgt.unsqueeze(1)).squeeze(1)
     picked = torch.where(labels == 0, log_old_bg, picked)
     valid = (target != ignore).float()
-    return -(picked * valid).sum() / valid.sum().clamp(min=1.0)
+    return -gsum((picked * valid).sum(), dp) / gsum(valid.sum(), dp).clamp(min=1.0)
 
 
 def unbiased_kd_loss(logits: torch.Tensor, teacher_logits: torch.Tensor,
-                     old_num_classes: int, alpha: float = 1.0) -> torch.Tensor:
+                     old_num_classes: int, alpha: float = 1.0, dp=None) -> torch.Tensor:
     """MiB's unbiased knowledge distillation: the teacher's probabilities
     over its ``old_num_classes`` channels against the student's
     log-probabilities where the background absorbs every new class; each
@@ -237,12 +238,12 @@ def unbiased_kd_loss(logits: torch.Tensor, teacher_logits: torch.Tensor,
                              dim=1, keepdim=True) - den
     student_log = torch.cat([log_bg, x[:, 1:old_num_classes] - den], dim=1)
     q = torch.softmax(t[:, :old_num_classes], dim=1)
-    return -((q * student_log).sum(dim=1) / old_num_classes).mean()
+    return -gmean((q * student_log).sum(dim=1) / old_num_classes, dp)
 
 
 def mib_loss(outputs: list, teacher_outputs: list, target: torch.Tensor, ds_weights,
              ds_factors, old_num_classes: int, lkd: float = 10.0,
-             alpha: float = 0.9) -> torch.Tensor:
+             alpha: float = 0.9, dp=None) -> torch.Tensor:
     """MiB's objective: per deep-supervision output of nonzero weight, the
     plain CE (the reference's ``RobustCrossEntropyLoss``, not the unbiased
     one) plus ``lkd`` times the unbiased KD, weighted; ``target`` is the
@@ -251,8 +252,8 @@ def mib_loss(outputs: list, teacher_outputs: list, target: torch.Tensor, ds_weig
     for w, out, tout, f in zip(ds_weights, outputs, teacher_outputs, ds_factors):
         if w == 0.0:
             continue
-        ce = cross_entropy_loss(out.float(), downsample_target(target, f))
-        kd = unbiased_kd_loss(out, tout, old_num_classes, alpha)
+        ce = cross_entropy_loss(out.float(), downsample_target(target, f), dp=dp)
+        kd = unbiased_kd_loss(out, tout, old_num_classes, alpha, dp=dp)
         total = total + float(w) * (ce + lkd * kd)
     return total
 
@@ -321,7 +322,7 @@ def _pod_blocks(act: torch.Tensor, scales: int):
 
 
 def local_pod_distance(act: torch.Tensor, teacher_act: torch.Tensor,
-                       scales: int = 3) -> torch.Tensor:
+                       scales: int = 3, dp=None) -> torch.Tensor:
     """The reference's ``local_POD``: the L2 norm of each (channel, pooled
     axis) row of the concatenated regions' differences, then the mean over
     all rows, both pooled blocks weighted alike; 0 without a region."""
@@ -331,7 +332,7 @@ def local_pod_distance(act: torch.Tensor, teacher_act: torch.Tensor,
         return torch.zeros((), device=act.device)
     dw = torch.linalg.vector_norm(pw - ow, dim=-1)
     dh = torch.linalg.vector_norm(ph - oh, dim=-1)
-    return (dw.mean() + dh.mean()) / 2.0
+    return (gmean(dw, dp) + gmean(dh, dp)) / 2.0
 
 
 def pod_embedding(act: torch.Tensor, scales: int = 3) -> torch.Tensor:
@@ -348,7 +349,7 @@ def pod_embedding(act: torch.Tensor, scales: int = 3) -> torch.Tensor:
 
 
 def local_pod_loss(taps: dict, teacher_taps: dict, scales: int = 3,
-                   pod_lambda: float = 1e-2) -> torch.Tensor:
+                   pod_lambda: float = 1e-2, dp=None) -> torch.Tensor:
     """The POD term as the reference composes it: over the common tap names
     in ``sorted()`` order, add ``pod_lambda * local_POD`` and divide the
     RUNNING total by the number of layers inside the loop.  Each map's
@@ -359,7 +360,7 @@ def local_pod_loss(taps: dict, teacher_taps: dict, scales: int = 3,
     dist = 0.0
     for k in keys:
         eff = pod_scales(taps[k].shape[-2], taps[k].shape[-1], scales)
-        dist = (dist + pod_lambda * local_pod_distance(taps[k], teacher_taps[k], eff)) \
+        dist = (dist + pod_lambda * local_pod_distance(taps[k], teacher_taps[k], eff, dp)) \
             / len(keys)
     return dist
 
@@ -386,7 +387,8 @@ def plop_pseudo_targets(target: torch.Tensor, teacher_logits: torch.Tensor,
     return pseudo.int(), num / den
 
 
-def _ce_mean(logits: torch.Tensor, target: torch.Tensor, ignore: int = -1) -> torch.Tensor:
+def _ce_mean(logits: torch.Tensor, target: torch.Tensor, ignore: int = -1,
+             dp=None) -> torch.Tensor:
     """Mean CE over the voxels whose target is not ``ignore``, over the
     whole batch; 0 when every voxel is ignored (``F.cross_entropy``'s mean
     is NaN there)."""
@@ -394,11 +396,12 @@ def _ce_mean(logits: torch.Tensor, target: torch.Tensor, ignore: int = -1) -> to
     tgt = target.clamp(0, logits.shape[1] - 1).long()
     picked = logp.gather(1, tgt.unsqueeze(1)).squeeze(1)
     valid = (target != ignore).float()
-    return -(picked * valid).sum() / valid.sum().clamp(min=1.0)
+    return -gsum((picked * valid).sum(), dp) / gsum(valid.sum(), dp).clamp(min=1.0)
 
 
 def plop_pseudo_label_loss(logits: torch.Tensor, teacher_logits: torch.Tensor,
-                           target: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
+                           target: torch.Tensor, thresholds: torch.Tensor,
+                           dp=None) -> torch.Tensor:
     """One deep-supervision output's PLOP objective: with B the background
     mask and V the teacher-confident mask, the CE on B & V against the
     teacher's argmax plus the CE on the rest against the true labels, both
@@ -413,8 +416,8 @@ def plop_pseudo_label_loss(logits: torch.Tensor, teacher_logits: torch.Tensor,
     axes = tuple(range(1, target.dim()))
     num = pv.float().sum(dim=axes)
     den = is_bg.float().sum(dim=axes).clamp(min=1.0)
-    factor = (num / den).mean()
-    return factor * (_ce_mean(logits, lab_ps) + _ce_mean(logits, lab_not))
+    factor = gmean(num / den, dp)
+    return factor * (_ce_mean(logits, lab_ps, dp=dp) + _ce_mean(logits, lab_not, dp=dp))
 
 
 def median_entropy_thresholds(entropy_sums: torch.Tensor,

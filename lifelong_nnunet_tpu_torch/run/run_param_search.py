@@ -9,8 +9,9 @@ under ``$PARAM_SEARCH_FOLDER/<network>/<tasks>/<trainer>/fold_X``.
 
 Grid values: ``-g param:v1,v2,...``; random ranges: ``-r param:lo:hi``;
 fixed: ``--fixate param:value``.  ``-n_workers`` runs the experiments in
-spawned workers, ``-devices_per_exp`` gives each its own card
-(``CUDA_VISIBLE_DEVICES``; 0 shares the card), ``-device_backend
+spawned workers, ``-devices_per_exp`` gives each its own cards
+(``CUDA_VISIBLE_DEVICES``; 0 shares the card; above 1 an experiment
+trains over that many, ``n_devices``), ``-device_backend
 {cuda,cpu}`` in place of the JAX CLI's ``{tpu,cpu}``; ``--device``
 (default ``cuda``, never falling back to the CPU) is the device of a search
 run in this process.

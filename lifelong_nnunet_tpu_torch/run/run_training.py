@@ -25,8 +25,13 @@ and ``--use_progress_val``, and the per-method hyperparameters of
 ``METHOD_ARGS``.  Every task is trained with the first task's plans.
 ``--no_transfer_heads`` changes only the folder (``SEQ`` -> ``MH``), as in
 the JAX CLI: the trainer still follows its class's ``TRANSFER_HEADS``.
-Options whose parts are not ported yet (SPMD: ``-n_devices``,
-``-model_parallel``) are refused.  The cascade's fullres stage
+``-n_devices N [-model_parallel M]`` trains over N devices, N / M data x M
+model (``parallel/``): run normally, the CLI refuses what the JAX trainer
+refuses (more devices than are visible, an M that does not divide N), then
+spawns N ranks, one a device (``cuda:0`` ... ``cuda:N-1``, or N on the CPU
+with ``--device cpu``), which meet at a file under ``RESULTS_FOLDER`` and
+each run the fold loop; under ``torchrun`` (``WORLD_SIZE`` set) it joins
+the group it was given instead, one rank a process.  The cascade's fullres stage
 (``CascadeFullResTrainer``, ``inference/cascade.py``, on the stage that
 ``nnUNet_torch_prepare_cascade`` writes) trains through the trainer API,
 as in the JAX package, which has no training CLI for it.  ``--use_vit``
@@ -49,8 +54,15 @@ import argparse
 import json
 import os
 import shutil
+import sys
+
+import torch
+import torch.distributed as dist
 
 from .. import paths
+from ..device import resolve_device
+from ..parallel.launch import in_torchrun, join_torchrun, spawn
+from ..parallel.mesh import check_devices, visible_devices
 from ..planning.plans import Plans, plans_path
 from ..training.output_paths import build_output_folder, metadata_folder
 from ..training.restore import find_checkpoint, restore_trainer
@@ -88,11 +100,6 @@ TRAINER_NAMES = {
     "frozen_unet": "FrozenUNet", "frozen_body_seq": "FrozenBody", "ownm1": "OwnM1",
     "ownm2": "OwnM2", "ownm3": "OwnM3", "ownm4": "OwnM4", "multihead": "MultiHead",
     "sequential": "Sequential", "rehearsal": "Rehearsal"}
-
-# options kept for argument parity with the JAX CLI, with the value that
-# means "off"; any other value is refused
-UNPORTED_OPTIONS = {"n_devices": None, "model_parallel": 1}
-
 
 def build_parser(extension: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=f"Training with the PyTorch port: {extension}")
@@ -132,8 +139,12 @@ def build_parser(extension: str) -> argparse.ArgumentParser:
     p.add_argument("-base_features", type=int, default=None)
     p.add_argument("-max_features", type=int, default=None)
     p.add_argument("-vit_depth", type=int, default=None)
-    p.add_argument("-n_devices", type=int, default=None)
-    p.add_argument("-model_parallel", type=int, default=1)
+    p.add_argument("-n_devices", type=int, default=None,
+                   help="data-parallel devices (SPMD mesh; batch is sharded)")
+    p.add_argument("-model_parallel", type=int, default=1,
+                   help="shard conv/dense feature dims over this many of the "
+                        "n_devices (mesh = data x model; replaces the "
+                        "reference's --use_mult_gpus split_gpu)")
     p.add_argument("--no_augment", action="store_true")
     p.add_argument("--remat", action="store_true")
     p.add_argument("--no_pallas_conv", dest="use_kernels", action="store_false",
@@ -155,13 +166,6 @@ def stage_dir_for(pre_root: str, task_name: str, config: str,
         raise FileNotFoundError(
             f"{d} missing — run nnUNet_plan_and_preprocess -t {task_name} first")
     return d
-
-
-def _refuse_unported(args) -> None:
-    set_ = [k for k, off in UNPORTED_OPTIONS.items() if getattr(args, k) != off]
-    if set_:
-        raise NotImplementedError(f"{', '.join(set_)}: not ported yet (the port "
-                                  "trains on one device)")
 
 
 def trainer_name(extension: str) -> str:
@@ -216,7 +220,26 @@ def _resume(tasks, opts, meta_dir, extension, fold, folder):
 
 def run_training(extension: str, argv=None) -> int:
     args = build_parser(extension).parse_args(argv)
-    _refuse_unported(args)
+    n = args.n_devices or 1
+    if n > 1 and not dist.is_initialized():
+        device_type = torch.device(args.device).type
+        if in_torchrun():
+            return _train(extension, args, str(join_torchrun(device_type)))
+        check_devices(n, args.model_parallel, visible_devices(device_type))
+        if device_type == "cuda":
+            resolve_device("cuda")
+        devices = [f"cuda:{i}" for i in range(n)] if device_type == "cuda" else ["cpu"] * n
+        return spawn(_rank_main, (extension, list(argv) if argv is not None else sys.argv[1:]),
+                     devices, rdzv_dir=paths.require(paths.results_dir(), "results"))
+    return _train(extension, args, args.device)
+
+
+def _rank_main(device: str, extension: str, argv) -> int:
+    """One spawned rank of ``-n_devices``: the fold loop on ``device``."""
+    return _train(extension, build_parser(extension).parse_args(argv), device)
+
+
+def _train(extension: str, args, device: str) -> int:
     trainer_cls = get_trainer(extension)
     raw = paths.raw_data_dir(create=False)
     pre = paths.require(paths.preprocessed_dir(create=False), "preprocessed data")
@@ -244,11 +267,11 @@ def run_training(extension: str, argv=None) -> int:
             patch_size=tuple(args.patch_size) if args.patch_size else None,
             batch_size=args.batch_size, augment=not args.no_augment,
             base_num_features=args.base_features, max_num_features=args.max_features,
-            device=args.device, use_kernels=args.use_kernels, use_vit=args.use_vit,
+            device=device, use_kernels=args.use_kernels, use_vit=args.use_vit,
             vit_version=f"V{args.vit_version}", vit_type=args.vit_type,
             vit_lsa=args.do_LSA, vit_spt=args.do_SPT,
             vit_task_specific_ln=args.task_specific_ln, vit_depth_override=args.vit_depth,
-            remat=args.remat)
+            remat=args.remat, n_devices=args.n_devices, model_parallel=args.model_parallel)
         meta_dir = metadata_folder(results, args.network, tasks, name,
                                    args.plans_identifier, transfer, **arch)
 
@@ -272,7 +295,7 @@ def run_training(extension: str, argv=None) -> int:
                 init_tr = restore_trainer(args.initialize_with_network_trainer, opts)
                 trainer.mh = init_tr.mh.add_n_tasks_and_activate(
                     init_tr.mh.tasks, init_tr.mh.tasks[-1])
-                trainer.model = init_tr.model
+                trainer.model, trainer.plan = init_tr.model, init_tr.plan
                 trainer.patch_size = init_tr.patch_size
                 print(f"[fold {fold}] initialized from "
                       f"{args.initialize_with_network_trainer} (tasks {init_tr.mh.tasks})")
@@ -284,9 +307,10 @@ def run_training(extension: str, argv=None) -> int:
             trainer.set_output_folder(folder(task))
             trainer.train_task(task, stage_dir_for(pre, task, args.network),
                                start_epoch=resume_epoch if task == resume_task else 0)
-            print(f"[fold {fold}] finished {task} -> {folder(task)}")
+            if trainer.is_main:
+                print(f"[fold {fold}] finished {task} -> {folder(task)}")
 
-        if args.disable_saving:
+        if args.disable_saving and trainer.is_main:
             for task in tasks[:-1]:
                 shutil.rmtree(folder(task), ignore_errors=True)
     return 0
@@ -307,6 +331,5 @@ for _ext in TRAINER_MAP:
 
 
 if __name__ == "__main__":
-    import sys
     ext = sys.argv.pop(1) if len(sys.argv) > 1 and sys.argv[1] in TRAINER_MAP else "base_v2"
     raise SystemExit(run_training(ext))

@@ -26,6 +26,11 @@ A trainable mask ``{key: bool}`` (False: frozen) gives the JAX package's
 norm is taken over the trainable parameters' gradients only, and a frozen
 parameter gets no decay, no momentum buffer and no update, so it stays bit
 for bit as it was.
+
+Under model parallelism (``model``: the rank's ``ModelShard``,
+``sharded``: the names of the parameters it holds a slice of) the clip
+takes the full model's norm: the squares of the sharded gradients summed
+over the model group, the replicated ones counted once.
 """
 
 from __future__ import annotations
@@ -50,14 +55,19 @@ class PolySGD:
     def __init__(self, params, max_epochs: int, iters_per_epoch: int,
                  initial_lr: float = 1e-2, momentum: float = 0.99,
                  weight_decay: float = 3e-5, clip_norm: float = 12.0,
-                 trainable_mask: dict | None = None):
+                 trainable_mask: dict | None = None, model=None,
+                 sharded: frozenset = frozenset()):
         items = list(params)
         named = bool(items) and isinstance(items[0], tuple)
-        if trainable_mask is not None and not named:
-            raise ValueError("a trainable mask needs (name, parameter) pairs")
+        if (trainable_mask is not None or model is not None) and not named:
+            raise ValueError("a trainable mask or a model axis needs (name, parameter) pairs")
         self.all_params = [p for _, p in items] if named else items
-        self.params = [p for n, p in items if trainable_mask.get(n, True)] \
-            if trainable_mask is not None else list(self.all_params)
+        keep = [(n, p) for n, p in items if trainable_mask is None
+                or trainable_mask.get(n, True)] if named else None
+        self.names = [n for n, _ in keep] if named else None
+        self.params = [p for _, p in keep] if named else list(self.all_params)
+        self.model = model
+        self.sharded = [n in sharded for n in self.names] if named else None
         self.max_epochs = max_epochs
         self.iters_per_epoch = iters_per_epoch
         self.initial_lr = initial_lr
@@ -82,8 +92,14 @@ class PolySGD:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
             grads = [p.grad for p in self.params]
-            norm = torch.linalg.vector_norm(
-                torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+            norms = torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
+            if self.model is None:
+                norm = torch.linalg.vector_norm(norms)
+            else:
+                mask = torch.tensor(self.sharded, device=norms.device)
+                sq = norms.square()
+                local = self.model.sum_(torch.where(mask, sq, 0.0).sum())
+                norm = torch.sqrt(local + torch.where(mask, 0.0, sq).sum())
             scale = torch.clamp(self.clip_norm / norm, max=1.0)
             torch._foreach_mul_(grads, scale)
             for group in self.opt.param_groups:

@@ -5,7 +5,17 @@
 One call augments the batch on its device, runs the forward, the
 deep-supervision loss, the backward, the clip and the optimizer step, and
 returns the loss and the hard tp/fp/fn of the full-resolution output as
-device tensors (nothing waits for the device).  Differences between
+device tensors (nothing waits for the device).
+
+Under data parallelism (``cfg.dp``) the step is GSPMD's on the global
+batch: augmentation draws for the whole batch and keeps the rank's rows,
+the losses reduce over the data group (``ops/losses.py``), one coalesced
+all-reduce sums the gradients of every trainable tensor (LwF's heads
+included) right after the backward, and only then are the parameter-only
+terms (``add_grad``) added, ``cl_state_update`` reads the gradients and
+the optimizer clips (over the model group too, under model parallelism)
+and steps.  Every rank so applies the same update, the gradient of the
+global-batch loss.  Differences between
 continual-learning methods live in the ``loss_extras`` and
 ``cl_state_update`` hooks, kept as arguments; the single-task trainers pass
 neither.
@@ -28,6 +38,10 @@ class StepConfig:
     batch_dice: bool
     num_classes: int           # incl. background
     augment: AugmentConfig | None = None
+    # data parallelism: the rank's DataGroup and its rows (lo, hi, global
+    # batch) of the global batch; None on one rank
+    dp: object = None
+    rows: tuple | None = None
 
 
 def make_train_step(model, optimizer, cfg: StepConfig,
@@ -60,7 +74,7 @@ def make_train_step(model, optimizer, cfg: StepConfig,
     def train_step(cl_state, batch: dict):
         data, seg = batch["data"], batch["seg"]
         if cfg.augment is not None:
-            data, seg = augment_batch(data, seg, cfg.augment, generator)
+            data, seg = augment_batch(data, seg, cfg.augment, generator, rows=cfg.rows)
         seg = seg.long()
         optimizer.zero_grad()
         outputs, taps = model(data, capture_taps=True) if needs_taps else (model(data), None)
@@ -69,18 +83,21 @@ def make_train_step(model, optimizer, cfg: StepConfig,
         if replace_base:
             loss, aux = loss_extras(model, cl_state, model_out, {"data": data, "seg": seg})
         else:
-            loss = deep_supervision_loss(outputs, seg, cfg.ds_factors, cfg.batch_dice)
+            loss = deep_supervision_loss(outputs, seg, cfg.ds_factors, cfg.batch_dice,
+                                         dp=cfg.dp)
             if loss_extras is not None:
                 extra, aux = loss_extras(model, cl_state, model_out,
                                          {"data": data, "seg": seg})
                 loss = loss + extra
         loss.backward()
+        if cfg.dp is not None:
+            cfg.dp.all_reduce_grads(optimizer.all_params)
         if add_grad is not None:
             add_grad()
         if cl_state_update is not None:
             cl_state = cl_state_update(cl_state, model, loss.detach())
         optimizer.step()
-        tp, fp, fn = online_eval_counts(outputs[0].detach(), seg, cfg.num_classes)
+        tp, fp, fn = online_eval_counts(outputs[0].detach(), seg, cfg.num_classes, dp=cfg.dp)
         return cl_state, {"loss": loss.detach(), "tp": tp, "fp": fp, "fn": fn, **aux}
 
     return train_step
@@ -93,8 +110,8 @@ def make_eval_step(model, cfg: StepConfig):
     def eval_step(batch: dict):
         outputs = model(batch["data"])
         seg = batch["seg"].long()
-        loss = deep_supervision_loss(outputs, seg, cfg.ds_factors, cfg.batch_dice)
-        tp, fp, fn = online_eval_counts(outputs[0], seg, cfg.num_classes)
+        loss = deep_supervision_loss(outputs, seg, cfg.ds_factors, cfg.batch_dice, dp=cfg.dp)
+        tp, fp, fn = online_eval_counts(outputs[0], seg, cfg.num_classes, dp=cfg.dp)
         return {"loss": loss, "tp": tp, "fp": fp, "fn": fn}
 
     return eval_step

@@ -41,9 +41,24 @@ the JAX trainer's), and the manifest's ``vit`` entry records both.
 (``models/unet.py``; a no-op for the ViT-U-Net, as in JAX).
 ``use_param_split`` re-splits each task's train cases 80:20
 (``data/dataset.py:param_search_split``), as the parameter search trains.
-Not ported yet, and refused by ``run/run_training.py`` when asked for:
-SPMD (``-n_devices`` / ``-model_parallel``); its options are not fields
-of :class:`TrainerOptions` (nor is the profiler's).  In place of the JAX
+
+``n_devices`` > 1 (the JAX trainer's SPMD, ``_setup_spmd``): the trainer
+is one rank of ``n_devices`` (``parallel/launch.py`` starts them; ``device``
+is the rank's own, ``devices`` the ranks' list when it names one device
+twice) on a ``data`` x ``model`` grid of ``n_devices / model_parallel`` x
+``model_parallel`` (``parallel/mesh.py``), with the JAX refusals (more
+devices than are visible, a model axis that does not divide them) and the
+batch rounded up to a multiple of the data axis.  Each rank samples its
+rows of the global batch (``data/sampler.py``), the losses reduce over the
+data axis and the gradients are summed (``training/train_step.py``); under
+``model_parallel`` the model's large layers hold slices of their output
+features.  The registry, the checkpoints (parameters and optimizer
+momentum) and ``cl_state`` as saved hold full tensors, so a checkpoint
+written at any layout restores at any other; rank 0 alone writes the
+checkpoints, the manifest, ``progress.json`` and the validation files and
+runs the validation (on a full copy of the model under ``model_parallel``),
+the other ranks wait for it.  The profiler's option is not a field of
+:class:`TrainerOptions`.  In place of the JAX
 package's ``progress.png`` (matplotlib is not a dependency of the port),
 ``progress.json`` beside the checkpoints holds the epoch curves and every
 train step's loss.
@@ -72,6 +87,8 @@ from ..inference.sliding_window import predict_sliding_window
 from ..models.multihead import MultiHeadParams, split_params
 from ..models.unet import ds_scale_factors, unet_from_plans
 from ..models.vit_unet import vit_overrides, vit_unet_from_plans
+from ..parallel.mesh import (check_devices, make_mesh, param_bytes, rank_source,
+                             shard_model, visible_devices)
 from ..utilities.logging_utils import RunLogger
 from . import checkpoints
 from .restore import route_switches
@@ -114,6 +131,18 @@ class TrainerOptions:
     vit_spt: bool = False
     vit_task_specific_ln: bool = False     # one LayerNorm set per task
     vit_depth_override: int | None = None  # depth d, embed max(16, 8 d), 2 heads
+    # scale-out (module docstring): the JAX trainer's n_devices and
+    # model_parallel; devices: every rank's device, when one is named twice
+    n_devices: int | None = None
+    model_parallel: int = 1
+    devices: tuple | None = None
+
+
+class _Quiet:
+    """The logger of a rank other than 0."""
+
+    def __call__(self, *args):
+        pass
 
 
 class MultiHeadTrainer:
@@ -140,10 +169,18 @@ class MultiHeadTrainer:
         self.patch_size = tuple(self.opts.patch_size or self.cfg.patch_size)
         self.batch_size = int(self.opts.batch_size or self.cfg.batch_size)
         self._dtype = dtype
-        self.model = self._make_model().to(self.device)
+        self.source = rank_source()
+        self.mesh = self._setup_spmd()
+        self.dp = self.mesh.data if self.mesh is not None else None
+        self.plan = None              # the model's ShardPlan under model_parallel
+        self._replica = None          # a full model for rank 0's validation then
+        self.model = self._place(self._make_model())
         if self.opts.use_vit:
             # the ViT's batch halving (reference multihead trainer :283-292)
             self.batch_size = max(1, self.batch_size // 2)
+        if self.mesh is not None and self.batch_size % self.mesh.dp:
+            # round the batch up so it shards evenly (the JAX trainer's rule)
+            self.batch_size = -(-self.batch_size // self.mesh.dp) * self.mesh.dp
         self.ds_factors = tuple(ds_scale_factors(self.cfg.pool_op_kernel_sizes))
         self.mh: MultiHeadParams | None = None
         self.cl_state = self.init_cl_state()
@@ -155,7 +192,7 @@ class MultiHeadTrainer:
         self.best_val = math.inf
         self.already_trained_on: dict = {}
         self.metadata_folder = output_folder
-        self.logger = RunLogger(output_folder)
+        self.logger = self._make_logger(output_folder)
         self.generator = torch.Generator(device=self.device).manual_seed(SEED)
         self._datasets: dict = {}     # task -> (PreprocessedDataset, tr_cases, val_cases)
         self._epoch_log: list = []    # dicts: task, epoch, tr_loss, val_loss, val_dice
@@ -167,6 +204,76 @@ class MultiHeadTrainer:
         # the phases of a multi-phase trainer (LwF), see the module docstring
         self._skip_before_ckpt = False
         self._suppress_finalize = False
+
+    # ------------------------------------------------------------ scale-out
+    def _setup_spmd(self):
+        """The rank's mesh (``parallel/mesh.py``) for ``n_devices`` > 1, with
+        the JAX trainer's refusals; None on one device."""
+        n = self.opts.n_devices
+        if not n or n <= 1:
+            return None
+        devices = self.opts.devices
+        if devices is not None and len(devices) != n:
+            raise ValueError(f"n_devices={n} but {len(devices)} devices named: {devices}")
+        visible = None if devices is not None else visible_devices(self.device.type)
+        dp = check_devices(n, self.opts.model_parallel, visible)
+        return make_mesh(n, dp)
+
+    @property
+    def is_main(self) -> bool:
+        """Rank 0 (or the only rank): the one that writes."""
+        return self.mesh is None or self.mesh.is_main
+
+    def _make_logger(self, folder: str):
+        return RunLogger(folder) if self.is_main else _Quiet()
+
+    def _place(self, model):
+        """``model`` on the device; under model parallelism with its large
+        layers sliced for this rank (``self.plan``)."""
+        model = model.to(self.device)
+        if self.mesh is not None and self.mesh.model is not None:
+            self.plan = shard_model(model, self.mesh.model)
+            self._replica = None
+        return model
+
+    def _full_state(self) -> dict:
+        """The model's full ``state_dict`` (gathered under model parallelism:
+        every rank of the model group calls it together)."""
+        sd = self.model.state_dict()
+        return sd if self.plan is None else self.plan.globalize(sd)
+
+    def _load_full(self, state: dict) -> None:
+        self.model.load_state_dict(state if self.plan is None else self.plan.localize(state))
+
+    def _local(self, tree):
+        """Full tensors under a sharded parameter's key sliced for this rank."""
+        return tree if self.plan is None else self.plan.localize(tree)
+
+    def _global(self, tree):
+        """This rank's slices under a sharded parameter's key gathered (a
+        collective over the model group)."""
+        return tree if self.plan is None else self.plan.globalize(tree)
+
+    def _sampler_shard(self) -> dict:
+        """The rank's part of every batch: its node's input shard and its
+        rows of it (``data/sampler.py``)."""
+        if self.mesh is None:
+            return {}
+        src = self.source
+        return {"shard": (src.node_index, src.n_nodes),
+                "rows": self.mesh.rows(self.batch_size, src)}
+
+    def _global_rows(self) -> tuple | None:
+        """(lo, hi, B): this rank's rows of the global batch (augmentation)."""
+        if self.mesh is None:
+            return None
+        lo, hi = self.mesh.rows(self.batch_size, self.source)
+        offset = self.source.node_index * (self.batch_size // self.source.n_nodes)
+        return offset + lo, offset + hi, self.batch_size
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     @classmethod
     def input_channels(cls, plans) -> int:
@@ -196,7 +303,7 @@ class MultiHeadTrainer:
     def set_vit_task_lns(self, ln_tasks, active_task_idx: int):
         """Rebuild the ViT-U-Net with these task-specific LayerNorms (its
         parameters as a fresh model's until the registry is loaded)."""
-        self.model = self._make_model(tuple(ln_tasks), active_task_idx).to(self.device)
+        self.model = self._place(self._make_model(tuple(ln_tasks), active_task_idx))
 
     def _maybe_update_vit_task_lns(self, task: str):
         """Task-specific LayerNorms (the JAX trainer's, reference
@@ -214,7 +321,7 @@ class MultiHeadTrainer:
             return
         self.set_vit_task_lns(tasks, idx)
         old = self.mh.assemble(task)
-        merged = {k: old.get(k, v) for k, v in self.model.state_dict().items()}
+        merged = {k: old.get(k, v) for k, v in self._full_state().items()}
         body, head = split_params(merged, self.mh.split_at, self.model.module_order())
         heads = OrderedDict(self.mh.heads)
         heads[task] = head
@@ -277,45 +384,54 @@ class MultiHeadTrainer:
         ds, tr, val = self._datasets[task]
         return PatchSampler(ds, tr if train else val, self.patch_size, self.batch_size,
                             oversample_foreground_percent=OVERSAMPLE_FOREGROUND,
-                            seed=SEED + seed_offset + (0 if train else 1000))
+                            seed=SEED + seed_offset + (0 if train else 1000),
+                            **self._sampler_shard())
 
     # -------------------------------------------------------------- setup
     def _ensure_initialized(self, task: str):
         if self.mh is not None:
             return
-        self.mh = MultiHeadParams.create(self.model.state_dict(), self.opts.split_at,
+        full = self._full_state()
+        self.mh = MultiHeadParams.create(full, self.opts.split_at,
                                          self.model.module_order(), task)
-        n = sum(p.numel() for p in self.model.parameters())
+        n = sum(p.numel() for p in full.values())
         self.logger(f"initialized network: {n:,} params, patch {self.patch_size}, "
                     f"batch {self.batch_size}, {self.model.dtype} on {self.device}")
+        if self.mesh is not None:
+            self.logger(f"SPMD: mesh data={self.mesh.dp} x model={self.mesh.mp}, batch "
+                        f"{self.batch_size}, backend {self.mesh.backend}, parameter bytes per "
+                        f"rank {param_bytes(self.model)}")
 
     def _build_step(self):
         """A fresh optimizer (over the parameters that ``trainable_mask``
         leaves trainable) and the train and eval steps, with the hooks'
         terms as they stand now (``before_task`` runs first)."""
-        self.model.load_state_dict(self.mh.assemble())
+        self._load_full(self.mh.assemble())
         self.optimizer = PolySGD(list(self.model.named_parameters()) + self.extra_params(),
                                  max_epochs=self.opts.num_epochs,
                                  iters_per_epoch=self.opts.iters_per_epoch,
-                                 initial_lr=INITIAL_LR, trainable_mask=self.trainable_mask())
+                                 initial_lr=INITIAL_LR, trainable_mask=self.trainable_mask(),
+                                 model=self.mesh.model if self.mesh is not None else None,
+                                 sharded=frozenset(self.plan.dims) if self.plan else frozenset())
         aug = AugmentConfig(dummy_2d=bool(getattr(self.cfg, "do_dummy_2d_aug", False))) \
             if self.opts.augment else None
         step_cfg = StepConfig(ds_factors=self.ds_factors, batch_dice=self.batch_dice,
-                              num_classes=self.num_classes, augment=aug)
+                              num_classes=self.num_classes, augment=aug, dp=self.dp,
+                              rows=self._global_rows())
         self._train_step = make_train_step(self.model, self.optimizer, step_cfg,
                                            loss_extras=self.loss_extras(),
                                            cl_state_update=self.cl_state_update(),
                                            generator=self.generator)
         self._eval_step = make_eval_step(self.model, step_cfg)
         if self._resume_opt is not None:
-            self.optimizer.load_state_dict(self._resume_opt)
+            self.optimizer.load_state_dict(self._local_opt(self._resume_opt))
             self._resume_opt = None
 
     # -------------------------------------------------------------- manifest
     def set_output_folder(self, folder: str):
         os.makedirs(folder, exist_ok=True)
         self.output_folder = folder
-        self.logger = RunLogger(folder)
+        self.logger = self._make_logger(folder)
 
     def _trained_on_path(self) -> str:
         os.makedirs(self.metadata_folder, exist_ok=True)
@@ -332,8 +448,10 @@ class MultiHeadTrainer:
             "hyperparams": {k: str(v) for k, v in self.hyperparams.items()},
         })
         self.already_trained_on[str(self.opts.fold)].update(kv)
-        with open(self._trained_on_path(), "w") as f:
-            json.dump(self.already_trained_on, f, indent=2)
+        if self.is_main:
+            with open(self._trained_on_path(), "w") as f:
+                json.dump(self.already_trained_on, f, indent=2)
+        self._barrier()
 
     # -------------------------------------------------------------- training
     def train_task(self, task: str, stage_dir: str, num_epochs: int | None = None,
@@ -350,6 +468,7 @@ class MultiHeadTrainer:
         self.mh = self.mh.add_new_task(task, use_init=not self.TRANSFER_HEADS)
         self._maybe_update_vit_task_lns(task)
         self.before_task(task)
+        self.cl_state = self._local(self.cl_state)
         self._build_step()
         self._update_manifest(start_training_on=task, checkpoint_should_exist=False)
         if not (start_epoch or self._skip_before_ckpt):
@@ -377,7 +496,7 @@ class MultiHeadTrainer:
                             f"({time.time() - t0:.1f}s)")
                 self._epoch_log.append({"task": task, "epoch": epoch, "tr_loss": tr_loss,
                                         "val_loss": val_loss, "val_dice": val_dice})
-                self.mh = self.mh.absorb(self.model.state_dict(), task)
+                self.mh = self.mh.absorb(self._full_state(), task)
                 if val_loss < self.best_val:
                     self.best_val = val_loss
                     self.save_checkpoint("model_best")
@@ -391,10 +510,14 @@ class MultiHeadTrainer:
                         self._perform_validation(tag=f"epoch_{epoch}")
         finally:
             prefetch.stop()
-        self.mh = self.mh.absorb(self.model.state_dict(), task)
+        self.mh = self.mh.absorb(self._full_state(), task)
         if self._suppress_finalize:
             return
+        # the hook sees full tensors in cl_state (RW normalizes its scores
+        # over whole tensors) and the rank's slices in the model
+        self.cl_state = self._global(self.cl_state)
         self.after_task(task)
+        self.cl_state = self._local(self.cl_state)
         self.save_checkpoint("model_final_checkpoint")
         fold_state = self.already_trained_on.get(str(self.opts.fold), {})
         self._update_manifest(
@@ -416,11 +539,15 @@ class MultiHeadTrainer:
             losses.append(m["loss"])
             tp, fp, fn = tp + m["tp"], fp + m["fp"], fn + m["fn"]
         dice = (2 * tp / torch.clamp(2 * tp + fp + fn, min=1)).float().mean()
-        return float(torch.stack(losses).mean()), float(dice)
+        out = float(torch.stack(losses).mean()), float(dice)
+        # every rank takes rank 0's numbers: the checkpoint decisions that
+        # follow are collectives, so no rank may decide otherwise
+        return out if self.mesh is None else self.mesh.broadcast_object(out)
 
     def _write_progress(self):
-        with open(os.path.join(self.output_folder, "progress.json"), "w") as f:
-            json.dump({"epochs": self._epoch_log, "step_losses": self.step_losses}, f)
+        if self.is_main:
+            with open(os.path.join(self.output_folder, "progress.json"), "w") as f:
+                json.dump({"epochs": self._epoch_log, "step_losses": self.step_losses}, f)
 
     # -------------------------------------------------------------- validation
     def _perform_validation(self, tasks: list | None = None, use_head: str | None = None,
@@ -433,12 +560,35 @@ class MultiHeadTrainer:
         unless ``call_for_eval``) or, with ``val_mode`` ``patches``, by
         :meth:`_patch_validation`; written to ``val_metrics.json`` / ``.csv``
         (``val_metrics_eval.*`` for ``call_for_eval``).  The trained
-        parameters are back in the model afterwards."""
+        parameters are back in the model afterwards.  Several ranks: rank 0
+        validates (the model itself under data parallelism, a full copy
+        under model parallelism) and every rank returns its results."""
+        if self.mesh is None:
+            return self._validate(tasks, use_head, always_use_last_head, tag,
+                                  call_for_eval, mirror_axes)
+        results = self._validate(tasks, use_head, always_use_last_head, tag, call_for_eval,
+                                 mirror_axes) if self.is_main else None
+        return self.mesh.broadcast_object(results)
+
+    def _validation_model(self):
+        """The model rank 0 validates with: the model itself, or under model
+        parallelism an unsharded copy (built once per model)."""
+        if self.plan is None:
+            return self.model
+        if self._replica is None:
+            lns = (self.model.ln_tasks, self.model.active_task_idx) if self.opts.use_vit \
+                else ()
+            self._replica = self._make_model(*lns).to(self.device)
+        return self._replica
+
+    def _validate(self, tasks, use_head, always_use_last_head, tag, call_for_eval,
+                  mirror_axes) -> dict:
         if mirror_axes is None:
             mirror_axes = (0, 1, 2) if call_for_eval else ()
         mirror_axes = tuple(a for a in mirror_axes if a < len(self.patch_size))
-        trained = {k: v.clone() for k, v in self.model.state_dict().items()}
-        self.model.eval()
+        model = self._validation_model()
+        trained = {k: v.clone() for k, v in model.state_dict().items()}
+        model.eval()
         results = {}
         try:
             for t in tasks or list(self._datasets):
@@ -446,15 +596,16 @@ class MultiHeadTrainer:
                 head = use_head or (self.mh.tasks[-1] if always_use_last_head else t)
                 if head not in self.mh.tasks:
                     head = self.mh.tasks[-1]
-                self.model.load_state_dict(self.mh.assemble(head))
+                model.load_state_dict(self.mh.assemble(head))
                 if self.opts.val_mode == "patches" and not call_for_eval:
-                    results[t] = {"head": head, "subjects": self._patch_validation(ds, val)}
+                    results[t] = {"head": head,
+                                  "subjects": self._patch_validation(ds, val, model)}
                     continue
                 subjects = {}
                 for case in val:
                     arr = np.asarray(ds.load(case))
                     probs = predict_sliding_window(
-                        self.model, np.moveaxis(arr[:-1], 0, -1), self.patch_size,
+                        model, np.moveaxis(arr[:-1], 0, -1), self.patch_size,
                         self.num_classes, device=self.device, mirror_axes=mirror_axes,
                         window_batch=4)
                     subjects[case] = subject_metrics(np.argmax(probs, axis=-1),
@@ -462,7 +613,7 @@ class MultiHeadTrainer:
                                                      self.num_classes)
                 results[t] = {"head": head, "subjects": subjects}
         finally:
-            self.model.load_state_dict(trained)
+            model.load_state_dict(trained)
         out = {"epoch": self.epoch, "tag": tag, "results": results}
         self._val_history.append(out)
         path = os.path.join(self.output_folder,
@@ -473,7 +624,7 @@ class MultiHeadTrainer:
         self._write_val_csv(path.replace(".json", ".csv"), hist)
         return results
 
-    def _patch_validation(self, ds, val_cases) -> dict:
+    def _patch_validation(self, ds, val_cases, model=None) -> dict:
         """The reference's patch-sampled validation: ``val_iters`` batches
         of foreground-oversampled patches of the validation cases (sampler
         seed ``SEED + 4242``, no augmentation), hard tp/fp/fn summed per
@@ -481,11 +632,12 @@ class MultiHeadTrainer:
         sampler = PatchSampler(ds, val_cases, self.patch_size, self.batch_size,
                                oversample_foreground_percent=OVERSAMPLE_FOREGROUND,
                                seed=SEED + 4242)
+        model = model or self.model
         acc: dict = {}
         for _ in range(self.opts.val_iters):
             b = sampler.next_batch()
             with torch.no_grad():
-                pred = self.model(torch.from_numpy(b["data"]).to(self.device))[0].argmax(1)
+                pred = model(torch.from_numpy(b["data"]).to(self.device))[0].argmax(1)
             seg = torch.from_numpy(b["seg"]).to(self.device).long()
             valid, dims = seg >= 0, tuple(range(1, seg.dim()))
             per = []
@@ -531,14 +683,36 @@ class MultiHeadTrainer:
         man.update(self.extra_manifest())
         return man
 
+    def _opt_by_name(self, state: dict, fn) -> dict:
+        """``state`` (a ``PolySGD.state_dict``) with ``fn`` applied to its
+        momentum buffers keyed by parameter name."""
+        names = self.optimizer.names
+        buffers = {names[i]: v["momentum_buffer"] for i, v in state["sgd"].get("state", {}).items()
+                   if v.get("momentum_buffer") is not None}
+        buffers = fn(buffers)
+        sgd = dict(state["sgd"])
+        sgd["state"] = {i: {**v, "momentum_buffer": buffers.get(names[i], v.get("momentum_buffer"))}
+                        for i, v in state["sgd"].get("state", {}).items()}
+        return {**state, "sgd": sgd}
+
+    def _local_opt(self, state: dict) -> dict:
+        return state if self.plan is None else self._opt_by_name(state, self.plan.localize)
+
     def save_checkpoint(self, name: str):
-        # trainers whose new heads copy the active head never read
-        # state_init: it is left out, as in the JAX package
-        checkpoints.save_registry(
-            os.path.join(self.output_folder, name), self.mh, self.manifest(),
-            optimizer=self.optimizer.state_dict() if self.optimizer else None,
-            step=self.global_step, epoch=self.epoch,
-            include_state_init=not self.TRANSFER_HEADS, cl_state=self.cl_state)
+        """Rank 0 writes the full registry, optimizer and ``cl_state`` (the
+        gathers are collectives: every rank calls it)."""
+        opt = self.optimizer.state_dict() if self.optimizer else None
+        if opt is not None and self.plan is not None:
+            opt = self._opt_by_name(opt, self.plan.globalize)
+        cl_state = self._global(self.cl_state)
+        if self.is_main:
+            # trainers whose new heads copy the active head never read
+            # state_init: it is left out, as in the JAX package
+            checkpoints.save_registry(
+                os.path.join(self.output_folder, name), self.mh, self.manifest(),
+                optimizer=opt, step=self.global_step, epoch=self.epoch,
+                include_state_init=not self.TRANSFER_HEADS, cl_state=cl_state)
+        self._barrier()
 
     def load_checkpoint(self, name: str = "model_final_checkpoint",
                         restore_opt: bool = True) -> dict:
@@ -555,9 +729,9 @@ class MultiHeadTrainer:
         self.global_step = manifest["step"]
         self._adopt_manifest(manifest)
         if manifest.get("has_cl_state") and blob.get("cl_state") is not None:
-            self.cl_state = blob["cl_state"]
+            self.cl_state = self._local(blob["cl_state"])
         self._build_step()
         if restore_opt and manifest.get("has_opt_state"):
-            self.optimizer.load_state_dict(blob["optimizer"])
+            self.optimizer.load_state_dict(self._local_opt(blob["optimizer"]))
             self._resume_opt = blob["optimizer"]
         return manifest

@@ -18,6 +18,12 @@ the fisher and anchors are keyed by the assembled model's ``state_dict``
 keys, so a new task's seg head carries the old task's head keys and the
 penalty reaches it.
 
+Over several ranks the fisher pass draws each rank's rows of the global
+batches and squares the gradient summed over the data ranks (the global
+batch's, as JAX's jitted gradient of the sharded batch), never a rank's
+own; under model parallelism the fisher and the anchors are the rank's
+slices while it trains and whole in every checkpoint.
+
 The variants regularize a subset of the parameters, chosen by name
 (``models/multihead.py:name_filter_mask``): ``ewc_vit`` the ViT's,
 ``ewc_unet`` all but the ViT's, ``ewc_ln`` the ViT's LayerNorms.
@@ -91,14 +97,17 @@ class EWCTrainer(MultiHeadTrainer):
             data = torch.from_numpy(b["data"]).to(self.device)
             seg = torch.from_numpy(b["seg"]).to(self.device)
             if aug is not None:
-                data, seg = augment_batch(data, seg, aug, gen)
+                data, seg = augment_batch(data, seg, aug, gen, rows=self._global_rows())
             loss = deep_supervision_loss(self.model(data), seg.long(), self.ds_factors,
-                                         self.batch_dice)
+                                         self.batch_dice, dp=self.dp)
             grads = torch.autograd.grad(loss, params, allow_unused=True)
             # a parameter the loss does not reach (the coarsest deep-
             # supervision head, weight 0) has gradient 0, as under jax.grad
             g = [grads[at[k]] if grads[at[k]] is not None else torch.zeros_like(named[k])
                  for k in keep]
+            if self.dp is not None:
+                # the global batch's gradient, as JAX's on the sharded batch
+                self.dp.sum_flat_(g)
             torch._foreach_addcmul_(fisher, g, g)
         torch._foreach_div_(fisher, n)
         self.cl_state["ewc_tasks"][task] = {

@@ -75,7 +75,7 @@ class LwFTrainer(MultiHeadTrainer):
             return
         heads = OrderedDict(self.mh.heads)
         for t, head in self._prev_heads.items():
-            heads[t] = {k: p.detach().clone() for k, p in head.items()}
+            heads[t] = self._global({k: p.detach().clone() for k, p in head.items()})
         self.mh = replace(self.mh, heads=heads)
 
     def save_checkpoint(self, name: str):
@@ -129,7 +129,8 @@ class LwFTrainer(MultiHeadTrainer):
     # -------------------------------------------------- the joint step
     def _build_step(self):
         self._prev_heads = {
-            t: {k: torch.nn.Parameter(v.detach().clone()) for k, v in self.mh.heads[t].items()}
+            t: {k: torch.nn.Parameter(v.detach().clone())
+                for k, v in self._local(self.mh.heads[t]).items()}
             for t in self.mh.tasks[:-1]} if self._joint_phase else {}
         super()._build_step()
 
@@ -140,7 +141,7 @@ class LwFTrainer(MultiHeadTrainer):
     def loss_extras(self):
         if not self._joint_phase:
             return None
-        heads, temperature = self._prev_heads, self.lwf_temperature
+        heads, temperature, dp = self._prev_heads, self.lwf_temperature, self.dp
 
         def extras(model, cl_state, model_out, batch):
             data = batch["data"]
@@ -150,7 +151,7 @@ class LwFTrainer(MultiHeadTrainer):
                 with torch.no_grad():
                     targets.append(functional_call(model, cl_state["old_models"][t],
                                                    (data,))[0])
-            dist = lwf_distill_loss(current, targets, temperature)
+            dist = lwf_distill_loss(current, targets, temperature, dp=dp)
             return dist, {"lwf_distill": dist.detach()}
 
         return extras

@@ -61,13 +61,14 @@ class MiBTrainer(MultiHeadTrainer):
         if self.cl_state.get("teacher") is None:
             return None
         alpha, lkd, nc, dsf = self.mib_alpha, self.mib_lkd, self.num_classes, self.ds_factors
+        dp = self.dp
 
         def extras(model, cl_state, model_out, batch):
             outputs = model_out["outputs"]
             with torch.no_grad():
                 t_out = functional_call(model, cl_state["teacher"], (batch["data"],))
             loss = mib_loss(outputs, t_out, batch["seg"], ds_weights(len(outputs)), dsf,
-                            old_num_classes=nc, lkd=lkd, alpha=alpha)
+                            old_num_classes=nc, lkd=lkd, alpha=alpha, dp=dp)
             return loss, {"mib": loss.detach()}
 
         extras.replace_base = True

@@ -40,7 +40,7 @@ import torch
 from torch.func import functional_call
 
 from ...ops.cl_losses import local_pod_loss, unbiased_kd_loss
-from ...ops.losses import deep_supervision_loss, ds_weights
+from ...ops.losses import deep_supervision_loss, ds_weights, gmean
 from .ewc import EWCTrainer
 
 PSEUDO_EVERY = 13   # OwnM4's pseudo iterations (the reference's ownm4/...:322-343)
@@ -62,7 +62,7 @@ class _OwnLoss:
 
     def __init__(self, trainer, penalty, terms):
         self.penalty, self.terms = penalty, terms
-        self.dsf, self.batch_dice = trainer.ds_factors, trainer.batch_dice
+        self.dsf, self.batch_dice, self.dp = trainer.ds_factors, trainer.batch_dice, trainer.dp
         self.pod_lambda, self.scales = trainer.pod_lambda, trainer.pod_scales
 
     def __call__(self, model, cl_state, model_out, batch):
@@ -70,11 +70,11 @@ class _OwnLoss:
         with torch.no_grad():
             t_out, t_taps = functional_call(model, cl_state["teacher"], (batch["data"],),
                                             {"capture_taps": True})
-        base = deep_supervision_loss(outputs, seg, self.dsf, self.batch_dice)
+        base = deep_supervision_loss(outputs, seg, self.dsf, self.batch_dice, dp=self.dp)
         loss, aux = self.terms(cl_state, base, outputs, t_out, ds_weights(len(outputs)),
                                self._penalty)
         pod = local_pod_loss(_decoder_taps(taps), _decoder_taps(t_taps), self.scales,
-                             self.pod_lambda)
+                             self.pod_lambda, dp=self.dp)
         aux["pod"] = pod.detach()
         return loss + pod, aux
 
@@ -150,8 +150,8 @@ class OwnM1Trainer(_OwnTrainer):
         for i, (o, to) in enumerate(zip(outputs, t_out)):
             if w[i] == 0.0:
                 continue
-            kd = kd + float(w[i]) * self.mib_lkd * unbiased_kd_loss(o, to, self.num_classes,
-                                                                    self.mib_alpha)
+            kd = kd + float(w[i]) * self.mib_lkd * unbiased_kd_loss(
+                o, to, self.num_classes, self.mib_alpha, dp=self.dp)
         aux["mib_kd"] = kd.detach()
         return loss + kd, aux
 
@@ -216,7 +216,7 @@ class OwnM4Trainer(_OwnTrainer):
         for i, (o, to) in enumerate(zip(outputs, t_out)):
             if w[i] == 0.0:
                 continue
-            mse = mse + float(w[i]) * torch.mean((o - to) ** 2)
+            mse = mse + float(w[i]) * gmean((o - to) ** 2, self.dp)
         loss = base + weight * mse
         if weight <= 0:
             loss = loss + penalty()

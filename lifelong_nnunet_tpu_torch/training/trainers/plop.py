@@ -15,6 +15,10 @@ its median per class (``cl_state["thresholds"]``, a list of ``[C]``
 tensors).  POD keeps DC+CE and has no thresholds.  The first task trains
 plain.  Heads transfer, as in the Sequential trainer.
 
+Over several ranks each rank histograms its rows of the threshold pass's
+global batches and the histograms are summed over the data ranks before
+the medians, so every rank takes the global batches' thresholds.
+
 A task resumed mid-way (``-c`` from ``model_latest``) keeps the teacher and
 the thresholds its checkpoint holds; the JAX trainer snapshots the teacher
 again from the registry, whose body has moved since, and computes the
@@ -79,6 +83,7 @@ class PLOPTrainer(MultiHeadTrainer):
         nc = self.num_classes
         hists = [torch.zeros(nc, HIST_BINS, device=self.device) for _ in self.ds_factors]
         sampler = self._make_sampler(task, True, seed_offset=THRESHOLD_SEED_OFFSET)
+        teacher = self._local(teacher)
         with torch.no_grad():
             for _ in range(self.opts.iters_per_epoch):
                 b = sampler.next_batch()
@@ -88,6 +93,9 @@ class PLOPTrainer(MultiHeadTrainer):
                 hists = [accumulate_entropy_histogram(h, o, downsample_target(seg, f), nc,
                                                       HIST_BINS)
                          for h, o, f in zip(hists, outs, self.ds_factors)]
+        if self.dp is not None:
+            # the histogram of the global batches
+            self.dp.sum_flat_(hists)
         return [median_entropy_thresholds(h) for h in hists]
 
     def loss_extras(self):
@@ -95,15 +103,16 @@ class PLOPTrainer(MultiHeadTrainer):
             return None
         dsf, batch_dice = self.ds_factors, self.batch_dice
         pod_lambda, scales, pseudo = self.pod_lambda, self.pod_scales, self.PSEUDO
+        dp = self.dp
 
         def extras(model, cl_state, model_out, batch):
             outputs, taps, seg = model_out["outputs"], model_out["taps"], batch["seg"]
             with torch.no_grad():
                 t_out, t_taps = functional_call(model, cl_state["teacher"], (batch["data"],),
                                                 {"capture_taps": True})
-            pod = local_pod_loss(taps, t_taps, scales, pod_lambda)
+            pod = local_pod_loss(taps, t_taps, scales, pod_lambda, dp=dp)
             if not pseudo:
-                base = deep_supervision_loss(outputs, seg, dsf, batch_dice)
+                base = deep_supervision_loss(outputs, seg, dsf, batch_dice, dp=dp)
                 return base + pod, {"pod": pod.detach()}
             w = ds_weights(len(outputs))
             ps = 0.0
@@ -111,7 +120,7 @@ class PLOPTrainer(MultiHeadTrainer):
                 if w[i] == 0.0:
                     continue
                 ps = ps + float(w[i]) * plop_pseudo_label_loss(
-                    o, to, downsample_target(seg, f), cl_state["thresholds"][i])
+                    o, to, downsample_target(seg, f), cl_state["thresholds"][i], dp=dp)
             return ps + pod, {"plop_pseudo": ps.detach(), "pod": pod.detach()}
 
         extras.replace_base = True

@@ -6,7 +6,8 @@ earlier task registered with the trainer, in registration order,
 ``max(1, round(samples_in_perc * n))`` of its ``n`` train cases, drawn
 without replacement by one ``np.random.RandomState(3299)`` (the
 reference's ``nnUNetTrainerRehearsal.py:65-173``).  Validation uses the
-current task only.  Heads transfer, as in the Sequential trainer.
+current task only.  Heads transfer, as in the Sequential trainer.  The
+pool's sampler takes the rank's shard and rows, as the trainer's do.
 """
 
 from __future__ import annotations
@@ -48,4 +49,4 @@ class RehearsalTrainer(MultiHeadTrainer):
         return PatchSampler(None, self.rehearsal_pool(task), self.patch_size,
                             self.batch_size,
                             oversample_foreground_percent=OVERSAMPLE_FOREGROUND,
-                            seed=SEED + seed_offset)
+                            seed=SEED + seed_offset, **self._sampler_shard())

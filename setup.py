@@ -63,6 +63,8 @@ setup(
                  "framework (JAX/XLA/Pallas), capability-equivalent to "
                  "Lifelong-nnUNet"),
     packages=find_packages(include=["lifelong_nnunet_tpu*"]),
+    # the port's native sources, built on the machine that runs them
+    package_data={"lifelong_nnunet_tpu_torch": ["ops/csrc/*", "data/csrc/*"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy", "scipy", "scikit-learn",
                       "pandas"],

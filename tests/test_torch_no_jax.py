@@ -5,7 +5,8 @@ interpreter whose ``sys.meta_path`` refuses those imports loads every module
 of ``lifelong_nnunet_tpu_torch`` (the CT routes' ``ops/kernels/block_pack.py``
 and ``ops/kernels/interleave.py``, the evaluation modules and the LwF, MiB,
 PLOP / POD and OwnM trainers, the parameter search, the scripts, the
-helpers and the cascade among them), resolves every ``nnUNet_torch_*``
+helpers, the cascade, the scale-out layer ``parallel/`` and the C++ patch
+gather's binding ``data/native.py`` among them), resolves every ``nnUNet_torch_*``
 console script of ``setup.py``, loads ``chip_smoke.py``, runs one tiny CPU
 forward through the model and the sliding window (a 3D volume, a 2D patch
 over a 3D volume, the volume stream) and one through the CT routes (the
@@ -65,7 +66,8 @@ SCRIPT = BLOCKER + textwrap.dedent("""
         "experiment.experiment", "experiment.param_search", "run.run_param_search",
         "utilities.helpful_functions", "scripts.create_split",
         "scripts.dataset_label_mapping", "scripts.delete_tasks", "scripts.join_datasets",
-        "scripts.update_checkpoints", "inference.cascade", "run.prepare_cascade")}
+        "scripts.update_checkpoints", "inference.cascade", "run.prepare_cascade",
+        "parallel.mesh", "parallel.collectives", "parallel.launch", "data.native")}
     assert new <= set(names), new - set(names)
     import re
     setup = re.sub(r'"\\s*\\n\\s*"', "", open("setup.py").read())

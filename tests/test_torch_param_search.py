@@ -178,12 +178,12 @@ def test_two_spawned_workers_on_the_cpu(env):
 
 
 @pytest.mark.parametrize("n_workers,dpe,err", [(2, 1, RuntimeError), (2, 0, RuntimeError),
-                                               (2, 2, NotImplementedError)])
+                                               (2, 2, RuntimeError)])
 def test_an_impossible_partition_is_refused_before_any_worker(env, tmp_path, n_workers, dpe,
                                                               err):
     """This host has no card: two workers on ``cuda`` (one card each, or
-    sharing one) are refused, as is an experiment over two cards; nothing
-    is written."""
+    sharing one) are refused, as are two experiments over two cards each;
+    nothing is written."""
     s = ParamSearcher("ewc", env["plans"], "3d_fullres", env["stages"], str(tmp_path / "x"),
                       grid={"ewc_lambda": [0.1, 0.4]}, options=TrainerOptions(**TINY))
     with pytest.raises(err):

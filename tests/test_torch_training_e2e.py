@@ -2,7 +2,8 @@
 ``nnUNet_torch_train_base_v2 --device cpu`` trains a tiny U-Net (widths
 4 -> 16, patch 16^3) for 2 epochs of 3 steps, writes the checkpoints, the
 progress record and the trained-on manifest, and ``nnUNet_torch_inference
---device cpu`` serves what it wrote; unported options raise.  Then the JAX
+--device cpu`` serves what it wrote; SPMD options the JAX trainer refuses
+raise.  Then the JAX
 package's trainer and the port's, from the same initial parameters with no
 augmentation, give the same per-epoch train and validation losses."""
 
@@ -113,17 +114,18 @@ def test_cuda_without_a_gpu_raises(env, monkeypatch):
 
 @pytest.mark.parametrize("extra,refused", [
     pytest.param(["--use_vit", "-vit_depth", "1", "--task_specific_ln"], False, id="extra2"),
-    pytest.param(["-n_devices", "2"], True, id="extra3"),
-    pytest.param(["-model_parallel", "2"], True, id="extra4"),
+    pytest.param(["-n_devices", str(10 ** 6)], "devices visible", id="extra3"),
+    pytest.param(["-n_devices", "3", "-model_parallel", "2"], "must divide", id="extra4"),
     pytest.param(["--remat"], False, id="extra7")])
 def test_unported_options_are_refused(env, extra, refused, tmp_path, monkeypatch):
-    """SPMD is refused.  Task-specific LayerNorms and rematerialization are
-    ported: a one-step run trains into the ``task_specific`` folder with
-    the task's LayerNorm set in its manifest, or with every U-Net stage
-    recomputed."""
+    """The JAX trainer's refusals of SPMD, before any rank starts: more
+    devices than are visible, a model axis that does not divide them.
+    Task-specific LayerNorms and rematerialization are ported: a one-step
+    run trains into the ``task_specific`` folder with the task's LayerNorm
+    set in its manifest, or with every U-Net stage recomputed."""
     argv = ["3d_fullres", "-t", TASK, "--device", "cpu"] + extra
     if refused:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(RuntimeError, match=refused):
             run_training("base_v2", argv)
         return
     monkeypatch.setenv("RESULTS_FOLDER", str(tmp_path))
