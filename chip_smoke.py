@@ -50,7 +50,14 @@ Phases (one line each; any failure raises, so the exit code is not 0):
      kernel and plain routes in f32 held to the plain route in f64 (loss
      and every gradient) within a limit that a bf16 control must exceed;
      warm seconds per train step, the routes in turns, peak device memory,
-     and the kernel route's device time by kernel (torch.profiler);
+     and the kernel route's device time by kernel (torch.profiler); then
+     moreDA's elastic deformation (``ELASTIC``: every sample displaced, the
+     other moreDA defaults on): warm kernel-route steps through
+     ``make_train_step`` with finite losses and the launches of as many
+     steps without it, one batch's ``apply_params`` on the card against
+     the CPU with the same parameters, and ``augment_batch``'s time with
+     and without the field (CUDA events, in turns) and its share of the
+     warm step;
   7. the flash-attention kernels (forward, and the backward's three
      kernels) against their plain versions at the ViT train step's
      (1, 12, 490, 64), serving's (8, 12, 490, 64; the stream's four
@@ -380,7 +387,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from lifelong_nnunet_tpu_torch.data.augment import AugmentConfig  # noqa: E402
+from lifelong_nnunet_tpu_torch.data.augment import (  # noqa: E402
+    AugmentConfig, apply_params, augment_batch, draw_params)
 from lifelong_nnunet_tpu_torch.data.dataset import (  # noqa: E402
     PreprocessedDataset, final_splits, param_search_split)
 from lifelong_nnunet_tpu_torch.data.sampler import PatchSampler  # noqa: E402
@@ -472,6 +480,13 @@ VIT_TRAIN_ITERS = 30             # phase 8's steps an epoch (cut from 60 for tim
 # must meet and the bf16 control must exceed.  On an H100 80GB HBM3 (700 W)
 # both f32 routes read 6.09 and the bf16 kernel route 78.2 (PERF.md)
 F32_GRAD_LIMIT = 10.0
+# phase 6's elastic deformation: every sample displaced, the other moreDA
+# defaults on; warm steps on the kernel route, and the card's augmentation
+# against the CPU's on one batch (data within 1e-4 and seg equal on all but
+# that share of voxels: a coordinate within roundoff of a voxel border)
+ELASTIC = AugmentConfig(do_elastic=True, p_eldef=1.0)
+ELASTIC_STEPS = 3
+ELASTIC_OFF = 1e-3
 # flash attention (phase 7): the train step's shape (ViT-base on the
 # hippocampus plan's first skip, 56x80x56 -> a 7x10x7 grid of patch 8), the
 # serving path's (8 mirrors of one window; the volume stream's 4 one-window
@@ -545,8 +560,12 @@ CASCADE_KERNELS = ("conv3d_in_lrelu", "conv3d_dx", "instance_norm_leaky",
                    "deinterleave2")
 # the stream's segmentations against the per-case path's, and the 2d
 # configuration's kernel route's against its plain route's in bf16 (share
-# of voxels; the second pair rounds differently: after 20 steps 0.99969 of
-# voxels agreed on an H100 80GB HBM3, 700 W, PERF.md)
+# of voxels; the second pair rounds differently: after 20 steps 0.99965-
+# 0.99969 of voxels agreed on an H100 80GB HBM3, 700 W).  The plain route's
+# InstanceNorm normalizes in bf16 and moves ~10% of its outputs by more
+# than one ulp at every layer, the kernel within one ulp of its plain
+# version; every voxel that flips lies within 16 bf16 ulps of a tie
+# (tools/route2d_probe.py, PERF.md)
 STREAM_AGREE = 0.9999
 ROUTE_AGREE_2D = 0.999
 # the multi-device paths (phase 18): train steps of each run, validation
@@ -1200,6 +1219,72 @@ def _step_check(make_model, batch, ds_factors, dev, dead=(), attention=0) -> str
             f"biases 0 vs plain <= {bias_err:.3e} of the weight's (limit 1e-3); launches "
             f"of the f32 kernel route on the FMA kernels {fma}, of the bf16 control on the "
             f"tensor-core kernels")
+
+
+def _elastic_check(make_model, batches, step_cfg, shapes, dev) -> tuple:
+    """Phase 6's elastic deformation (``ELASTIC``): ELASTIC_STEPS warm bf16
+    steps on the kernel route through ``make_train_step`` (finite losses,
+    the launches of as many steps without it), one batch's ``apply_params``
+    on the card against the CPU with the same parameters, and
+    ``augment_batch``'s time with and without the field (CUDA events, in
+    turns) beside the warm step's.  Returns (the steps' launches, the
+    readings)."""
+    torch.backends.cudnn.allow_tf32 = True
+    m = make_model(torch.bfloat16, True).to(dev)
+    opt = PolySGD(m.parameters(), max_epochs=TRAIN_EPOCHS, iters_per_epoch=TRAIN_ITERS)
+    cfg = StepConfig(ds_factors=step_cfg.ds_factors, batch_dice=step_cfg.batch_dice,
+                     num_classes=step_cfg.num_classes, augment=ELASTIC)
+    train_step = make_train_step(m, opt, cfg,
+                                 generator=torch.Generator(device=dev).manual_seed(SEED))
+    train_step({}, batches[0])
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    losses = [train_step({}, batches[i % len(batches)])[1]["loss"]
+              for i in range(ELASTIC_STEPS)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / ELASTIC_STEPS * 1e3
+    launches = _counts()
+    losses = [x.item() for x in losses]
+    del m, opt, train_step
+    assert all(map(math.isfinite, losses)), losses
+    assert launches == _train_expect(dev, shapes, TRAIN_BATCH, ELASTIC_STEPS, 0, []), launches
+
+    data, seg = batches[0]["data"], batches[0]["seg"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    params = draw_params(data.shape[0], data.dim() - 2, ELASTIC, gen, dev,
+                         patch=tuple(data.shape[2:]))
+    noise = torch.randn(data.shape, generator=gen, device=dev)
+    assert bool(params["do_elastic"].all()), params["do_elastic"]
+    card_d, card_s = apply_params(data, seg, params, ELASTIC, noise)
+    t0 = time.perf_counter()
+    cpu_d, cpu_s = apply_params(data.cpu(), seg.cpu(), {k: v.cpu() for k, v in params.items()},
+                                ELASTIC, noise.cpu())
+    cpu_s_time = time.perf_counter() - t0
+    assert bool(torch.isfinite(card_d).all()) and card_s.dtype == seg.dtype
+    d_off = ((card_d.cpu() - cpu_d).abs() > 1e-4).float().mean().item()
+    s_off = (card_s.cpu() != cpu_s).float().mean().item()
+    moved = (cpu_s != seg.cpu()).float().mean().item()
+    assert d_off <= ELASTIC_OFF and s_off <= ELASTIC_OFF, (d_off, s_off)
+
+    aug_ms = {"moreDA": [], "elastic": []}
+    for name in ("moreDA", "elastic", "elastic", "moreDA"):
+        aug = ELASTIC if name == "elastic" else AugmentConfig()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        aug_ms[name].append(_time_ms(lambda: augment_batch(data, seg, aug, gen)))
+    el_ms, da_ms = (statistics.median(aug_ms[k]) for k in ("elastic", "moreDA"))
+    text = (f"elastic deformation (do_elastic, p_eldef 1.0, magnitude "
+            f"{ELASTIC.elastic_magnitude}, grid {ELASTIC.elastic_grid}, the other moreDA "
+            f"defaults on): {ELASTIC_STEPS} warm kernel-route bf16 steps, losses "
+            f"{[round(x, 4) for x in losses]}, {step_ms:.2f} ms/step, launches {launches} == "
+            f"predicted ({ELASTIC_STEPS} steps without it); one batch's apply_params card vs "
+            f"CPU ({cpu_s_time:.2f} s on the CPU): data off by > 1e-4 on {d_off:.3e} of "
+            f"voxels, seg off on {s_off:.3e} (limit {ELASTIC_OFF} each; {moved:.3f} of the "
+            f"seg moved); augment_batch at {tuple(data.shape)} by CUDA events, in turns: "
+            f"elastic {el_ms:.3f} ms {[round(x, 3) for x in aug_ms['elastic']]} vs moreDA "
+            f"default {da_ms:.3f} ms {[round(x, 3) for x in aug_ms['moreDA']]}, "
+            f"{el_ms / step_ms:.4f} of the elastic warm step; {_card()}")
+    return launches, text
 
 
 def _turns(make_model, batches, step_cfg, dev, order=(False, True, True, False),
@@ -4739,6 +4824,8 @@ def main() -> int:
 
         fma_train, step_text = _step_check(unet, dev_batches[0], ds_factors, dev)
         step_s, profile = _turns(unet, dev_batches, step_cfg, dev)
+        elastic_launches, elastic_text = _elastic_check(unet, dev_batches, step_cfg, shapes,
+                                                        dev)
         print(f"[phase 6] nnUNet_torch_train_base_v2 --device cuda, full width "
               f"{plans.num_modalities}->{plans.num_classes + 1}, patch {patch}, batch {b2}, "
               f"{TRAIN_EPOCHS} epochs x {TRAIN_ITERS} steps + {VAL_ITERS} val batches, "
@@ -4750,6 +4837,7 @@ def main() -> int:
               f"{last10:.4f}; served by nnUNet_torch_inference: Dice "
               f"{[[round(d, 4) for d in ds] for ds in trained_dice]}; {step_text}; "
               + _turns_text(step_s), flush=True)
+        print(f"[phase 6] {elastic_text}", flush=True)
         _print_profile(6, "train step", profile)
 
         lap("7")
@@ -5056,7 +5144,8 @@ def main() -> int:
                                   ("unpack_blocks", "block_pack.cu", "block_pack.py:197"),
                                   ("interleave_up2", "interleave.cu", "interleave.py:58"),
                                   ("deinterleave2", "interleave.cu", "interleave.py:73"))]
-    paths = {"serve": launches, "train": train_launches, "vit_train": vit_train_launches,
+    paths = {"serve": launches, "train": train_launches, "elastic_train": elastic_launches,
+             "vit_train": vit_train_launches,
              "vit_serve": vit_serve_launches, **ct_paths, **cl_paths, **reg_paths,
              **distill_paths, **pod_paths, **var_paths, **search_paths, **cfg_paths,
              **multi_paths}

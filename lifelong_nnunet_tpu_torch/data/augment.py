@@ -7,20 +7,27 @@ Two steps: :func:`draw_params` draws every per-sample parameter (the
 draws and gates of ``_augment_one``: rotation p=0.2 +-30 deg, scaling
 p=0.2 0.7-1.4, low resolution p=0.25 zoom 0.5-1, noise p=0.1, blur p=0.2
 sigma 0.5-1, brightness p=0.15, contrast p=0.15, inverted gamma p=0.1,
-gamma p=0.3, mirroring p=0.5 per axis), and :func:`apply_params` applies
+gamma p=0.3, mirroring p=0.5 per axis, and with ``do_elastic`` the
+elastic deformation p=0.2, 0-6 voxels), and :func:`apply_params` applies
 them, deterministically, in ``_augment_one``'s order.  Tests hand
 ``apply_params`` the parameters the JAX package drew and compare outputs;
 the generators differ, so the draws themselves are compared by their
 rates.
 
-The spatial transform (rotation, scaling and the low-resolution snap of
-the output grid, one resample) uses ``_augment_one``'s gather semantics
-(``sample_linear`` / ``sample_nearest``): a coordinate outside [0, s-1] on
-any axis gives ``cval`` (data 0, seg -1), inside it the 8-corner
-trilinear (data) or rounded nearest (seg) value.  The JAX package's
-shear-decomposed matmul resampler exists only because gathers are slow on
-a TPU and is not ported; nor is the elastic deformation, which nnU-Net's
-moreDA configuration leaves off.
+The spatial transform (rotation, scaling, the low-resolution snap of the
+output grid and the elastic displacement, one resample) uses
+``_augment_one``'s gather semantics (``sample_linear`` /
+``sample_nearest``): a coordinate outside [0, s-1] on any axis gives
+``cval`` (data 0, seg -1), inside it the 8-corner trilinear (data) or
+rounded nearest (seg) value.  The elastic displacement is a coarse
+uniform field in [-1, 1) of ``max(2, s // elastic_grid)`` points per axis,
+resized to the patch by :func:`resize_cubic` (``jax.image.resize``'s
+cubic rule), times the drawn magnitude, added to the coordinates after
+the snap and the affine map.  It is off by default, as in nnU-Net's
+moreDA configuration, and no trainer turns it on: a caller sets
+``do_elastic`` in the train step's ``AugmentConfig``.  The JAX package's
+shear-decomposed matmul resampler (``spatial_mode``) exists only because
+gathers are slow on a TPU and is not ported.
 """
 
 from __future__ import annotations
@@ -51,6 +58,11 @@ class AugmentConfig:
     p_gamma_inverted: float = 0.1
     p_gamma: float = 0.3
     gamma_range: tuple = (0.7, 1.5)
+    # elastic deformation (off in nnU-Net's moreDA configuration)
+    do_elastic: bool = False
+    p_eldef: float = 0.2
+    elastic_magnitude: tuple = (0.0, 6.0)   # voxels of largest displacement
+    elastic_grid: int = 4                   # the coarse field's downscale factor
     # anisotropic volumes: rotate only in-plane (about the leading axis)
     dummy_2d: bool = False
 
@@ -61,11 +73,15 @@ NO_AUGMENT = AugmentConfig(do_rotation=False, do_scaling=False, do_mirror=False,
 
 
 def draw_params(batch: int, dim: int, cfg: AugmentConfig,
-                generator: torch.Generator, device: torch.device) -> dict:
+                generator: torch.Generator, device: torch.device,
+                patch: tuple | None = None) -> dict:
     """Every per-sample parameter of one batch, as tensors on ``device``
     with a leading batch axis; a transform whose gate is closed gets its
     identity value (angle 0, scale 1, zoom pitch 1, multiplier 1) or a
-    False flag."""
+    False flag.  With ``cfg.do_elastic`` (which needs ``patch``) the
+    elastic magnitude, its gate and the coarse field ``[B, dim, *coarse]``
+    are drawn after all the others, so the other draws do not depend on
+    it."""
 
     def u(lo=0.0, hi=1.0, *shape):
         r = torch.rand((batch,) + shape, generator=generator, device=device)
@@ -95,7 +111,53 @@ def draw_params(batch: int, dim: int, cfg: AugmentConfig,
         p[f"do_{name}"] = gate(prob)
     p["mirror"] = u(0.0, 1.0, dim) < 0.5 if cfg.do_mirror \
         else torch.zeros((batch, dim), dtype=torch.bool, device=device)
+    if cfg.do_elastic:
+        if patch is None or len(patch) != dim:
+            raise ValueError(f"the elastic field needs the {dim}D patch, got {patch}")
+        p["elastic"] = u(*cfg.elastic_magnitude)
+        p["do_elastic"] = gate(cfg.p_eldef)
+        p["elastic_field"] = u(-1.0, 1.0, dim,
+                               *(max(2, s // cfg.elastic_grid) for s in patch))
     return p
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic convolution kernel with a = -0.5 at ``|x|``."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, 0.0, out)
+
+
+def cubic_weights(n_in: int, n_out: int, device=None) -> torch.Tensor:
+    """``[n_in, n_out]`` f32 weights of ``jax.image.resize(method="cubic")``
+    along one axis (``jax/_src/image/scale.py:compute_weight_mat``):
+    half-pixel sample positions, the kernel widened by the downscale
+    factor when shrinking (antialiasing), each output column divided by
+    its sum, no clamping of indices at the borders, and a sample outside
+    the input's extent weighted 0."""
+    inv = 1.0 / (n_out / n_in)
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * inv - 0.5
+    x = (sample[None, :] - torch.arange(n_in, dtype=torch.float32, device=device)[:, None])
+    w = _keys_cubic(x.abs() / max(inv, 1.0))
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+def resize_cubic(x: torch.Tensor, shape) -> torch.Tensor:
+    """``x [..., *spatial]`` resized on its trailing ``len(shape)`` axes to
+    ``shape`` as ``jax.image.resize(method="cubic")`` does: one weight
+    matrix per axis, applied in turn; an axis whose size does not change
+    is left alone, as jax skips it."""
+    lead = x.dim() - len(shape)
+    for a, n_out in enumerate(shape):
+        n_in = x.shape[lead + a]
+        if n_in != n_out:
+            w = cubic_weights(n_in, n_out, x.device).to(x.dtype)
+            x = torch.movedim(torch.movedim(x, lead + a, -1) @ w, -1, lead + a)
+    return x
 
 
 def _rot_matrix(angles: torch.Tensor) -> torch.Tensor:
@@ -117,21 +179,25 @@ def _rot_matrix(angles: torch.Tensor) -> torch.Tensor:
 
 def spatial_coords(params: dict, patch, cfg: AugmentConfig, device) -> torch.Tensor:
     """[B, dim, *patch] sampling coordinates: the output grid snapped to
-    the low-resolution pitch, rotated and scaled about the patch centre."""
+    the low-resolution pitch, rotated and scaled about the patch centre,
+    then displaced by the elastic field."""
     dim = len(patch)
     base = torch.stack(torch.meshgrid(
         *[torch.arange(s, dtype=torch.float32, device=device) for s in patch],
         indexing="ij"))[None]                                   # [1, dim, *patch]
     shape = (-1,) + (1,) * (dim + 1)
     pitch = params["lowres"].reshape(shape)
-    snapped = torch.floor(base / pitch) * pitch
-    if not (cfg.do_rotation or cfg.do_scaling):
-        return snapped
-    center = torch.tensor([(s - 1) / 2.0 for s in patch], device=device).reshape(
-        (1, dim) + (1,) * dim)
-    g = (snapped - center).flatten(2)                            # [B, dim, P]
-    g = _rot_matrix(params["angles"]) @ g
-    return (g * params["scale"].reshape(-1, 1, 1)).reshape(snapped.shape) + center
+    coords = torch.floor(base / pitch) * pitch
+    if cfg.do_rotation or cfg.do_scaling:
+        center = torch.tensor([(s - 1) / 2.0 for s in patch], device=device).reshape(
+            (1, dim) + (1,) * dim)
+        g = (coords - center).flatten(2)                         # [B, dim, P]
+        g = _rot_matrix(params["angles"]) @ g
+        coords = (g * params["scale"].reshape(-1, 1, 1)).reshape(coords.shape) + center
+    if cfg.do_elastic:
+        mag = torch.where(params["do_elastic"], params["elastic"], 0.0).reshape(shape)
+        coords = coords + mag * resize_cubic(params["elastic_field"], patch)
+    return coords
 
 
 def _flat_index(idx: list, spatial) -> torch.Tensor:
@@ -240,7 +306,7 @@ def apply_params(data: torch.Tensor, seg: torch.Tensor, params: dict,
     def where(flag, new, old):
         return torch.where(flag.reshape((-1,) + (1,) * (old.dim() - 1)), new, old)
 
-    if cfg.do_rotation or cfg.do_scaling or cfg.p_lowres > 0:
+    if cfg.do_rotation or cfg.do_scaling or cfg.p_lowres > 0 or cfg.do_elastic:
         coords = spatial_coords(params, patch, cfg, data.device)
         data = sample_linear(data, coords, 0.0)
         seg = sample_nearest(seg.float(), coords, -1.0).to(seg.dtype)
@@ -281,7 +347,8 @@ def augment_batch(data: torch.Tensor, seg: torch.Tensor, cfg: AugmentConfig,
     for all ``B`` from the generator, which every rank seeds alike, and
     this rank keeps its rows, so N ranks augment as one rank would."""
     lo, hi, total = rows or (0, data.shape[0], data.shape[0])
-    params = draw_params(total, data.dim() - 2, cfg, generator, data.device)
+    params = draw_params(total, data.dim() - 2, cfg, generator, data.device,
+                         patch=tuple(data.shape[2:]))
     noise = torch.randn((total,) + tuple(data.shape[1:]), generator=generator,
                         device=data.device) if cfg.p_noise > 0 else None
     if (lo, hi) != (0, total):

@@ -51,13 +51,30 @@ from lifelong_nnunet_tpu_torch.training.trainers.ewc import EWCTrainer
 from lifelong_nnunet_tpu_torch.training.trainers.rw import RWTrainer
 from lifelong_nnunet_tpu_torch.utilities.synthetic import make_synthetic_task
 
-torch.set_num_threads(4)
+THREADS = 4
+torch.set_num_threads(THREADS)
 
 A, B, C = "Task097_SynthA", "Task098_SynthB", "Task099_SynthC"
 KW = dict(num_epochs=2, iters_per_epoch=2, val_iters=1, save_every=1, augment=False,
           patch_size=(16, 16, 16), base_num_features=4, max_num_features=16)
 TOL = 1e-4
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def threads():
+    """This module's runs at THREADS threads, whatever test module its
+    worker imported last (each module sets its own count at import, and
+    an xdist worker imports them all).  PyTorch's CPU conv sums its weight
+    gradient in an order that the thread count sets, and the gradient of
+    the first conv, which the InstanceNorm after it makes a small
+    difference of large sums, carries that roundoff into the trajectory:
+    at 1-3 threads EWC's fisher of it lands beyond one bf16 ulp of JAX's
+    (at 2, on 100 of task B's 108 entries, 8.8% of the largest)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(THREADS)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

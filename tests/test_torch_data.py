@@ -98,10 +98,11 @@ def _jax_draws(key, cfg, shape):
     keys = jax.random.split(key, 18)
     u = lambda k, lo=0.0, hi=1.0: float(jax.random.uniform(k, (), minval=lo, maxval=hi))
     k_rot, k_rotp, k_scale, k_scalep = jax.random.split(keys[0], 4)
-    angles = np.asarray(jax.random.uniform(k_rot, (3,), minval=-cfg.rot_max,
+    n_ang = 3 if dim == 3 else 1
+    angles = np.asarray(jax.random.uniform(k_rot, (n_ang,), minval=-cfg.rot_max,
                                            maxval=cfg.rot_max))
     if not (cfg.do_rotation and u(k_rotp) < cfg.p_rot):
-        angles = np.zeros(3, np.float32)
+        angles = np.zeros(n_ang, np.float32)
     scale = u(k_scale, *cfg.scale_range)
     scale = scale if cfg.do_scaling and u(k_scalep) < cfg.p_scale else 1.0
     lowres = u(keys[1], 1.0, 2.0)
@@ -118,6 +119,12 @@ def _jax_draws(key, cfg, shape):
         p[name], p[f"do_{name}"] = [u(kv, lo, hi)], [u(kd) < prob]
     km = jax.random.split(kg[4], dim)
     p["mirror"] = [[u(km[a]) < 0.5 for a in range(dim)]]
+    if cfg.do_elastic:
+        k_e, k_ep = jax.random.split(jax.random.fold_in(keys[0], 7))
+        p["elastic"], p["do_elastic"] = [u(k_e, *cfg.elastic_magnitude)], [u(k_ep) < cfg.p_eldef]
+        coarse = tuple(max(2, s // cfg.elastic_grid) for s in shape[:-1])
+        p["elastic_field"] = np.asarray(jax.random.uniform(
+            jax.random.fold_in(k_e, 1), (dim,) + coarse, minval=-1.0, maxval=1.0))[None]
     params = {k: torch.tensor(np.asarray(v, np.float32) if not k.startswith("do_")
                               and k != "mirror" else v) for k, v in p.items()}
     noise = np.moveaxis(np.asarray(jax.random.normal(keys[5], shape)), -1, 0)[None]
@@ -138,7 +145,18 @@ ONE_AT_A_TIME = {
     "gamma": dict(p_gamma=1.0),
     "mirror": dict(do_mirror=True),
     "moreDA defaults": None,
+    "elastic": dict(do_elastic=True, p_eldef=1.0),
+    "elastic+rotation+scaling+lowres": dict(do_elastic=True, p_eldef=1.0, do_rotation=True,
+                                            p_rot=1.0, do_scaling=True, p_scale=1.0,
+                                            p_lowres=1.0),
+    "elastic 2d": dict(do_elastic=True, p_eldef=1.0),
+    "elastic+rotation+scaling+lowres 2d": dict(do_elastic=True, p_eldef=1.0,
+                                               do_rotation=True, p_rot=1.0,
+                                               do_scaling=True, p_scale=1.0, p_lowres=1.0),
+    "moreDA defaults+elastic": dict(do_elastic=True),
 }
+# channels-last sample shapes; the others (12, 14, 10, 2)
+SHAPES = {"elastic 2d": (20, 14, 2), "elastic+rotation+scaling+lowres 2d": (20, 14, 2)}
 
 
 @pytest.mark.parametrize("name", list(ONE_AT_A_TIME))
@@ -147,14 +165,14 @@ def test_transform_matches_augment_one_gather_path(name):
     coordinate within f32 roundoff of a voxel border or half-voxel may fall
     on the other side in one package than in the other."""
     over = ONE_AT_A_TIME[name]
-    if over is None:
-        jcfg, tcfg = dataclasses.replace(ja.AugmentConfig(), spatial_mode="gather"), \
-            ta.AugmentConfig()
+    if over is None or name.startswith("moreDA defaults"):
+        jcfg = dataclasses.replace(ja.AugmentConfig(), spatial_mode="gather", **(over or {}))
+        tcfg = dataclasses.replace(ta.AugmentConfig(), **(over or {}))
     else:
         jcfg = dataclasses.replace(ja.NO_AUGMENT, spatial_mode="gather", **over)
         tcfg = dataclasses.replace(ta.NO_AUGMENT, **over)
     rng = np.random.RandomState(len(name))
-    shape = (12, 14, 10, 2)
+    shape = SHAPES.get(name, (12, 14, 10, 2))
     data = (rng.rand(*shape) * 2 - 0.3).astype(np.float32)
     seg = rng.randint(0, 3, size=shape[:-1]).astype(np.int8)
     for seed in range(3):
