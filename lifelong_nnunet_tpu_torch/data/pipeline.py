@@ -9,14 +9,23 @@ on the device inside the train step (``augment.py``), so one thread and a
 queue of depth 2 keep the device fed.  Under data parallelism each rank's
 sampler yields only that rank's rows of the global batch, so each rank's
 prefetcher moves only those.
+
+Spans and counters (``tracing.py``): ``prefetch.h2d`` on the thread, the
+pinning and the copy's enqueue, and ``prefetch.wait`` in ``next()``, the
+queue's get and the stream wait, each carrying the batch's number (its
+place in the queue, counted from 0); counters ``prefetch.next`` (calls of
+``next()``) and ``prefetch.empty`` (calls that found the queue empty).
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 
 import torch
+
+from .. import tracing
 
 
 class Prefetcher:
@@ -30,6 +39,7 @@ class Prefetcher:
         self.stream = torch.cuda.Stream(device) if self.cuda else None
         self.q: queue.Queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
+        self._taken = 0             # batches handed out by next()
         self.thread = threading.Thread(target=self._worker, daemon=True)
         self.thread.start()
 
@@ -40,16 +50,19 @@ class Prefetcher:
         return t.pin_memory().to(self.device, non_blocking=True)
 
     def _worker(self):
-        while not self._stop.is_set():
+        for seq in itertools.count():
+            if self._stop.is_set():
+                return
             try:
                 batch = self.sampler.next_batch()
-                if self.cuda:
-                    with torch.cuda.stream(self.stream):
-                        dev = {k: self._put(batch[k]) for k in ("data", "seg")}
-                        ready = torch.cuda.Event()
-                        ready.record(self.stream)
-                else:
-                    dev, ready = {k: self._put(batch[k]) for k in ("data", "seg")}, None
+                with tracing.span("prefetch.h2d", batch=seq):
+                    if self.cuda:
+                        with torch.cuda.stream(self.stream):
+                            dev = {k: self._put(batch[k]) for k in ("data", "seg")}
+                            ready = torch.cuda.Event()
+                            ready.record(self.stream)
+                    else:
+                        dev, ready = {k: self._put(batch[k]) for k in ("data", "seg")}, None
                 item = (dev, batch.get("keys"), ready)
             except Exception as e:        # surfaced to the consumer by next()
                 item = e
@@ -63,15 +76,19 @@ class Prefetcher:
                 return
 
     def next(self):
-        item = self.q.get()
-        if isinstance(item, Exception):
-            raise item
-        dev, keys, ready = item
-        if ready is not None:
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(ready)
-            for t in dev.values():
-                t.record_stream(stream)
+        tracing.count("prefetch.next")
+        tracing.count("prefetch.empty", self.q.empty())
+        with tracing.span("prefetch.wait", batch=self._taken):
+            item = self.q.get()
+            if isinstance(item, Exception):
+                raise item
+            self._taken += 1
+            dev, keys, ready = item
+            if ready is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(ready)
+                for t in dev.values():
+                    t.record_stream(stream)
         return dev, keys
 
     def __next__(self):

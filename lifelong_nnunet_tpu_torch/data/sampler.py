@@ -23,12 +23,18 @@ A 3D sampler gathers with the C++ engine (``data/native.py``, the JAX
 package's ``_next_batch_native``): the same draws, the patches copied on
 threads outside the interpreter lock; ``native=False`` keeps the numpy
 path, which the tests hold it to bit for bit.
+
+``next_batch`` is the span ``sampler.next_batch`` (``tracing.py``): the
+draws and the gather, carrying the batch's number, its place in the
+sampler's stream counted from 0 (a ``Prefetcher`` over a new sampler gives
+its batches the same numbers).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .. import tracing
 from . import native as native_gather
 from .dataset import PreprocessedDataset
 
@@ -62,6 +68,7 @@ class PatchSampler:
         self.oversample = oversample_foreground_percent
         self.native = bool(native) and self.dim == 3
         self.rng = np.random.RandomState(seed + 7919 * self.shard_index)
+        self.batches = 0            # batches drawn so far
 
     def _needs_fg(self, sample_idx: int) -> bool:
         """The nnU-Net rule at the global position of the node's sample
@@ -123,15 +130,17 @@ class PatchSampler:
 
     def next_batch(self) -> dict:
         """This sampler's rows of the next global batch."""
-        draws = [self._draw(i) for i in range(self.node_batch)][self.rows[0]:self.rows[1]]
-        keys = [case for case, _, _ in draws]
-        if self.native:
-            data, seg = native_gather.gather_patches(
-                [arr for _, arr, _ in draws], [lo for _, _, lo in draws], self.patch_size)
-            return {"data": data, "seg": seg, "keys": keys}
-        crops = [self._crop(arr, lo) for _, arr, lo in draws]
-        return {"data": np.stack([d for d, _ in crops]).astype(np.float32),
-                "seg": np.stack([s for _, s in crops]).astype(np.int8), "keys": keys}
+        with tracing.span("sampler.next_batch", batch=self.batches):
+            self.batches += 1
+            draws = [self._draw(i) for i in range(self.node_batch)][self.rows[0]:self.rows[1]]
+            keys = [case for case, _, _ in draws]
+            if self.native:
+                data, seg = native_gather.gather_patches(
+                    [arr for _, arr, _ in draws], [lo for _, _, lo in draws], self.patch_size)
+                return {"data": data, "seg": seg, "keys": keys}
+            crops = [self._crop(arr, lo) for _, arr, lo in draws]
+            return {"data": np.stack([d for d, _ in crops]).astype(np.float32),
+                    "seg": np.stack([s for _, s in crops]).astype(np.int8), "keys": keys}
 
     def __iter__(self):
         return self

@@ -15,6 +15,15 @@ model batches; ``volume_batch=1`` is the per-case path (one case at a
 time, f32 input: ``predict_case``'s numbers).  The two differ by the input's bfloat16 rounding, which the
 card's bfloat16 model applies anyway.  The ``2d`` configuration serves
 through both (2D-over-3D prediction in ``sliding_window.py``).
+
+Spans (``tracing.py``): ``serve.call`` over a call of
+``predict_from_folder``; on the worker threads, per case and carrying its
+name, ``serve.preprocess`` (children ``serve.read``, ``serve.crop``,
+``serve.resample``, ``serve.normalize``) and ``serve.finish`` (children
+``serve.restore``, ``serve.argmax``, ``serve.export``); on the calling
+thread ``serve.prep_wait``, the wait for a chunk's preprocessing, and
+``serve.tail_wait``, the wait for the last exports.  Counter
+``serve.cases``: the cases a call serves.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import numpy as np
 import torch
 from scipy import ndimage
 
+from .. import tracing
 from ..planning.fingerprint import crop_to_nonzero
 from ..planning.preprocess import normalize, resample_image
 from ..utilities.imageio import image_suffix, read_image, write_image
@@ -36,29 +46,33 @@ from .sliding_window import predict_sliding_window, predict_sliding_window_multi
 def preprocess_for_inference(image_files: list, plans, config_name: str):
     """Load + crop + resample + normalize one case. Returns (data [*sp, C]
     channels-last float32, props dict needed to undo)."""
-    imgs = [read_image(f) for f in image_files]
-    vols = []
-    for img in imgs:
-        d = np.asarray(img.data)
-        if d.ndim == 4:
-            vols.extend(d[..., c].astype(np.float32) for c in range(d.shape[3]))
-        else:
-            vols.append(d.astype(np.float32))
-    data = np.stack(vols, axis=0)
+    with tracing.span("serve.read"):
+        imgs = [read_image(f) for f in image_files]
+        vols = []
+        for img in imgs:
+            d = np.asarray(img.data)
+            if d.ndim == 4:
+                vols.extend(d[..., c].astype(np.float32) for c in range(d.shape[3]))
+            else:
+                vols.append(d.astype(np.float32))
+        data = np.stack(vols, axis=0)
     spacing = imgs[0].spacing
     orig_shape = data.shape[1:]
     # to plans space (coarsest axis first) — undone by restore_softmax
     tf = list(getattr(plans, "transpose_forward", [0, 1, 2]))
     sp_t = [spacing[a] for a in tf]
-    if tf != [0, 1, 2]:
-        data = np.ascontiguousarray(data.transpose([0] + [a + 1 for a in tf]))
-    data, _, bbox, mask = crop_to_nonzero(data, None)
+    with tracing.span("serve.crop"):
+        if tf != [0, 1, 2]:
+            data = np.ascontiguousarray(data.transpose([0] + [a + 1 for a in tf]))
+        data, _, bbox, mask = crop_to_nonzero(data, None)
     cfg = plans.config(config_name)
     target_spacing = np.array(cfg.spacing[-3:], dtype=np.float64)
-    data_r = resample_image(data, sp_t, target_spacing, is_seg=False)
-    mask_r = resample_image(mask[None].astype(np.float32), sp_t, target_spacing,
-                            is_seg=True)[0] > 0.5
-    data_n = normalize(data_r, plans, mask_r)
+    with tracing.span("serve.resample"):
+        data_r = resample_image(data, sp_t, target_spacing, is_seg=False)
+        mask_r = resample_image(mask[None].astype(np.float32), sp_t, target_spacing,
+                                is_seg=True)[0] > 0.5
+    with tracing.span("serve.normalize"):
+        data_n = normalize(data_r, plans, mask_r)
     props = {
         "original_shape": list(orig_shape),   # untransposed
         "original_spacing": list(spacing),    # untransposed
@@ -112,8 +126,10 @@ def remove_all_but_largest_component(seg: np.ndarray, labels=None) -> np.ndarray
 def finalize_case(probs: np.ndarray, props: dict, postprocess_labels=None):
     """Fold-ensembled softmax [*resampled, K] -> (seg, full softmax, props):
     undo resampling/crop/transpose, argmax, optional CC postprocessing."""
-    full = restore_softmax(probs, props)
-    seg = np.argmax(full, axis=-1).astype(np.uint8)
+    with tracing.span("serve.restore"):
+        full = restore_softmax(probs, props)
+    with tracing.span("serve.argmax"):
+        seg = np.argmax(full, axis=-1).astype(np.uint8)
     if postprocess_labels is not None:
         seg = remove_all_but_largest_component(seg, postprocess_labels)
     return seg, full, props
@@ -167,10 +183,18 @@ def case_files(input_folder: str) -> list:
     return [(c, sorted(fs)) for c, fs in sorted(cases.items())]
 
 
-def _finish_case(probs: np.ndarray, props: dict, postprocess_labels, out_file: str):
+def _preprocess(case: str, image_files: list, plans, config_name: str):
+    with tracing.span("serve.preprocess", case=case):
+        return preprocess_for_inference(image_files, plans, config_name)
+
+
+def _finish_case(case: str, probs: np.ndarray, props: dict, postprocess_labels,
+                 out_file: str):
     """The host tail of one case: undo, argmax, export."""
-    seg, _, props = finalize_case(probs, props, postprocess_labels)
-    export_segmentation(seg, props, out_file)
+    with tracing.span("serve.finish", case=case):
+        seg, _, props = finalize_case(probs, props, postprocess_labels)
+        with tracing.span("serve.export"):
+            export_segmentation(seg, props, out_file)
 
 
 def predict_from_folder(models_per_fold: list, plans, config_name: str,
@@ -188,45 +212,48 @@ def predict_from_folder(models_per_fold: list, plans, config_name: str,
     JAX package's chunked loop, softmax summed over folds);
     ``volume_batch=1`` serves case by case from the f32 input, as
     ``predict_case`` does."""
-    os.makedirs(output_folder, exist_ok=True)
-    ordered = case_files(input_folder)
-    written = []
-    with ThreadPoolExecutor(max_workers=io_workers) as pool:
-        prep = {}
+    with tracing.span("serve.call"):
+        os.makedirs(output_folder, exist_ok=True)
+        ordered = case_files(input_folder)
+        tracing.count("serve.cases", len(ordered))
+        written = []
+        with ThreadPoolExecutor(max_workers=io_workers) as pool:
+            prep = {}
 
-        def submit_prep(idx):
-            if 0 <= idx < len(ordered) and idx not in prep:
-                prep[idx] = pool.submit(preprocess_for_inference,
-                                        ordered[idx][1], plans, config_name)
+            def submit_prep(idx):
+                if 0 <= idx < len(ordered) and idx not in prep:
+                    prep[idx] = pool.submit(_preprocess, *ordered[idx], plans, config_name)
 
-        def case_out(case):
-            out_file = os.path.join(output_folder, f"{case}.nii.gz")
-            written.append(out_file)
-            return out_file
+            def case_out(case):
+                out_file = os.path.join(output_folder, f"{case}.nii.gz")
+                written.append(out_file)
+                return out_file
 
-        for i in range(lookahead + 1):
-            submit_prep(i)
-        exports = []
-        cfg = plans.config(config_name)
-        chunk_n = max(2 * volume_batch, 2) if volume_batch > 1 else 1
-        for i in range(0, len(ordered), chunk_n):
-            chunk = ordered[i:i + chunk_n]
-            pres = []
-            for j in range(len(chunk)):
-                pres.append(prep.pop(i + j).result())
-                submit_prep(i + j + lookahead + 1)
-            probs = None
-            for model in models_per_fold:
-                ps = predict_sliding_window_multi(
-                    model, [p[0] for p in pres],
-                    getattr(model, "patch_size", cfg.patch_size), plans.num_classes + 1,
-                    device=device, mirror_axes=(0, 1, 2) if do_tta else (),
-                    window_batch=window_batch, output="probs_bf16",
-                    input_bf16=volume_batch > 1, volume_batch=volume_batch)
-                probs = ps if probs is None else [a + b for a, b in zip(probs, ps)]
-            for (case, _), p, (_, props) in zip(chunk, probs, pres):
-                exports.append(pool.submit(_finish_case, p / len(models_per_fold), props,
-                                           postprocess_labels, case_out(case)))
-        for f in exports:
-            f.result()
-    return written
+            for i in range(lookahead + 1):
+                submit_prep(i)
+            exports = []
+            cfg = plans.config(config_name)
+            chunk_n = max(2 * volume_batch, 2) if volume_batch > 1 else 1
+            for i in range(0, len(ordered), chunk_n):
+                chunk = ordered[i:i + chunk_n]
+                pres = []
+                with tracing.span("serve.prep_wait"):
+                    for j in range(len(chunk)):
+                        pres.append(prep.pop(i + j).result())
+                        submit_prep(i + j + lookahead + 1)
+                probs = None
+                for model in models_per_fold:
+                    ps = predict_sliding_window_multi(
+                        model, [p[0] for p in pres],
+                        getattr(model, "patch_size", cfg.patch_size), plans.num_classes + 1,
+                        device=device, mirror_axes=(0, 1, 2) if do_tta else (),
+                        window_batch=window_batch, output="probs_bf16",
+                        input_bf16=volume_batch > 1, volume_batch=volume_batch)
+                    probs = ps if probs is None else [a + b for a, b in zip(probs, ps)]
+                for (case, _), p, (_, props) in zip(chunk, probs, pres):
+                    exports.append(pool.submit(_finish_case, case, p / len(models_per_fold),
+                                               props, postprocess_labels, case_out(case)))
+            with tracing.span("serve.tail_wait"):
+                for f in exports:
+                    f.result()
+        return written

@@ -18,6 +18,10 @@ thread, stream and model replica per device.  The JAX package's scatter, overlap
 stream with its program caps and compile-shape padding exist for TPU
 dispatch limits and are not ported; the card's memory holds the
 accumulator of any volume or group the slice serves.
+
+The volume stream's groups are spans (``tracing.py``): ``sw.pad_stack``
+(the host's pad and stack), ``sw.upload``, ``sw.overlap_add`` (the window
+loop, timed on the device too) and ``sw.download``.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+from .. import tracing
 
 
 def compute_steps(image_size, patch_size, step_fraction: float = 0.5) -> list:
@@ -169,7 +175,7 @@ def _overlap_add(model, vols: torch.Tensor, origins, patch_size, num_classes: in
     one ``[K, V, *padded]`` buffer); the Gaussian weights are the same for
     all of them.  Returns ``[V, *padded, K]`` float32 (rounded through
     bfloat16 for ``probs_bf16``) or ``[V, *padded]`` uint8 (``seg``), on the
-    host.  For ``seg`` on the ``regular`` grid each window's weighted
+    device.  For ``seg`` on the ``regular`` grid each window's weighted
     probabilities are rounded to bfloat16 before the f32 sum, as the JAX
     package's overlap-add cores keep their window buffer; its irregular
     grid sums them in f32."""
@@ -201,7 +207,7 @@ def _overlap_add(model, vols: torch.Tensor, origins, patch_size, num_classes: in
             out = (acc * (1.0 / weight)).movedim(0, -1)
             if output == "probs_bf16":
                 out = out.to(torch.bfloat16).float()
-        return out.cpu().numpy()
+        return out
 
 
 def predict_sliding_window(model, data: np.ndarray, patch_size,
@@ -236,7 +242,7 @@ def predict_sliding_window(model, data: np.ndarray, patch_size,
     host = np.pad(stack, ((0, 0),) + pads + ((0, 0),))
     out = _overlap_add(model, _upload(host, device, input_bf16), origins, patch_size,
                        num_classes, mirror_axes, window_batch, use_gaussian, output,
-                       _regular(patch_size, step_fraction))
+                       _regular(patch_size, step_fraction)).cpu().numpy()
     out = out[(slice(None),) + undo]
     return out if over_3d else out[0]
 
@@ -275,9 +281,15 @@ def predict_sliding_window_multi(model, volumes: list, patch_size, num_classes: 
     def flush():
         if not group:
             return
-        host = np.stack([np.pad(v, pads + ((0, 0),)) for _, v, pads, _, _ in group])
-        out = _overlap_add(model, _upload(host, device, input_bf16), group[0][4], patch_size,
-                           num_classes, mirror_axes, window_batch, True, output, regular)
+        with tracing.span("sw.pad_stack"):
+            host = np.stack([np.pad(v, pads + ((0, 0),)) for _, v, pads, _, _ in group])
+        with tracing.span("sw.upload"):
+            vols = _upload(host, device, input_bf16)
+        with tracing.span("sw.overlap_add", device=True):
+            out = _overlap_add(model, vols, group[0][4], patch_size, num_classes, mirror_axes,
+                               window_batch, True, output, regular)
+        with tracing.span("sw.download"):
+            out = out.cpu().numpy()
         for (i, _, _, undo, _), r in zip(group, out):
             results[i] = r[undo]
         group.clear()

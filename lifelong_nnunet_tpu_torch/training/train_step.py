@@ -5,7 +5,11 @@
 One call augments the batch on its device, runs the forward, the
 deep-supervision loss, the backward, the clip and the optimizer step, and
 returns the loss and the hard tp/fp/fn of the full-resolution output as
-device tensors (nothing waits for the device).
+device tensors (nothing waits for the device).  Its spans (``tracing.py``):
+``train.step`` over the call, carrying the step's ordinal, and the device
+times of its phases ``step.augment``, ``step.forward`` (with the loss),
+``step.backward`` (with the gradient all-reduce) and ``step.optimizer``
+(with ``cl_state_update`` and the clip).
 
 Under data parallelism (``cfg.dp``) the step is GSPMD's on the global
 batch: augmentation draws for the whole batch and keeps the rank's rows,
@@ -23,11 +27,13 @@ neither.
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 from typing import Callable
 
 import torch
 
+from .. import tracing
 from ..data.augment import AugmentConfig, augment_batch
 from ..ops.losses import deep_supervision_loss, online_eval_counts
 
@@ -71,34 +77,44 @@ def make_train_step(model, optimizer, cfg: StepConfig,
     if cfg.augment is not None and generator is None:
         raise ValueError("augmentation needs a torch.Generator on the batch's device")
 
+    ordinal = itertools.count()
+
     def train_step(cl_state, batch: dict):
-        data, seg = batch["data"], batch["seg"]
-        if cfg.augment is not None:
-            data, seg = augment_batch(data, seg, cfg.augment, generator, rows=cfg.rows)
-        seg = seg.long()
-        optimizer.zero_grad()
-        outputs, taps = model(data, capture_taps=True) if needs_taps else (model(data), None)
-        model_out = {"outputs": outputs, "taps": taps}
-        aux = {}
-        if replace_base:
-            loss, aux = loss_extras(model, cl_state, model_out, {"data": data, "seg": seg})
-        else:
-            loss = deep_supervision_loss(outputs, seg, cfg.ds_factors, cfg.batch_dice,
-                                         dp=cfg.dp)
-            if loss_extras is not None:
-                extra, aux = loss_extras(model, cl_state, model_out,
-                                         {"data": data, "seg": seg})
-                loss = loss + extra
-        loss.backward()
-        if cfg.dp is not None:
-            cfg.dp.all_reduce_grads(optimizer.all_params)
-        if add_grad is not None:
-            add_grad()
-        if cl_state_update is not None:
-            cl_state = cl_state_update(cl_state, model, loss.detach())
-        optimizer.step()
-        tp, fp, fn = online_eval_counts(outputs[0].detach(), seg, cfg.num_classes, dp=cfg.dp)
-        return cl_state, {"loss": loss.detach(), "tp": tp, "fp": fp, "fn": fn, **aux}
+        with tracing.span("train.step", step=next(ordinal)):
+            data, seg = batch["data"], batch["seg"]
+            with tracing.span("step.augment", device=True):
+                if cfg.augment is not None:
+                    data, seg = augment_batch(data, seg, cfg.augment, generator, rows=cfg.rows)
+                seg = seg.long()
+            optimizer.zero_grad()
+            with tracing.span("step.forward", device=True):
+                outputs, taps = model(data, capture_taps=True) if needs_taps \
+                    else (model(data), None)
+                model_out = {"outputs": outputs, "taps": taps}
+                aux = {}
+                if replace_base:
+                    loss, aux = loss_extras(model, cl_state, model_out,
+                                            {"data": data, "seg": seg})
+                else:
+                    loss = deep_supervision_loss(outputs, seg, cfg.ds_factors, cfg.batch_dice,
+                                                 dp=cfg.dp)
+                    if loss_extras is not None:
+                        extra, aux = loss_extras(model, cl_state, model_out,
+                                                 {"data": data, "seg": seg})
+                        loss = loss + extra
+            with tracing.span("step.backward", device=True):
+                loss.backward()
+                if cfg.dp is not None:
+                    cfg.dp.all_reduce_grads(optimizer.all_params)
+                if add_grad is not None:
+                    add_grad()
+            with tracing.span("step.optimizer", device=True):
+                if cl_state_update is not None:
+                    cl_state = cl_state_update(cl_state, model, loss.detach())
+                optimizer.step()
+            tp, fp, fn = online_eval_counts(outputs[0].detach(), seg, cfg.num_classes,
+                                            dp=cfg.dp)
+            return cl_state, {"loss": loss.detach(), "tp": tp, "fp": fp, "fn": fn, **aux}
 
     return train_step
 
