@@ -98,8 +98,13 @@ Phases (one line each; any failure raises, so the exit code is not 0):
      of the CT U-Net (B=2 and B=64) and its data gradient (B=2), bf16, with
      phases 2 and 5's limits, per shape at B=64 its time, cuDNN's F.conv3d
      beside it and its device time by kernel (the conv, the split-K reduce,
-     the finish); then the InstanceNorm kernels at every CT shape they run
-     at (forward at B=2 and B=64, backward at B=2; f32 and bf16) as phase 1
+     the finish); then the weight-gradient kernel against its plain version
+     in f32 at the CT step's 17 stride-1 shapes (B=2), a second run bit for
+     bit, and its device time per CT train step beside the plain version,
+     the library's TF32 route on f32 copies that it replaced and the library
+     on the bf16 tensors (lifelong_nnunet_tpu_torch/tools/wgrad_probe.py in
+     a process of its own); then the InstanceNorm kernels at every CT shape
+     they run at (forward at B=2 and B=64, backward at B=2; f32 and bf16) as phase 1
      holds them, and their device time per forward or step as phase 1
      gives it;
   10. the CT path: a 160^3 synthetic task planned to nnU-Net's CT
@@ -356,7 +361,10 @@ path each form's count must equal what the plan predicts for the path's
 shapes) and with ``yardstick_ms``, F.instance_norm's time, which is not the
 same function); the pack's row by form too (``launches_by_form``: tma,
 scalar; on the CT paths every launch in the tma form, as its plan
-predicts); the last line is ``{"ok": true,
+predicts); the weight gradient's row, ``conv3d_wgrad``, counts its
+launches on the kernel (bf16 at stride 1; f32 input and stride 2 take the
+library and count nothing), its error relative to max |plain|, with
+``tf32_route_ms``, the library route it replaced; the last line is ``{"ok": true,
 "device": {...}}``.  Work files go to build/chip_smoke/ and are removed at the end.
 The script imports only the port, never the JAX package, and fails if any
 of lifelong_nnunet_tpu, jax, flax, optax, msgpack or sklearn was imported
@@ -419,7 +427,8 @@ from lifelong_nnunet_tpu_torch.ops.kernels.attention import (  # noqa: E402
     flash_attention, flash_attention_bwd, flash_attention_fwd, plain_attention_bwd,
     plain_attention_fwd)
 from lifelong_nnunet_tpu_torch.ops.kernels.conv3d import (  # noqa: E402
-    conv3d_dx_cf, conv3d_in_lrelu_cf, plain_conv3d_dx, plain_conv3d_in_lrelu)
+    conv3d_dx_cf, conv3d_in_lrelu_cf, conv3d_weight_grad, plain_conv3d_dx,
+    plain_conv3d_in_lrelu, plain_conv3d_weight_grad)
 from lifelong_nnunet_tpu_torch.ops.kernels.instance_norm import (  # noqa: E402
     FORMS, card_limits, instance_norm_leaky_bwd_cf, instance_norm_leaky_cf, launch_plan,
     plain_instance_norm_leaky, plain_instance_norm_leaky_bwd)
@@ -635,6 +644,7 @@ def _library_dgrad(dy, x, w):
 COUNTED = {"conv3d_in_lrelu": conv3d_in_lrelu_cf,
            "instance_norm_leaky": instance_norm_leaky_cf,
            "conv3d_dx": conv3d_dx_cf,
+           "conv3d_wgrad": conv3d_weight_grad,
            "instance_norm_leaky_bwd": instance_norm_leaky_bwd_cf,
            "flash_attention": flash_attention,
            "flash_attention_bwd": flash_attention_bwd,
@@ -1665,6 +1675,50 @@ def _ct_conv_phase(blocks, dev, gen, batches=(TRAIN_BATCH, CT_SERVE_BATCH),
     return res
 
 
+WGRAD_PROBE = os.path.join(ROOT, "lifelong_nnunet_tpu_torch", "tools", "wgrad_probe.py")
+
+
+def _ct_wgrad_phase(blocks, dev, gen) -> dict:
+    """Phase 9, the weight-gradient kernel at CT scale: at every stride-1
+    (Cin, Cout, spatial) of the CT U-Net (the 17 of the train step,
+    ``wgrad_probe.CT``) at the train batch, bf16 x and dy against the plain
+    version in f32 (TF32 off) on the same inputs: every product is exact in
+    f32 on both sides, and the kernel's sums run on the tensor cores, up to
+    ~8000 k16 additions a partial that are not rounded to nearest, so
+    |kernel - plain| <= 5e-4 max|plain| (8000 x 2^-24 = 4.8e-4;
+    tests/test_torch_conv3d_wgrad.py); a second run equal bit for bit; each
+    launch counted on the kernel.  Then, from wgrad_probe.py in a process of
+    its own, the device time per CT train step of the kernel, of the plain
+    version, of the library's TF32 weight gradient on f32 copies (the route
+    it replaced) and of the library on the bf16 tensors, and the bound.
+    Returns the largest error and the probe's sums."""
+    from lifelong_nnunet_tpu_torch.tools import wgrad_probe
+    shapes = sorted((in_shape[0], out_shape[0], in_shape[1:])
+                    for _, m, in_shape, out_shape in blocks if m.conv.stride == (1, 1, 1))
+    assert shapes == sorted(wgrad_probe.CT), shapes
+    torch.backends.cudnn.allow_tf32 = False
+    err = 0.0
+    for cin, cout, sp in shapes:
+        x, w, dy = wgrad_probe.inputs(dev, gen, TRAIN_BATCH, cin, cout, sp)
+        before = _counts()
+        got = conv3d_weight_grad(x, w, dy)
+        after = _counts()
+        assert after["conv3d_wgrad"] == before["conv3d_wgrad"] + 1, (before, after)
+        assert torch.equal(got, conv3d_weight_grad(x, w, dy)), (cin, cout, sp)
+        ref = plain_conv3d_weight_grad(x, w, dy)
+        gap = (got - ref).abs().max().item() / ref.abs().max().item()
+        assert bool(torch.isfinite(got).all()) and gap <= 5e-4, (cin, cout, sp, gap)
+        err = max(err, gap)
+        del x, w, dy, got, ref
+    torch.cuda.empty_cache()
+    probe = subprocess.run([sys.executable, WGRAD_PROBE, "--reps", "5"], capture_output=True,
+                           text=True)
+    assert probe.returncode == 0, probe.stderr[-3000:]
+    last = json.loads(probe.stdout.strip().splitlines()[-1])
+    assert last["card"] == _card() and last["launches"] == len(shapes), last
+    return {"err": err, "shapes": len(shapes), **last["per_step"]}
+
+
 def _ct_in_phase(blocks, model, dev, gen, probe) -> tuple:
     """Phase 9, the InstanceNorm kernels at CT scale: the forward at the
     outputs of the CT U-Net's cuDNN and blocked convs at the train batch (2)
@@ -1744,7 +1798,13 @@ def _ct_path(ct_dir, plans, blocks, model, work, pre, results, dev) -> dict:
     fwd = {"conv3d_in_lrelu": n["fused"], "instance_norm_leaky": n["conv"] + n["blocked"],
            "pack_blocks": n["blocked"], "unpack_blocks": n["blocked"],
            "interleave_up2": n_up}
+    # the weight gradient's kernel in every fused block and every stride-1
+    # blocked one (the blocked route's stride 2 takes the library)
+    n_wgrad = sum(routes[name] == "fused" or (routes[name] == "blocked"
+                                              and m.conv.stride == (1, 1, 1))
+                  for name, m, _, _ in blocks)
     bwd = {"conv3d_dx": n_dx["fused"], "instance_norm_leaky_bwd": len(routes),
+           "conv3d_wgrad": n_wgrad,
            "pack_blocks": n_dx["blocked"], "unpack_blocks": n_dx["blocked"],
            "deinterleave2": n_up}
 
@@ -2003,7 +2063,8 @@ def _train_expect(dev, shapes, batch, steps, vals, progress, fisher=0, attn=0) -
     fwd = back + vals + len(progress)
     return _expect(
         conv3d_in_lrelu=n_fused * fwd, instance_norm_leaky=n_strided * fwd,
-        conv3d_dx=(n_fused - 1) * back, instance_norm_leaky_bwd=(n_fused + n_strided) * back,
+        conv3d_dx=(n_fused - 1) * back, conv3d_wgrad=n_fused * back,
+        instance_norm_leaky_bwd=(n_fused + n_strided) * back,
         flash_attention=attn * fwd, flash_attention_bwd=attn * back,
         **_in_forms(dev, fwd=_at(_rows([o for f, _, o in shapes if not f]),
                                  [(batch, back + vals)] + [(b, 1) for b in progress]),
@@ -2083,9 +2144,10 @@ def _path_expect(blocks, model, dev, runs) -> dict:
     unpack), an interleave per admitted upsample; per backward every
     block's InstanceNorm backward, the data gradient of every stride-1
     block but the first (on the fused kernel, or the blocked conv's pack
-    and unpack), a de-interleave per interleave; the InstanceNorm's and the
-    pack's launches in the forms their plans give."""
-    counts, fwd_in, bwd_in, packs = {}, [], [], {}
+    and unpack), the weight gradient's kernel in every fused block and
+    every stride-1 blocked one, a de-interleave per interleave; the InstanceNorm's and the pack's
+    launches in the forms their plans give."""
+    counts, fwd_in, bwd_in, packs = {"conv3d_wgrad": 0}, [], [], {}
     for batch, fwd, bwd in runs:
         work = _ct_work(blocks, model, batch)
         routes = work["route"]
@@ -2094,6 +2156,9 @@ def _path_expect(blocks, model, dev, runs) -> dict:
             counts[key] = counts.get(key, 0) + fwd
             if routes[name] == "fused" and i > 0:
                 counts["conv3d_dx"] = counts.get("conv3d_dx", 0) + bwd
+            if routes[name] == "fused" or (routes[name] == "blocked"
+                                           and m.conv.stride == (1, 1, 1)):
+                counts["conv3d_wgrad"] += bwd
         counts["instance_norm_leaky_bwd"] = \
             counts.get("instance_norm_leaky_bwd", 0) + len(routes) * bwd
         for kind, names in (("pack", ("pack_blocks",)), ("unpack", ("unpack_blocks",)),
@@ -4782,7 +4847,7 @@ def main() -> int:
         steps, val_steps = TRAIN_EPOCHS * TRAIN_ITERS, TRAIN_EPOCHS * VAL_ITERS
         expect = _expect(conv3d_in_lrelu=n_fused * (steps + val_steps),
                          instance_norm_leaky=n_strided * (steps + val_steps),
-                         conv3d_dx=(n_fused - 1) * steps,
+                         conv3d_dx=(n_fused - 1) * steps, conv3d_wgrad=n_fused * steps,
                          instance_norm_leaky_bwd=(n_fused + n_strided) * steps,
                          **_in_forms(dev, fwd=_at(strided, [(b2, steps + val_steps)]),
                                      bwd=_at(_rows([o for _, _, o in shapes]),
@@ -4879,7 +4944,7 @@ def main() -> int:
         v_rows = _rows([o for f, _, o in vit_shapes if not f])
         expect = _expect(conv3d_in_lrelu=v_fused * (steps + val_steps),
                          instance_norm_leaky=v_strided * (steps + val_steps),
-                         conv3d_dx=(v_fused - 1) * steps,
+                         conv3d_dx=(v_fused - 1) * steps, conv3d_wgrad=v_fused * steps,
                          instance_norm_leaky_bwd=(v_fused + v_strided) * steps,
                          flash_attention=n_attn * (steps + val_steps),
                          flash_attention_bwd=n_attn * steps,
@@ -5025,6 +5090,18 @@ def main() -> int:
               f"(statistics + normalize) {finish['finish']:.3f} ms of {finish['ms']:.3f} ms",
               flush=True)
 
+        wgrad = _ct_wgrad_phase(ct_blocks, dev, gen)
+        print(f"[phase 9] weight-gradient kernel at the CT shapes: {wgrad['shapes']} fused "
+              f"convs (B={TRAIN_BATCH}), bf16 x and dy, against the plain version in f32: "
+              f"max |kernel - plain| / max |plain| {wgrad['err']:.3e} (limit 5e-4), second "
+              f"runs equal bit for bit, every launch on the kernel; per CT train step, device "
+              f"time ({os.path.relpath(WGRAD_PROBE, ROOT)}): kernel {wgrad['kernel_ms']:.3f} ms "
+              f"({wgrad['share']:.3f} of the bound {wgrad['bound_ms']:.3f} ms, "
+              f"{wgrad['bound_by']}), "
+              f"plain {wgrad['plain_ms']:.3f} ms, library TF32 on f32 copies (the route it "
+              f"replaced) {wgrad['library_tf32_ms']:.3f} ms, library on the bf16 tensors "
+              f"{wgrad['library_bf16_ms']:.3f} ms", flush=True)
+
         ct_in_err, ct_in = _ct_in_phase(ct_blocks, model_ct, dev, gen, in_t)
         for name, g in ct_in.items():
             print(f"[phase 9]   IN {name}, bf16, device time (in_probe.py): {_in_text(g, dev)}",
@@ -5125,6 +5202,11 @@ def main() -> int:
          dx_err[torch.float32],
          dxf_ms, dxf_plain_ms, dxf_bound, dxf_lib_ms,
          f"train step at B={TRAIN_BATCH}, f32 input, FMA kernel"),
+        ("conv3d_wgrad", "conv3d_wgrad.cu",
+         f"none (XLA's weight gradient, {pallas}/conv3d.py:351)", wgrad["err"],
+         wgrad["kernel_ms"], wgrad["plain_ms"], (wgrad["bound_ms"], wgrad["bound_by"]),
+         wgrad["library_bf16_ms"],
+         f"CT train step at B={TRAIN_BATCH} ({wgrad['shapes']} launches), bf16, device time"),
         ("instance_norm_leaky_bwd", "instance_norm.cu", f"{pallas}/instance_norm.py:122", inb_err,
          inb_t["ms"], inb_t["plain_ms"], (inb_t["bound_ms"], "bytes"), None,
          f"train step at B={TRAIN_BATCH}, device time"),
@@ -5172,6 +5254,9 @@ def main() -> int:
                 form: sum(c[f"{name}.{form}"] for c in paths.values()) for form in FORMS}
             kernels[-1]["yardstick_ms"] = (in_t["hippo_fwd_b64"] if name == IN_FORMED[0]
                                            else inb_t)["yard_ms"]
+        if name == "conv3d_wgrad":
+            # beside the library on the bf16 tensors, the route it replaced
+            kernels[-1]["tf32_route_ms"] = wgrad["library_tf32_ms"]
         if name in ("interleave_up2", "deinterleave2"):
             # the whole upsample on the octant route, beside the library's
             kernels[-1]["route_ms"] = copies[name]["route_ms"]

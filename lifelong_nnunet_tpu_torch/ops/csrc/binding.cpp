@@ -302,6 +302,42 @@ void conv3d_tc_fwd(const torch::Tensor& x, const torch::Tensor& w, const torch::
                                c10::cuda::getCurrentCUDAStream().stream()));
 }
 
+int64_t conv3d_wgrad_workspace_len(int64_t B, int64_t cin, int64_t cout, int64_t D,
+                                   int64_t H, int64_t W, int64_t splits) {
+  return lnn_conv3d_wgrad_workspace_len(as_int(B, "B"), as_int(cin, "Cin"), as_int(cout, "Cout"),
+                                        as_int(D, "D"), as_int(H, "H"), as_int(W, "W"),
+                                        as_int(splits, "splits"));
+}
+
+// The weight gradient on the tensor cores: x [B, Cin, D, H, W] and dy [B,
+// Cout, D, H, W] bf16, 16-byte aligned; dw [Cout, Cin, 3, 3, 3] f32;
+// workspace conv3d_wgrad_workspace_len floats (any tensor when splits == 1).
+void conv3d_wgrad_tc(const torch::Tensor& x, const torch::Tensor& dy, const torch::Tensor& dw,
+                     const torch::Tensor& workspace, int64_t splits) {
+  check(x, x, "x");
+  TORCH_CHECK(x.dim() == 5 && x.scalar_type() == torch::kBFloat16,
+              "x must be [B, Cin, D, H, W] bfloat16");
+  check(dy, x, "dy");
+  TORCH_CHECK(dy.dim() == 5 && dy.scalar_type() == torch::kBFloat16 && dy.size(0) == x.size(0) &&
+                  dy.size(2) == x.size(2) && dy.size(3) == x.size(3) && dy.size(4) == x.size(4),
+              "dy must be [B, Cout, D, H, W] bfloat16");
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(x.data_ptr()) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(dy.data_ptr()) % 16 == 0,
+              "x and dy must be 16-byte aligned");
+  const int B = as_int(x.size(0), "B"), cin = as_int(x.size(1), "Cin"),
+            cout = as_int(dy.size(1), "Cout"), D = as_int(x.size(2), "D"),
+            H = as_int(x.size(3), "H"), W = as_int(x.size(4), "W");
+  check_f32(dw, x, int64_t(cout) * cin * 27, "dw");
+  const int s = as_int(splits, "splits");
+  if (s > 1)
+    check_f32(workspace, x, lnn_conv3d_wgrad_workspace_len(B, cin, cout, D, H, W, s),
+              "workspace");
+  const c10::cuda::CUDAGuard guard(x.device());
+  C10_CUDA_CHECK(lnn_conv3d_wgrad_tc(x.data_ptr(), dy.data_ptr(), dw.data_ptr<float>(),
+                                     s > 1 ? workspace.data_ptr<float>() : nullptr, B, cin, cout,
+                                     D, H, W, s, c10::cuda::getCurrentCUDAStream().stream()));
+}
+
 // t: on q's device, contiguous, q's shape and dtype; 16-byte aligned for
 // the tensor-core kernels, which copy it 16 bytes at a time
 void check_like(const torch::Tensor& t, const torch::Tensor& q, const char* what, bool tc) {
@@ -551,6 +587,12 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "the tensor-core fused forward keeping ycf, mean and inv for the backward");
   m.def("conv3d_tc_fwd", &conv3d_tc_fwd,
         "the conv alone on the tensor cores, the data gradient of bf16 input");
+  m.def("conv3d_wgrad_workspace_len", &conv3d_wgrad_workspace_len,
+        "floats of split workspace for one tensor-core weight-gradient call (0 without a "
+        "split)");
+  m.def("conv3d_wgrad_tc", &conv3d_wgrad_tc,
+        "the fused conv's weight gradient on the tensor cores, bf16 x and dy "
+        "(conv3d_wgrad.cu)");
   m.def("pack_blocks", &pack_blocks, "halo'd block pack (block_pack.cu)");
   m.def("pack_tma_layout", &pack_tma_layout,
         "box row, box bytes and shared memory of the pack's TMA form (block_pack.cu)");

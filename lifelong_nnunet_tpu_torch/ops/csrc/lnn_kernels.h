@@ -113,6 +113,20 @@ cudaError_t lnn_conv3d_tc(const void* x, const void* w, const float* scale,
                           int H, int W, int splits, float slope, float eps,
                           LnnDtype out_dtype, cudaStream_t stream);
 
+// The weight gradient of that conv on the tensor cores (bf16 x bf16 -> f32):
+// x [B, Cin, D, H, W] and dy [B, Cout, D, H, W] bf16, both 16-byte
+// aligned; dw [Cout, Cin, 3, 3, 3] f32 = sum over b and the voxels o of
+// dy[b, co, o] x[b, ci, o + k - 1] (zero outside the volume).  The 4x8x8
+// voxel boxes of all B items are split into `splits` runs of
+// ceil(boxes / splits), none empty; workspace:
+// lnn_conv3d_wgrad_workspace_len floats of their partials (null when
+// splits == 1), summed in split order.
+long long lnn_conv3d_wgrad_workspace_len(int B, int Cin, int Cout, int D, int H, int W,
+                                         int splits);
+cudaError_t lnn_conv3d_wgrad_tc(const void* x, const void* dy, float* dw, float* workspace,
+                                int B, int Cin, int Cout, int D, int H, int W, int splits,
+                                cudaStream_t stream);
+
 // Non-causal flash attention forward, f32 FMA on the CUDA cores: the entry
 // of f32 input.  q, k, v, o [BH, N, HD] f32, contiguous, HD 64 or 80;
 // o = softmax(q k^T * scale) v; lse [BH, N] f32, the row log-sum-exp of the

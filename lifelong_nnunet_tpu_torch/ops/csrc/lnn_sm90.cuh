@@ -2,7 +2,7 @@
 // into shared memory (`cp.async`), the fence that hands shared memory
 // written by threads to the async proxy, and warpgroup matrix products
 // (`wgmma`) with their fence / commit / wait and shared-memory descriptors,
-// shared by conv3d_in_lrelu.cu and flash_attention.cu; the Tensor Memory
+// shared by conv3d_in_lrelu.cu, conv3d_wgrad.cu and flash_attention.cu; the Tensor Memory
 // Accelerator's tiled loads (`cp.async.bulk.tensor`) and the `mbarrier`s
 // they complete on, used by block_pack.cu.
 #pragma once
@@ -101,6 +101,11 @@ static __device__ __forceinline__ void wgmma_commit() {
 }
 static __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// wait until at most N of the warpgroup's committed groups are in flight
+template <int N>
+static __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // D[64 x n] += A[64 x 16] B[16 x n], bf16 -> f32, both operands in shared

@@ -4,7 +4,8 @@ backward: the port of ``lifelong_nnunet_tpu/ops/pallas/conv3d.py::conv3d_in_lrel
 
 The CUDA kernels live in ``ops/csrc/conv3d_in_lrelu.cu`` (the conv with its
 statistics and the normalizing finish; the conv alone for the data
-gradient) and ``ops/csrc/instance_norm.cu`` (the InstanceNorm backward).  A
+gradient), ``ops/csrc/conv3d_wgrad.cu`` (the weight gradient) and
+``ops/csrc/instance_norm.cu`` (the InstanceNorm backward).  A
 tensor on the CPU goes through the plain PyTorch versions beside them
 (:func:`plain_conv3d_in_lrelu`, :func:`plain_conv3d_in_lrelu_bwd`); a CUDA
 tensor launches the kernels or raises, whatever its shape.  The conv has
@@ -12,8 +13,9 @@ two kernels, chosen by the input dtype: bf16 (training and serving) runs
 the implicit GEMM on the tensor cores, on weights packed by
 :func:`tc_weight` and split as :func:`tc_splits` says; f32 runs the f32 FMA
 kernel on the CUDA cores, so an f32 check is not rounded to bf16 or TF32.
-The wrappers count every launch in ``launches`` and the tensor-core ones
-again in ``tc_launches``.
+The conv's and the data gradient's wrappers count every launch in
+``launches`` and the tensor-core ones again in ``tc_launches``; the weight
+gradient's counts its one kernel's launches in ``launches``.
 
 Where autograd records the call, :class:`Conv3dINLReLU` runs the training
 forward (the raw conv output ``ycf`` and the f32 mean / inv kept beside the
@@ -21,9 +23,11 @@ output), and its backward runs, as ``_fused_bwd`` does: the InstanceNorm
 backward on ``ycf`` (the wrapper of ``instance_norm.py``), the data
 gradient as the same conv of dy with the taps flipped and Cin / Cout
 swapped (a kernel, launched only when the input needs a gradient), and the
-weight gradient by the library (``aten.convolution_backward``, f32
-accumulation), as the JAX package leaves it to XLA.  The CPU runs the same
-steps through the wrappers' plain versions.
+weight gradient (:func:`conv3d_weight_grad`): for bf16 x and dy, the
+training dtype, a kernel on the tensor cores with f32 accumulation, split
+over the voxels as :func:`wgrad_plan` says; for f32 input the library's
+(``aten.convolution_backward``), as the JAX package leaves it to XLA.  The
+CPU runs the same steps through the wrappers' plain versions.
 
 ``conv3d_in_lrelu`` keeps the JAX signature (channels-last ``x [B, D, H, W,
 Cin]``, ``w [3, 3, 3, Cin, Cout]``); ``conv3d_in_lrelu_cf`` is the
@@ -37,6 +41,7 @@ parameter does in the JAX package, so the optimizer still decays it.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -97,17 +102,14 @@ def plain_conv3d_dx(dy: torch.Tensor, w: torch.Tensor, out_dtype=None) -> torch.
     return F.conv3d(dy, _dx_weight(w).to(dy.dtype), padding=1).to(_out_dtype(dy, out_dtype))
 
 
-def conv3d_weight_grad(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
-                       stride=_ONES) -> torch.Tensor:
-    """dw of the 3x3x3 SAME conv at ``stride`` (``_fused_bwd``'s XLA
-    weight-grad, ``conv3d.py:351-360``; the blocked route's, ``block_pack.py:
-    334-341``), accumulated in f32 and returned in w's dtype: the
-    library's weight gradient on x and dy cast to f32.  On the card cuDNN
-    rounds those inputs to TF32 where ``torch.backends.cudnn.allow_tf32``
-    lets it (PyTorch's default).  With bf16 activations, the training dtype,
-    that rounds nothing (a bf16 value is a TF32 value) and dw is the f32
-    result; with f32 activations it is TF32's, as XLA's default precision
-    for an f32 conv on a TPU is not full f32 either."""
+def plain_conv3d_weight_grad(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                             stride=_ONES) -> torch.Tensor:
+    """dw of the 3x3x3 SAME conv at ``stride``, accumulated in f32 and
+    returned in w's dtype: the library's weight gradient on x and dy cast
+    to f32.  On the card cuDNN rounds those inputs to TF32 where
+    ``torch.backends.cudnn.allow_tf32`` lets it (PyTorch's default): with
+    f32 activations dw is then TF32's, as XLA's default precision for an
+    f32 conv on a TPU is not full f32 either."""
     return torch.ops.aten.convolution_backward(
         dy.float(), x.float(), w.float(), None, tuple(stride), _ONES, _ONES, False,
         (0, 0, 0), 1, (False, True, False))[1].to(w.dtype)
@@ -124,7 +126,7 @@ def plain_conv3d_in_lrelu_bwd(x: torch.Tensor, w: torch.Tensor, scale: torch.Ten
     dy, dscale, doffset = plain_instance_norm_leaky_bwd(
         ycf, scale, offset, mean, inv, g, negative_slope, dx_dtype=x.dtype)
     dx = plain_conv3d_dx(dy, w, x.dtype) if need_dx else None
-    return dx, conv3d_weight_grad(x, w, dy), dscale, doffset
+    return dx, plain_conv3d_weight_grad(x, w, dy), dscale, doffset
 
 
 def _check(x, w, scale, offset, dt) -> None:
@@ -269,6 +271,89 @@ def conv3d_dx_cf(dy: torch.Tensor, w: torch.Tensor, out_dtype=None) -> torch.Ten
 
 
 conv3d_dx_cf.launches = conv3d_dx_cf.tc_launches = 0
+
+
+# the weight-gradient kernel's tiling (conv3d_wgrad.cu, namespace wg): a
+# block holds the dw tile of one chunk of WG_CHUNK input channels at the 27
+# taps (a single input channel's taps folded into one chunk) against 32 or
+# 64 output channels (``tc_n_tile``), and walks a run of WG_BOX voxel boxes
+WG_BOX = (4, 8, 8)
+WG_CHUNK = 16
+
+
+class WgradPlan(NamedTuple):
+    """The launch of one weight gradient on the tensor cores: ``n_tiles``
+    output-channel tiles of ``n_tile``, ``chunks`` input-channel chunks,
+    ``boxes`` voxel boxes (``per_item`` per batch item, in the order item,
+    d, h, w) in ``splits`` runs of ``per_split`` (the last may be shorter);
+    the grid is (splits, n_tiles, chunks), and the splits' f32 partials
+    ([splits, Cout, Cin, 27]) are summed in split order."""
+    n_tile: int
+    n_tiles: int
+    chunks: int
+    per_item: int
+    boxes: int
+    splits: int
+    per_split: int
+
+    def split_boxes(self, split: int) -> range:
+        """The boxes split ``split`` walks, in order."""
+        return range(split * self.per_split, min(self.boxes, (split + 1) * self.per_split))
+
+    def workspace_len(self, cin: int, cout: int) -> int:
+        return self.splits * cout * cin * 27 if self.splits > 1 else 0
+
+
+def wgrad_plan(batch: int, cin: int, cout: int, spatial) -> WgradPlan:
+    """The weight-gradient kernel's launch plan, a pure function of the
+    shape: as many splits of the voxel boxes as fit the blocks of the
+    channel tiles into one wave on TC_SMS SMs (one block an SM), none
+    empty; a single run where the channel tiles alone fill the SMs."""
+    n_tile = tc_n_tile(cout)
+    n_tiles, chunks = -(-cout // n_tile), -(-cin // WG_CHUNK)
+    per_item = math.prod(-(-s // t) for s, t in zip(spatial, WG_BOX))
+    boxes = batch * per_item
+    want = min(boxes, max(1, TC_SMS // (n_tiles * chunks)))
+    per_split = -(-boxes // want)
+    return WgradPlan(n_tile, n_tiles, chunks, per_item, boxes, -(-boxes // per_split),
+                     per_split)
+
+
+def conv3d_weight_grad(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                       stride=_ONES) -> torch.Tensor:
+    """dw of the 3x3x3 SAME conv at ``stride`` (``_fused_bwd``'s XLA
+    weight-grad, ``conv3d.py:351-360``; the blocked route's, ``block_pack.py:
+    334-341``), accumulated in f32 and returned in w's dtype.  bf16 x and
+    dy on the card at stride 1, the training path, run the tensor-core
+    kernel: bf16 x bf16 products exact in f32, summed in f32, as the
+    library's TF32 path on f32 copies computes them (a bf16 value is a TF32
+    value), in another order.  f32 input (the f32 checks) and stride 2 (the
+    blocked route's strided convs) take :func:`plain_conv3d_weight_grad`'s
+    library call on the card too; a CPU tensor takes it as the plain
+    version.  ``launches`` counts the kernel's launches alone."""
+    if x.device.type == "cpu":
+        return plain_conv3d_weight_grad(x, w, dy, stride)
+    if x.dtype != torch.bfloat16 or tuple(stride) != _ONES:
+        return plain_conv3d_weight_grad(x, w, dy, stride)
+    dev = build.require_cuda(x, w, dy)
+    if dy.dtype != x.dtype or x.dim() != 5 or w.dim() != 5 or dy.dim() != 5 \
+            or tuple(w.shape[1:]) != (x.shape[1], 3, 3, 3) \
+            or tuple(dy.shape) != (x.shape[0], w.shape[0]) + tuple(x.shape[2:]):
+        raise ValueError(f"conv3d_weight_grad takes bf16 x [B, Cin, D, H, W], w [Cout, Cin, "
+                         f"3, 3, 3] and dy [B, Cout, D, H, W] in x's dtype; got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}, {tuple(dy.shape)} {dy.dtype}")
+    B, cin, D, H, W = x.shape
+    cout = w.shape[0]
+    plan = wgrad_plan(B, cin, cout, (D, H, W))
+    dw = torch.empty((cout, cin, 3, 3, 3), dtype=torch.float32, device=dev)
+    ws = torch.empty(plan.workspace_len(cin, cout), dtype=torch.float32, device=dev)
+    build.load_extension().conv3d_wgrad_tc(x.contiguous(), dy.contiguous(), dw, ws,
+                                           plan.splits)
+    conv3d_weight_grad.launches += 1
+    return dw.to(w.dtype)
+
+
+conv3d_weight_grad.launches = 0
 
 
 class Conv3dINLReLU(torch.autograd.Function):

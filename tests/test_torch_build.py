@@ -28,7 +28,7 @@ def _launchers() -> list:
 
 def test_one_load_builds_every_source_for_sm_90a():
     names = [p.name for p in build.sources()]
-    assert names == ["binding.cpp", "block_pack.cu", "conv3d_in_lrelu.cu",
+    assert names == ["binding.cpp", "block_pack.cu", "conv3d_in_lrelu.cu", "conv3d_wgrad.cu",
                      "flash_attention.cu", "instance_norm.cu", "interleave.cu"]
     assert "-gencode=arch=compute_90a,code=sm_90a" in build.CUDA_FLAGS
 
@@ -50,6 +50,7 @@ def test_the_header_declares_the_launchers():
                             "lnn_conv3d_in_lrelu_train_fwd", "lnn_conv3d_fwd",
                             "lnn_conv3d_tc_weight_len", "lnn_conv3d_tc_partials_len",
                             "lnn_conv3d_tc_workspace_len", "lnn_conv3d_tc",
+                            "lnn_conv3d_wgrad_workspace_len", "lnn_conv3d_wgrad_tc",
                             "lnn_flash_attention_fwd", "lnn_flash_attention_bwd",
                             "lnn_flash_attention_tc_fwd", "lnn_flash_attention_tc_bwd",
                             "lnn_pack_tma_layout", "lnn_pack_blocks", "lnn_unpack_blocks",

@@ -25,6 +25,7 @@ from lifelong_nnunet_tpu_torch.ops.kernels.conv3d import (
     TC_BOX, TC_CHUNK, TC_SMS, _dx_weight, _kernel_forward, conv3d_dx_cf, conv3d_in_lrelu,
     conv3d_in_lrelu_cf, plain_conv3d_dx, plain_conv3d_in_lrelu, plain_conv3d_in_lrelu_train,
     tc_n_tile, tc_splits, tc_weight)
+from lifelong_nnunet_tpu_torch.tools.wgrad_probe import CT, unet_fused_shapes
 
 torch.set_num_threads(2)
 
@@ -137,26 +138,7 @@ def test_kernel_matches_plain_on_cuda(cuda_device, dtype, atol):
 
 # ---- the tensor-core kernel (bf16 input)
 
-def _unet_fused_shapes(patch, pools, cin=1, base=32, top=320):
-    """(Cin, Cout, spatial) of every stride-1 fused conv of nnU-Net's 3D
-    U-Net on ``patch`` with ``pools`` (features doubling from ``base`` to
-    ``top``): the first block and every second encoder block, the
-    bottleneck's second, and both blocks of every decoder stage (the first
-    on the skip concatenated with the upsampled map)."""
-    sizes, feats = [tuple(patch)], [base]
-    for p in pools:
-        sizes.append(tuple(s // k for s, k in zip(sizes[-1], p)))
-        feats.append(min(2 * feats[-1], top))
-    shapes = [(cin, base, sizes[0]), (base, base, sizes[0])]
-    shapes += [(f, f, sp) for f, sp in zip(feats[1:], sizes[1:])]
-    for f_up, f, sp in zip(feats[:0:-1], feats[-2::-1], sizes[-2::-1]):
-        shapes += [(2 * f, f, sp), (f, f, sp)]
-    del f_up
-    return shapes
-
-
-HIPPOCAMPUS = _unet_fused_shapes((56, 80, 56), [(2, 2, 2)] * 3 + [(1, 2, 1)])
-CT = _unet_fused_shapes((128, 128, 128), [(2, 2, 2)] * 5)
+HIPPOCAMPUS = unet_fused_shapes((56, 80, 56), [(2, 2, 2)] * 3 + [(1, 2, 1)])
 
 
 def test_fused_shape_lists_match_the_plans():
